@@ -1,0 +1,550 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
+
+  1. device: the card's name and power limit, and the kernel build time;
+  2. main path at the sift100m deployment's widths (d = 128, a 256 x 256
+     vocabulary tree, k = 20, the search_32k batch): ``build_tree`` on a
+     2^20-row sample, ``build_index`` on 2^24 quantized SIFT-like rows
+     (bf16 wire; 2^25 index rows with the routing padding), and
+     ``batch_search`` of 2^15 queries with ``impl="pallas"`` (l2topk in
+     every wave), ``impl="fused"`` (one fusedscan launch), and ``"fused"``
+     at probes = 2. It checks zero overflows, equal results on both search
+     paths, the launch counts, in-leaf top-1 exactness against a brute-force
+     scan of the query's leaf for 256 queries, and prints recall@1 against
+     the exact full-corpus nearest neighbour;
+  3. kernels against their plain PyTorch versions at the main path's own
+     shapes and inputs: ids and distances bit for bit (the data are
+     integers, so every fp32 sum is exact). fusedscan runs the main path's
+     call (the whole 2^25-row shard against the padded 2^15-row lookup)
+     and is held against the plain version on 256 sampled lookup rows,
+     which scans the whole shard in point chunks. Integers in [0, 255] are
+     exact in TF32 and bf16 as well, so each kernel is also run on the
+     same inputs moved off the integer grid and held within the fp32 error
+     bound of a float64 oracle (``kernels/fp32_bound.py``); the plain
+     version computed in TF32 must break that bound, or the check fails.
+     Prints the kernel's, the plain version's and one PyTorch yardstick's
+     time, and the roofline bound of the same work.
+
+Prints one JSON line of per-kernel numbers, then as its last line
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+when no CUDA device is present or any phase fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+DIM = 128
+FANOUTS = (256, 256)
+K = 20
+SAMPLE_ROWS = 2**20
+INDEX_ROWS = 2**24
+CHUNK_ROWS = 2**20
+N_QUERIES = 2**15
+Q_CAP = 1024
+BLOCK_ROWS = 4096
+N_CHECK = 256  # queries checked against brute force
+K1_WAVES = 64  # distinct waves the l2topk kernel is timed over
+N_SAMPLE = 256  # lookup rows the fusedscan output is checked on
+CHUNK_POINTS = 2**20  # point rows per chunk of the sampled plain version
+N_REAL_WAVES = 8  # l2topk waves of the real-valued check
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync_now() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def time_ms(fn, args_list, warmup: int = 2) -> tuple[float, float]:
+    """(ms, wall_ms) per call of ``fn(*args)`` over ``args_list``, from CUDA
+    events around the whole run, after a warm-up.
+
+    ``wall_ms``: the host issues the calls as it goes, so the card may wait
+    for it between calls. ``ms``: the stream is first held by a spin kernel
+    long enough for the host to enqueue every call, so the calls run back
+    to back and the events see device time only (none of the timed calls
+    synchronises inside, which would drain the hold).
+    """
+    for args in args_list[:warmup]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for args in args_list:
+        fn(*args)
+    end.record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / len(args_list)
+    torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9))  # cycles at <= 2 GHz
+    start.record()
+    for args in args_list:
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / len(args_list), wall
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """fp32 matmuls in TF32 inside (the port keeps them in fp32)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def jitter(x, g):
+    """``x`` moved by uniform noise in [-0.5, 0.5): rows in the same range
+    but off the integer grid, so neither TF32 nor bf16 holds them exactly."""
+    return torch.rand(x.shape, generator=g, device=x.device).sub_(0.5).add_(x)
+
+
+def real_check(name, kernel_ratio, tf32_ratio):
+    """Raise unless the kernel's real-valued error is within the fp32 bound
+    and the TF32 control's is not (else the check could not see TF32)."""
+    if not kernel_ratio <= 1.0:
+        raise AssertionError(f"{name}: real-valued error {kernel_ratio} x the "
+                             f"fp32 bound")
+    if not tf32_ratio > 1.0:
+        raise AssertionError(f"{name}: the plain version in TF32 stays within "
+                             f"the fp32 bound ({tf32_ratio} x), so the check "
+                             f"cannot tell TF32 from fp32")
+    return kernel_ratio, tf32_ratio
+
+
+def chunked_plain(rt, points, leaves, q, qleaves, k):
+    """The l2topk plain version over a whole shard, in point chunks folded
+    by (distance, shard row): (dists (Q,k), shard rows (Q,k), -1 where none).
+    Equals one pass, whose (P, Q) matrix would not fit."""
+    best_d = torch.full((q.shape[0], k), torch.inf, device=q.device)
+    best_r = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=q.device)
+    for s in range(0, points.shape[0], CHUNK_POINTS):
+        e = s + CHUNK_POINTS
+        d, r = rt.l2_topk_ref(points[s:e], leaves[s:e], q, qleaves, k)
+        best_d, best_r = rt.fold_topk(best_d, best_r, d, torch.where(r >= 0, r + s, -1))
+    return best_d, best_r
+
+
+def make_corpus(rt, n: int, seed: int, dev, mixture):
+    """(n, DIM) quantized SIFT-like rows on ``dev``, made in chunks of
+    ``CHUNK_ROWS`` (chunk c from seed ``seed * 1009 + c``) on host threads;
+    numpy's generators release the interpreter lock while they fill."""
+    out = torch.empty((n, DIM), dtype=torch.float32, device=dev)
+    starts = list(range(0, n, CHUNK_ROWS))
+
+    def chunk(c):
+        m = min(CHUNK_ROWS, n - starts[c])
+        return rt.synth.sample_descriptors(m, DIM, mixture=mixture,
+                                           seed=seed * 1009 + c)[0]
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for c, x in enumerate(pool.map(chunk, range(len(starts)))):
+            out[starts[c]:starts[c] + x.shape[0]] = torch.from_numpy(x).to(dev)
+    return out
+
+
+def run_main_path(rt, args, dev, sizes):
+    """Drive build_tree -> build_index -> batch_search; return what the
+    checks and the kernel phase need."""
+    mix = rt.synth.make_mixture(256, DIM, seed=args.seed)
+    t0 = sync_now()
+    corpus = make_corpus(rt, sizes["index_rows"], args.seed, dev, mix)
+    # copy-detection queries: indexed descriptors under a small distortion
+    # (each coordinate moved by -4..4, kept in [0, 255]: still integers)
+    g = torch.Generator().manual_seed(args.seed + 1)
+    src = torch.randint(0, sizes["index_rows"], (sizes["n_queries"],), generator=g)
+    noise = torch.randint(-4, 5, (sizes["n_queries"], DIM), generator=g)
+    queries = (corpus[src.to(dev)] + noise.to(dev)).clamp(0, 255).contiguous()
+    log(f"data: {sizes['index_rows']} index rows, {sizes['n_queries']} queries "
+        f"in {sync_now() - t0:.3f} s (host generation)")
+
+    t0 = sync_now()
+    tree = rt.build_tree(corpus[: sizes["sample_rows"]], sizes["fanouts"],
+                         generator=torch.Generator().manual_seed(args.seed),
+                         device=dev)
+    t_tree = sync_now() - t0
+    t0 = sync_now()
+    index = rt.build_index(corpus, tree, wire_dtype=torch.bfloat16, device=dev)
+    t_index = sync_now() - t0
+    del corpus  # the index holds every row (bf16 is exact on integers)
+    torch.cuda.empty_cache()
+    log(f"build_tree {t_tree:.3f} s, build_index {t_index:.3f} s: "
+        f"{index.rows} rows, n_valid {int(index.n_valid[0])}, "
+        f"overflow {int(index.overflow)}")
+    if int(index.overflow) != 0:
+        raise AssertionError("index routing overflow")
+
+    results, times = {}, {}
+    k1_before = rt.l2_topk.launches
+    for name, impl, probes in (("pallas", "pallas", 1), ("fused", "fused", 1),
+                               ("fused_p2", "fused", 2)):
+        t0 = sync_now()
+        res = rt.batch_search(index, tree, queries, sizes["k"], probes=probes,
+                              q_cap=sizes["q_cap"], block_rows=sizes["block_rows"],
+                              impl=impl, device=dev)
+        times[name] = sync_now() - t0
+        results[name] = res
+        if name == "pallas":
+            k1_wave_launches = rt.l2_topk.launches - k1_before
+        log(f"batch_search {name}: {times[name]:.3f} s, pairs "
+            f"{float(res.pairs):.0f}, q_cap_overflow {int(res.q_cap_overflow)}")
+    return dict(index=index, tree=tree, queries=queries, results=results,
+                times=dict(times, build_tree=t_tree, build_index=t_index),
+                k1_wave_launches=k1_wave_launches)
+
+
+def check_main_path(rt, run, sizes, seed):
+    index, tree, queries, res = run["index"], run["tree"], run["queries"], run["results"]
+    for name, r in res.items():
+        if int(r.q_cap_overflow) != 0:
+            raise AssertionError(f"{name}: q_cap overflow")
+        if r.ids.shape != (sizes["n_queries"], sizes["k"]):
+            raise AssertionError(f"{name}: shape {tuple(r.ids.shape)}")
+        if not torch.isfinite(r.dists[:, 0]).all():
+            raise AssertionError(f"{name}: a query found no neighbour")
+    a, b = res["pallas"], res["fused"]
+    if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            and torch.equal(a.pairs, b.pairs)):
+        raise AssertionError("l2topk and fusedscan search paths differ")
+    n_waves = index.rows // sizes["block_rows"]
+    if run["k1_wave_launches"] != n_waves:
+        raise AssertionError(f"l2topk launched {run['k1_wave_launches']} "
+                             f"times for {n_waves} waves")
+
+    # in-leaf top-1 against a brute-force scan of the query's leaf
+    g = torch.Generator().manual_seed(seed)
+    pick = torch.randperm(sizes["n_queries"], generator=g)[:N_CHECK].to(queries.device)
+    q = queries[pick]
+    qleaf = rt.tree_assign(tree, q).long()
+    offs = index.offsets[0].long()
+    exact = 0
+    for j in range(N_CHECK):
+        lo, hi = int(offs[qleaf[j]]), int(offs[qleaf[j] + 1])
+        d2 = ((index.vecs[lo:hi] - q[j]) ** 2).sum(1)
+        best = lo + int(torch.argmin(d2))  # first minimum = lowest shard row
+        exact += int(index.ids[best]) == int(a.ids[pick[j], 0])
+    if exact != N_CHECK:
+        raise AssertionError(f"in-leaf top-1 exact for {exact}/{N_CHECK}")
+
+    # recall@1 against the exact nearest neighbour over the whole corpus
+    nv = int(index.n_valid[0])
+    qn = (q * q).sum(1)
+    best_d = torch.full((N_CHECK,), float("inf"), device=q.device)
+    for s in range(0, nv, 2**22):
+        v = index.vecs[s:min(nv, s + 2**22)]
+        d2 = qn[:, None] - 2.0 * (q @ v.T) + (v * v).sum(1)[None, :]
+        best_d = torch.minimum(best_d, d2.min(1).values)
+    recall = {name: float((r.dists[pick, 0] == best_d).float().mean())
+              for name, r in res.items()}
+    log(f"in-leaf top-1 exact {exact}/{N_CHECK}; recall@1 vs exact full-corpus "
+        f"NN: probes=1 {recall['pallas']}, probes=2 {recall['fused_p2']}")
+    return recall
+
+
+def kernel_checks(rt, run, sizes, seed):
+    """Each kernel against its plain version at the main path's shapes."""
+    index, tree, queries = run["index"], run["tree"], run["queries"]
+    dev, k, B = index.vecs.device, sizes["k"], sizes["block_rows"]
+    g = torch.Generator(device=dev).manual_seed(seed + 2)  # real-valued noise
+    out = []
+
+    def record(name, src, replaces, launches, max_err, real, kern, plain, bnd,
+               lib, **extra):
+        out.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                        launches=launches, max_abs_err=max_err, ms=kern[0],
+                        plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
+                        library_ms=lib and lib[0], wall_ms=kern[1],
+                        fp32_bound_ratio=real[0], tf32_bound_ratio=real[1],
+                        **extra))
+        log(f"{name}: {kern[0]} ms back to back, {kern[1]} ms wall per call; "
+            f"plain {plain[0]} ms, {plain[1]} ms wall; library "
+            f"{lib and lib[0]} ms, {lib and lib[1]} ms wall; bound {bnd[0]} ms "
+            f"by {bnd[1]}; main-path launches {launches}; max_abs_err {max_err}; "
+            f"real-valued error {real[0]} x the fp32 bound (TF32 plain "
+            f"{real[1]} x){'; ' + json.dumps(extra) if extra else ''}")
+
+    def equal(kernel_out, plain_out, what):
+        """Max |distance| difference of a kernel's (dists, ids) against its
+        plain version's; raises unless the two are bitwise equal."""
+        (da, ia), (db, ib) = kernel_out, plain_out
+        fin = torch.isfinite(db)
+        err = float((da[fin] - db[fin]).abs().max()) if fin.any() else 0.0
+        if not (torch.equal(da, db) and torch.equal(ia, ib)):
+            raise AssertionError(f"{what}: kernel differs from its plain version "
+                                 f"(max |d| {err})")
+        return err
+
+    lk = rt.build_lookup(tree, queries, probes=1)  # sorted by leaf
+    lk_leaves, lk_offsets = lk.leaves, lk.offsets
+
+    # --- K1 l2topk: real waves of the main path with their query slabs ---
+    d = index.vecs.shape[1]
+    mid = int(index.n_valid[0]) // 2 // B * B
+    waves = []
+    for i in range(sizes["k1_waves"]):
+        s = mid + i * B
+        plf = index.leaves[s:s + B]
+        start = int(lk_offsets[int(plf[0])].clamp(0, lk.n_queries - sizes["q_cap"]))
+        sl = slice(start, start + sizes["q_cap"])
+        waves.append((index.vecs[s:s + B], plf, lk.vecs[sl].contiguous(),
+                      lk_leaves[sl].contiguous()))
+    pairs = sum(int(rt.count_pairs(w[1], w[3])) for w in waves)
+    err = max(equal(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), "l2topk")
+              for w in waves)
+    ratios = []
+    for p, plf, q, qlf in waves[:N_REAL_WAVES]:
+        p, q = jitter(p, g), jitter(q, g)
+        exact, _, tol = rt.topk_f64(p, plf, q, qlf, k)
+        runs = [rt.l2_topk(p, plf, q, qlf, k=k)]
+        with tf32_matmuls():
+            runs.append(rt.l2_topk_ref(p, plf, q, qlf, k))
+        ratios.append([rt.topk_error_ratio(*r, p, q, exact, tol) for r in runs])
+    real = real_check("l2topk", max(r[0] for r in ratios), max(r[1] for r in ratios))
+    kern = time_ms(lambda *w: rt.l2_topk(*w, k=k), waves)
+    plain = time_ms(lambda *w: rt.l2_topk_ref(*w, k), waves)
+
+    def lib_topk(p, plf, q, qlf):
+        d2 = torch.where(qlf[:, None] == plf[None, :],
+                         torch.addmm((p * p).sum(1)[None, :], q, p.T, alpha=-2.0),
+                         torch.inf)
+        return torch.topk(d2, k, dim=1, largest=False)
+
+    lib = time_ms(lib_topk, waves)
+    nw = len(waves)
+    byt = nw * (B * d * 4 + B * 4 + sizes["q_cap"] * (d * 4 + 4) + sizes["q_cap"] * k * 8)
+    bnd = bound(byt / nw, (pairs * 2 * d + nw * B * 2 * d) / nw)
+    record("l2topk", "src/repro_torch/csrc/l2topk.cu",
+           "src/repro/kernels/l2topk/kernel.py:105", run["launches"]["l2topk"],
+           err, real, kern, plain, bnd, lib)
+
+    # --- K2 fusedscan: the main path's call, the whole shard against the
+    # padded probes=1 lookup. Each output row depends on its own lookup row
+    # only, so the plain version (which forms a (P, rows) matrix) is run on
+    # sampled lookup rows, over the whole shard in point chunks ---
+    n = queries.shape[0]
+    fplan = rt.make_plan(rows=index.rows, n_leaves=index.n_leaves, n_queries=n,
+                         n_shards=1, k=k, probes=1, impl="fused", block_rows=B,
+                         q_cap=sizes["q_cap"])
+    flk = rt.pad_lookup(lk, rt.lookup_q_total(fplan, n))
+    full = (index.vecs, index.leaves, index.ids, flk.vecs, flk.leaves)
+    kd, ki = rt.fused_topk(*full, k=k)
+    real_rows = torch.nonzero(flk.leaves >= 0)[:, 0]
+    gs = torch.Generator().manual_seed(seed + 3)
+    pick = real_rows[torch.randperm(real_rows.numel(), generator=gs)[:sizes["n_sample"]]
+                     .to(dev)].sort().values
+    sq, sl = flk.vecs[pick], flk.leaves[pick]
+
+    def plain_sample(q, qlf):
+        return rt.map_ids(*chunked_plain(rt, index.vecs, index.leaves, q, qlf, k),
+                          index.ids)
+
+    want = plain_sample(sq, sl)
+    if not torch.isfinite(want[0][:, 0]).all():
+        raise AssertionError("fusedscan: a sampled lookup row has no same-leaf point")
+    err = equal((kd[pick], ki[pick]), want, "fusedscan")
+    kern = time_ms(lambda *a: rt.fused_topk(*a, k=k), [full] * 5, warmup=1)
+    plain = time_ms(plain_sample, [(sq, sl)], warmup=1)
+    nl = index.n_leaves
+    pl = index.leaves[(index.leaves >= 0) & (index.leaves < nl)].long()
+    hp = torch.bincount(pl, minlength=nl)
+    hq = torch.bincount(flk.leaves[flk.leaves >= 0].long(), minlength=nl)
+    need = int(hp[hq > 0].sum())  # points whose leaf some lookup row holds
+    pairs = int((hp * hq).sum())
+    Q = flk.vecs.shape[0]
+    bnd = bound(need * (d * 4 + 8) + Q * (d * 4 + 4) + Q * k * 8,
+                pairs * 2 * d + need * 2 * d)
+    del kd, ki, want
+    # real-valued: the same call on rows off the integer grid, shard rows
+    # as ids so that the result names rows
+    noisy, nq = jitter(index.vecs, g), jitter(flk.vecs, g)
+    rows_as_ids = torch.arange(index.rows, dtype=torch.int32, device=dev)
+    nd, nr = rt.fused_topk(noisy, index.leaves, rows_as_ids, nq, flk.leaves, k=k)
+    sq = nq[pick]
+    exact, _, tol = rt.topk_f64(noisy, index.leaves, sq, sl, k,
+                                chunk_rows=CHUNK_POINTS)
+    with tf32_matmuls():
+        ctrl = chunked_plain(rt, noisy, index.leaves, sq, sl, k)
+    real = real_check(
+        "fusedscan",
+        rt.topk_error_ratio(nd[pick], nr[pick], noisy, sq, exact, tol),
+        rt.topk_error_ratio(*ctrl, noisy, sq, exact, tol))
+    del noisy, nq, nd, nr, rows_as_ids
+    torch.cuda.empty_cache()
+    # no single PyTorch call fits: the (P, Q) distance matrix is 4 TB
+    record("fusedscan", "src/repro_torch/csrc/fusedscan.cu",
+           "src/repro/kernels/fusedscan/kernel.py:206", run["launches"]["fusedscan"],
+           err, real, kern, plain, bnd, None, rows=Q, plain_rows=pick.numel(),
+           points_needed=need, pairs=pairs)
+
+    # --- K3 l2nn: tree level 0 against the build_tree sample's shape ---
+    n = sizes["sample_rows"]
+    x = index.vecs[:n]
+    c = tree.levels[0]
+    err = equal(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1], "l2nn")
+    xr, cr = jitter(x, g), jitter(c, g)
+    kr = rt.nearest_error_ratio(*rt.l2_nearest(xr, cr), xr, cr)
+    with tf32_matmuls():
+        cr_ratio = rt.nearest_error_ratio(*rt.l2_nearest_ref(xr, cr), xr, cr)
+    real = real_check("l2nn", kr, cr_ratio)
+    del xr, cr
+    kern = time_ms(lambda x, c: rt.l2_nearest(x, c), [(x, c)] * 10)
+    plain = time_ms(lambda x, c: rt.l2_nearest_ref(x, c), [(x, c)] * 5)
+    lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), [(x, c)] * 5)
+    C = c.shape[0]
+    bnd = bound(n * d * 4 + C * d * 4 + n * 8, n * C * 2 * d + (n + C) * 2 * d)
+    record("l2nn", "src/repro_torch/csrc/l2nn.cu",
+           "src/repro/kernels/l2nn/kernel.py:60", run["launches"]["l2nn"],
+           err, real, kern, plain, bnd, lib)
+    return out
+
+
+def trace_searches(rt, run, sizes):
+    """Device busy time of each search path (``torch.profiler``), against
+    the wall time of the same search in the main-path run."""
+    index, tree, queries = run["index"], run["tree"], run["queries"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, impl in (("pallas", "pallas"), ("fused", "fused")):
+        with torch.profiler.profile(activities=acts) as prof:
+            rt.batch_search(index, tree, queries, sizes["k"], q_cap=sizes["q_cap"],
+                            block_rows=sizes["block_rows"], impl=impl,
+                            device=index.device)
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's device time repeats its kernels'
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ev) / 1e6
+        wall = run["times"][name]
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+        log(f"trace {name}: device busy {busy} s of {wall} s wall "
+            f"(idle share {1 - busy / wall}); top device time: " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / 1e3} ms x{e.count}"
+                for e in top))
+
+
+class Port:
+    """The port's entry points and kernel wrappers, imported from ``src``."""
+
+    def __init__(self):
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        import repro_torch
+        from repro_torch.core.engine.plan import plan as make_plan
+        from repro_torch.core.engine.tilescan import count_pairs, fold_topk
+        from repro_torch.core.lookup import build_lookup
+        from repro_torch.core.search import lookup_q_total, pad_lookup
+        from repro_torch.data import synth
+        from repro_torch.kernels import _build, fp32_bound
+        from repro_torch.kernels.fusedscan.ops import fused_topk
+        from repro_torch.kernels.fusedscan.ref import map_ids
+        from repro_torch.kernels.l2nn.ops import l2_nearest
+        from repro_torch.kernels.l2nn.ref import l2_nearest_ref
+        from repro_torch.kernels.l2topk.ops import l2_topk
+        from repro_torch.kernels.l2topk.ref import l2_topk_ref
+
+        self.build_tree = repro_torch.build_tree
+        self.build_index = repro_torch.build_index
+        self.batch_search = repro_torch.batch_search
+        self.tree_assign = repro_torch.tree_assign
+        self.build_lookup = build_lookup
+        self.synth = synth
+        self.build = _build
+        self.count_pairs = count_pairs
+        self.fold_topk, self.map_ids = fold_topk, map_ids
+        self.make_plan, self.lookup_q_total = make_plan, lookup_q_total
+        self.pad_lookup = pad_lookup
+        self.topk_f64 = fp32_bound.topk_f64
+        self.topk_error_ratio = fp32_bound.topk_error_ratio
+        self.nearest_error_ratio = fp32_bound.nearest_error_ratio
+        self.l2_topk, self.l2_topk_ref = l2_topk, l2_topk_ref
+        self.fused_topk = fused_topk
+        self.l2_nearest, self.l2_nearest_ref = l2_nearest, l2_nearest_ref
+
+    def reset_counts(self):
+        for fn in (self.l2_topk, self.fused_topk, self.l2_nearest):
+            fn.launches = 0
+
+    def counts(self):
+        return {"l2topk": self.l2_topk.launches,
+                "fusedscan": self.fused_topk.launches,
+                "l2nn": self.l2_nearest.launches}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    rt = Port()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(smi.splitlines()[0])
+    rt.build.lib()
+    built = rt.build.build_seconds
+    log(f"kernel build: {'found built' if built is None else f'{built} s'} "
+        f"(nvcc, one process per source); "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    name = None
+    for line in rt.build.ptxas_report.splitlines():  # registers, spills
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("Used" in line or "spill" in line):
+            log(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+
+    sizes = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
+                 fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
+                 k1_waves=K1_WAVES, n_sample=N_SAMPLE)
+    torch.cuda.reset_peak_memory_stats()
+    rt.reset_counts()
+    run = run_main_path(rt, args, dev, sizes)
+    run["launches"] = rt.counts()
+    log(f"main-path launches {json.dumps(run['launches'])}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name in ("l2topk", "fusedscan", "l2nn"):
+        if run["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    check_main_path(rt, run, sizes, args.seed)
+    trace_searches(rt, run, sizes)
+    kernels = kernel_checks(rt, run, sizes, args.seed)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,288 @@
+// Device functions shared by the l2topk (K1), fusedscan (K2) and l2nn (K3)
+// kernels. K1 and K2 compute the partial distance and insert candidates
+// through the SAME functions, so the wave-sweep and the fused search paths
+// agree bit for bit.
+//
+// Arithmetic contract (the plain versions in kernels/*/ref.py):
+//   partial[q, p] = ||p||^2 - 2 * (q . p)     fp32, FMA chains over d
+// The ||p||^2 and q.p sums run in order over d = 0..d-1 (one fmaf per
+// term). On integer-valued data (quantized SIFT, d <= 128) every partial
+// sum is an integer below 2^24, so the result is exact in any order and
+// the kernels equal the plain versions bit for bit; on other data they
+// agree within the reference's 2e-4 tolerance and stay within the fp32
+// error bound of a float64 oracle (kernels/fp32_bound.py), which TF32 or
+// bf16 inputs would break (integer data are exact in those too).
+//
+// Selection contract: the k smallest by (distance, row) lexicographic,
+// ties to the lower row, ascending -- what jax.lax.top_k on negated
+// values gives. Rows are unique, so that order is total and the result
+// does not depend on the order candidates arrive in.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace rt {
+
+constexpr int TQ = 64;          // query (or x) rows per block
+constexpr int TP = 64;          // point (or centroid) rows per staged tile
+constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
+constexpr int QPITCH = TQ;      // row pitch of the transposed query tile
+constexpr int PPITCH = TP + 4;  // row pitch of the transposed point tile
+constexpr int DPITCH = TP + 1;  // row pitch of the distance tile
+constexpr int MAX_D = 256;
+constexpr int MAX_K = 64;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Same values as core/sentinels.py.
+constexpr int PAD_TILE_POINT_LEAF = -9;
+constexpr int PAD_TILE_QUERY_LEAF = -8;
+
+__device__ __forceinline__ bool lex_less(float d, int i, float d2, int i2) {
+  return d < d2 || (d == d2 && i < i2);
+}
+
+// Copy rows [row0, row0 + nvalid) of a row-major (., d) matrix into a
+// transposed shared tile dst[c * pitch + r]; rows past nvalid are zero.
+__device__ __forceinline__ void stage_rows_t(float* __restrict__ dst,
+                                             const float* __restrict__ src,
+                                             long long row0, int nvalid,
+                                             int d, int pitch, int trows) {
+  for (int idx = threadIdx.x; idx < trows * d; idx += THREADS) {
+    int r = idx / d, c = idx - r * d;
+    float v = r < nvalid ? src[(row0 + r) * (long long)d + c] : 0.f;
+    dst[c * pitch + r] = v;
+  }
+}
+
+// Sequential fp32 squared norm of column r of a transposed tile.
+__device__ __forceinline__ float col_sq_norm(const float* __restrict__ t,
+                                             int r, int d, int pitch) {
+  float acc = 0.f;
+  for (int c = 0; c < d; ++c) {
+    float v = t[c * pitch + r];
+    acc = fmaf(v, v, acc);
+  }
+  return acc;
+}
+
+// 4 x 4 dot products per thread between the query tile qs[d][QPITCH] and
+// the point tile ps[d][PPITCH]: acc[i][j] = q[ty*4+i] . p[tx*4+j].
+__device__ __forceinline__ void tile_dots(const float* __restrict__ qs,
+                                          const float* __restrict__ ps, int d,
+                                          float acc[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < d; ++c) {
+    float4 a = *reinterpret_cast<const float4*>(qs + c * QPITCH + ty * 4);
+    float4 b = *reinterpret_cast<const float4*>(ps + c * PPITCH + tx * 4);
+    float av[4] = {a.x, a.y, a.z, a.w};
+    float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// Write the masked partial-distance tile dt[q][p] = pn[p] - 2 q.p where the
+// pair is allowed, +inf elsewhere. 2*x is exact in fp32, so this rounds
+// once, as the plain version's `pn - 2.0 * dots` does.
+template <typename Allow>
+__device__ __forceinline__ void write_tile(float* __restrict__ dt,
+                                           const float* __restrict__ pn,
+                                           const float acc[4][4],
+                                           Allow allow) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int q = ty * 4 + i, p = tx * 4 + j;
+      float v = __fsub_rn(pn[p], 2.0f * acc[i][j]);
+      dt[q * DPITCH + p] = allow(q, p) ? v : CUDART_INF_F;
+    }
+}
+
+// Insert (cd, ci) into the ascending list rd/ri of k entries; the caller
+// has checked that it beats the last entry. All 32 lanes of the warp call.
+__device__ __forceinline__ void warp_insert(float* rd, int* ri, int k,
+                                            float cd, int ci) {
+  const int lane = threadIdx.x & 31;
+  int pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    int p = base + lane;
+    bool lt = p < k && lex_less(rd[p], ri[p], cd, ci);
+    pos += __popc(__ballot_sync(FULL, lt));
+  }
+  float od[MAX_K / 32];
+  int oi[MAX_K / 32];
+#pragma unroll
+  for (int t = 0; t < MAX_K / 32; ++t) {
+    int p = t * 32 + lane;
+    if (p < k && p > pos) {
+      od[t] = rd[p - 1];
+      oi[t] = ri[p - 1];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < MAX_K / 32; ++t) {
+    int p = t * 32 + lane;
+    if (p < k && p > pos) {
+      rd[p] = od[t];
+      ri[p] = oi[t];
+    } else if (p == pos) {
+      rd[p] = cd;
+      ri[p] = ci;
+    }
+  }
+  __syncwarp();
+}
+
+// Each lane offers one candidate (dv, row) when ok; the warp inserts every
+// candidate that beats the current k-th entry. Candidates that stop
+// qualifying as the list improves drop out without an insert.
+__device__ __forceinline__ void warp_offer(float* rd, int* ri, int k, float dv,
+                                           int row, bool ok) {
+  unsigned m = __ballot_sync(FULL, ok && lex_less(dv, row, rd[k - 1], ri[k - 1]));
+  while (m) {
+    int src = __ffs(m) - 1;
+    float cd = __shfl_sync(FULL, dv, src);
+    int ci = __shfl_sync(FULL, row, src);
+    warp_insert(rd, ri, k, cd, ci);
+    m &= ~(1u << src);
+    m &= __ballot_sync(FULL, ok && lex_less(dv, row, rd[k - 1], ri[k - 1]));
+  }
+}
+
+// Shared-memory layout of the search scan (K1 partial pass and K2).
+struct ScanSmem {
+  float* qs;    // [d][QPITCH]  query tile, transposed
+  float* ps;    // [d][PPITCH]  point tile, transposed
+  float* pn;    // [TP]         point squared norms
+  float* dt;    // [TQ][DPITCH] masked partial distances
+  int* qlf;     // [TQ]
+  int* plf;     // [TP]
+  float* rd;    // [TQ][k]      running distances, ascending
+  int* ri;      // [TQ][k]      running rows
+  int* ranges;  // [4]          q leaf min/max, p leaf min/max (or row hull)
+};
+
+__host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
+  return sizeof(float) * ((size_t)d * QPITCH + (size_t)d * PPITCH + TP +
+                          (size_t)TQ * DPITCH) +
+         sizeof(int) * (TQ + TP) + (sizeof(float) + sizeof(int)) * TQ * k +
+         sizeof(int) * 4;
+}
+
+__device__ inline ScanSmem scan_smem(void* base, int d, int k) {
+  ScanSmem s;
+  char* p = reinterpret_cast<char*>(base);
+  s.qs = reinterpret_cast<float*>(p);
+  p += sizeof(float) * d * QPITCH;
+  s.ps = reinterpret_cast<float*>(p);
+  p += sizeof(float) * d * PPITCH;
+  s.pn = reinterpret_cast<float*>(p);
+  p += sizeof(float) * TP;
+  s.dt = reinterpret_cast<float*>(p);
+  p += sizeof(float) * TQ * DPITCH;
+  s.qlf = reinterpret_cast<int*>(p);
+  p += sizeof(int) * TQ;
+  s.plf = reinterpret_cast<int*>(p);
+  p += sizeof(int) * TP;
+  s.rd = reinterpret_cast<float*>(p);
+  p += sizeof(float) * TQ * k;
+  s.ri = reinterpret_cast<int*>(p);
+  p += sizeof(int) * TQ * k;
+  s.ranges = reinterpret_cast<int*>(p);
+  return s;
+}
+
+// Stage the block's query tile and leaves, reset the running lists, and
+// record the tile's [min, max] query leaf over its valid rows.
+__device__ inline void scan_begin(const ScanSmem& s, const float* queries,
+                                  const int* qleaves, long long q0, int nq,
+                                  int d, int k) {
+  stage_rows_t(s.qs, queries, q0, nq, d, QPITCH, TQ);
+  if (threadIdx.x == 0) {
+    s.ranges[0] = INT32_MAX;
+    s.ranges[1] = INT32_MIN;
+  }
+  for (int t = threadIdx.x; t < TQ * k; t += THREADS) {
+    s.rd[t] = CUDART_INF_F;
+    s.ri[t] = -1;
+  }
+  __syncthreads();
+  if (threadIdx.x < TQ) {
+    int t = threadIdx.x;
+    int lf = t < nq ? qleaves[q0 + t] : PAD_TILE_QUERY_LEAF;
+    s.qlf[t] = lf;
+    if (t < nq) {
+      atomicMin(&s.ranges[0], lf);
+      atomicMax(&s.ranges[1], lf);
+    }
+  }
+  __syncthreads();
+}
+
+// Scan point rows [p_begin, p_end) against the staged query tile, folding
+// every same-leaf pair into the running lists. A point tile whose valid
+// leaf range is disjoint from the query tile's cannot hold a match and is
+// skipped (the pl.when(overlap) test of the TPU fused kernel).
+__device__ inline void scan_points(const ScanSmem& s, const float* points,
+                                   const int* pleaves, long long p_begin,
+                                   long long p_end, int nq, int d, int k) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (long long pt = p_begin; pt < p_end; pt += TP) {
+    const int np = (int)min((long long)TP, p_end - pt);
+    __syncthreads();  // every thread has read the previous tile's ranges
+    if (threadIdx.x == 0) {
+      s.ranges[2] = INT32_MAX;
+      s.ranges[3] = INT32_MIN;
+    }
+    __syncthreads();
+    if (threadIdx.x < TP) {
+      int t = threadIdx.x;
+      int lf = t < np ? pleaves[pt + t] : PAD_TILE_POINT_LEAF;
+      s.plf[t] = lf;
+      if (t < np) {
+        atomicMin(&s.ranges[2], lf);
+        atomicMax(&s.ranges[3], lf);
+      }
+    }
+    __syncthreads();
+    if (s.ranges[2] > s.ranges[1] || s.ranges[0] > s.ranges[3]) continue;
+    stage_rows_t(s.ps, points, pt, np, d, PPITCH, TP);
+    __syncthreads();
+    if (threadIdx.x < TP) s.pn[threadIdx.x] = col_sq_norm(s.ps, threadIdx.x, d, PPITCH);
+    float acc[4][4];
+    tile_dots(s.qs, s.ps, d, acc);
+    __syncthreads();
+    write_tile(s.dt, s.pn, acc, [&](int q, int p) {
+      return q < nq && p < np && s.qlf[q] == s.plf[p];
+    });
+    __syncthreads();
+    // 8 warps x 8 queries: each warp folds its queries' 64 candidates
+    for (int qq = 0; qq < TQ / 8; ++qq) {
+      int q = warp * (TQ / 8) + qq;
+      if (q >= nq) break;
+      float* rd = s.rd + q * k;
+      int* ri = s.ri + q * k;
+#pragma unroll
+      for (int half = 0; half < TP / 32; ++half) {
+        int p = half * 32 + lane;
+        float dv = s.dt[q * DPITCH + p];
+        warp_offer(rd, ri, k, dv, (int)(pt + p), p < np && dv < CUDART_INF_F);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace rt

@@ -1,0 +1,57 @@
+"""Carry state across from the JAX package as numpy arrays.
+
+Each function takes the reference's arrays as numpy (for example
+``np.asarray(tree.levels[i])`` or the fields of a ``DistributedIndex``)
+and returns the port's object on ``device``, holding copies of the arrays.
+Nothing here imports the JAX package: the caller does the ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.index_build import DistributedIndex
+from repro_torch.core.lookup import LookupTable
+from repro_torch.core.tree import VocabTree
+from repro_torch.device import resolve
+
+
+def tree_from_numpy(levels: Sequence[np.ndarray],
+                    device: str | torch.device | None = "cuda") -> VocabTree:
+    dev = resolve(device)
+    return VocabTree(levels=tuple(
+        torch.as_tensor(np.array(lvl, np.float32), device=dev).contiguous() for lvl in levels))
+
+
+def index_from_numpy(*, vecs, ids, leaves, offsets, n_valid, overflow,
+                     n_leaves: int,
+                     device: str | torch.device | None = "cuda") -> DistributedIndex:
+    """Raises unless each shard's leaves are sorted ascending, the order
+    the search kernels rely on (``LEAF_SENTINEL`` padding sorts last)."""
+    dev = resolve(device)
+    shard_leaves = np.asarray(leaves, np.int64).reshape(np.shape(offsets)[0], -1)
+    if (np.diff(shard_leaves, axis=1) < 0).any():
+        raise ValueError("index_from_numpy: leaves must be sorted per shard")
+    return DistributedIndex(
+        vecs=torch.as_tensor(np.array(vecs, np.float32), device=dev).contiguous(),
+        ids=torch.as_tensor(np.array(ids, np.int32), device=dev),
+        leaves=torch.as_tensor(np.array(leaves, np.int32), device=dev),
+        offsets=torch.as_tensor(np.array(offsets, np.int32), device=dev),
+        n_valid=torch.as_tensor(np.array(n_valid, np.int32), device=dev),
+        overflow=torch.as_tensor(np.array(overflow, np.int32), device=dev),
+        n_leaves=int(n_leaves),
+    )
+
+
+def lookup_from_numpy(*, vecs, qids, leaves, offsets,
+                      device: str | torch.device | None = "cuda") -> LookupTable:
+    dev = resolve(device)
+    return LookupTable(
+        vecs=torch.as_tensor(np.array(vecs, np.float32), device=dev).contiguous(),
+        qids=torch.as_tensor(np.array(qids, np.int32), device=dev),
+        leaves=torch.as_tensor(np.array(leaves, np.int32), device=dev),
+        offsets=torch.as_tensor(np.array(offsets, np.int32), device=dev),
+    )

@@ -1,0 +1,118 @@
+"""Float64 oracles that hold the kernels to fp32 accuracy on real-valued data.
+
+On integer-valued data every kernel equals its plain version bit for bit,
+but so would a kernel that rounded its inputs to TF32 or bf16: integers in
+[0, 255] are exact in both. These oracles compute the kernels' functions in
+float64 and bound, for each query, the error that an fp32 evaluation may
+make with one rounding per product and per sum, in any order:
+
+    |fl(||p||^2 - 2 p.q) - (||p||^2 - 2 p.q)|
+        <= g_d * (||p||^2 + 2 * sum_i |p_i q_i|) + u * |||p||^2 - 2 p.q|
+
+with u = 2^-24 and g_d = d u / (1 - d u) (the dot-product bound of Higham,
+*Accuracy and Stability of Numerical Algorithms*, eq. 3.5, for each sum;
+to first order in u). The i-th smallest of a set of values moves by no more
+than the largest move of any one value, so a right fp32 kernel's sorted
+distances lie within the bound of the oracle's. TF32, which rounds each
+product's inputs to 11 significant bits, misses it several times over.
+
+These run on any device; they are checks, not part of the search path.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.distance import topk_lex
+
+U32 = 2.0**-24  # unit roundoff of fp32
+
+
+def gamma(n: int) -> float:
+    """Higham's gamma_n for fp32: the relative error bound of an n-term sum."""
+    return n * U32 / (1.0 - n * U32)
+
+
+def topk_f64(points, point_leaves, queries, query_leaves, k: int, *,
+             chunk_rows: int | None = None):
+    """The l2topk plain version in float64, with each query's fp32 bound.
+
+    Returns ``(dists (Q,k) f64, rows (Q,k) int64, tol (Q,) f64)``: partial
+    distances ``||p||^2 - 2 p.q`` of same-leaf points, ascending by
+    (distance, row), ``inf``/``-1`` where fewer than ``k`` match; ``tol`` is
+    the largest fp32 bound over the query's same-leaf points. ``chunk_rows``
+    scans the points in chunks, folding by (distance, row), for shards
+    whose (P, Q) matrix would not fit.
+    """
+    P, d = points.shape
+    Q, dev = queries.shape[0], points.device
+    q = queries.double()
+    qa = q.abs()
+    g = gamma(d)
+    best_d = torch.full((Q, k), math.inf, dtype=torch.float64, device=dev)
+    best_r = torch.full((Q, k), -1, dtype=torch.int64, device=dev)
+    tol = torch.zeros(Q, dtype=torch.float64, device=dev)
+    step = chunk_rows or P
+    for s in range(0, P, step):
+        p = points[s:s + step].double()
+        pn = (p * p).sum(-1)
+        d2 = pn[:, None] - 2.0 * (p @ q.T)
+        match = point_leaves[s:s + step, None] == query_leaves[None, :]
+        bound = g * (pn[:, None] + 2.0 * (p.abs() @ qa.T)) + U32 * d2.abs()
+        tol = torch.maximum(tol, torch.where(match, bound, 0.0).amax(0))
+        vals, sel = topk_lex(torch.where(match, d2, math.inf).T, min(k, p.shape[0]))
+        rows = torch.where(torch.isfinite(vals), sel + s, -1)
+        # running entries are the earlier rows, so they win distance ties
+        best_d, pick = topk_lex(torch.cat([best_d, vals], 1), k)
+        best_r = torch.gather(torch.cat([best_r, rows], 1), 1, pick)
+    return best_d, best_r, tol
+
+
+def pair_partial_f64(points, queries, rows):
+    """Float64 ``||p||^2 - 2 p.q`` of each query's listed point rows
+    ``(Q, k)``; ``inf`` where the row is -1."""
+    p = points[rows.clamp(min=0)].double()
+    v = (p * p).sum(-1) - 2.0 * (p * queries.double()[:, None, :]).sum(-1)
+    return torch.where(rows >= 0, v, math.inf)
+
+
+def topk_error_ratio(dists, rows, points, queries, exact, tol) -> float:
+    """Largest |error| / bound of a (Q, k) k-NN table of partial distances
+    whose ``rows`` index ``points``: each distance against the oracle's
+    sorted list ``exact`` and against the float64 distance of the row it
+    names. ``inf`` when the two disagree on which entries exist."""
+    fin = torch.isfinite(exact)
+    if not torch.equal(torch.isfinite(dists), fin):
+        return math.inf
+    if not fin.any():
+        return 0.0
+    t = tol[:, None].expand_as(exact)[fin]
+    got = dists.double()[fin]
+    pair = pair_partial_f64(points, queries, rows.long())[fin]
+    err = torch.maximum((got - exact[fin]).abs(), (got - pair).abs())
+    return float((err / t).max())
+
+
+def nearest_error_ratio(idx, dist, x, centroids) -> float:
+    """Largest |error| / bound of an l2nn result ``(idx (N,), dist (N,))``.
+
+    ``dist`` is held against the float64 ``min_c(||c||^2 - 2 x.c) + ||x||^2``
+    within the fp32 bound of the partials' minimum, of ``||x||^2`` and of
+    the final sum; the chosen centroid's float64 partial must lie within
+    twice the partials' bound of the minimum (a near-tie may go either way).
+    """
+    xd, c = x.double(), centroids.double()
+    cn, xn = (c * c).sum(-1), (xd * xd).sum(-1)
+    partial = cn[None, :] - 2.0 * (xd @ c.T)
+    g = gamma(x.shape[1])
+    pb = (g * (cn[None, :] + 2.0 * (xd.abs() @ c.abs().T))
+          + U32 * partial.abs()).amax(1)
+    best = partial.min(1).values
+    exact = best + xn
+    tol = pb + g * xn + U32 * exact.abs()
+    chosen = partial.gather(1, idx.long()[:, None])[:, 0]
+    r1 = (dist.double() - exact).abs() / tol
+    r2 = (chosen - best) / (2.0 * pb)
+    return float(torch.maximum(r1, r2).max())

@@ -1,0 +1,57 @@
+"""Whole-shard fused scan wrapper: the plain version for a CPU tensor, the
+K2 CUDA kernel (``csrc/fusedscan.cu``) for a CUDA tensor.
+
+Unlike the per-tile kernel this returns *global descriptor ids* (mapped
+through ``point_ids``, -1 where no match or tombstoned), because the whole
+shard is scanned in one call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import check_kernel_inputs
+from repro_torch.kernels import _build
+from repro_torch.kernels.fusedscan.ref import fused_topk_ref
+from repro_torch.kernels.l2topk.ops import MAX_D, MAX_K
+
+
+def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
+               point_ids: torch.Tensor, queries: torch.Tensor,
+               query_leaves: torch.Tensor, *, k: int):
+    """(dists (Q,k), ids (Q,k)) whole-shard fused k-NN; see ref.py.
+
+    On the card the point leaves must be sorted ascending (a cluster-sorted
+    shard): the kernel binary-searches each lookup row's leaf run. A
+    ``DistributedIndex`` is, by construction (``build_index`` sorts,
+    ``index_from_numpy`` checks), so nothing is checked here: that would
+    cost an O(P) pass and a host round trip on every call.
+    """
+    if points.device.type == "cpu":
+        return fused_topk_ref(points, point_leaves, point_ids, queries,
+                              query_leaves, k)
+    if points.device.type != "cuda":
+        raise ValueError(f"fused_topk: unsupported device {points.device}")
+    check_kernel_inputs(
+        "fused_topk", points, point_leaves, point_ids, queries, query_leaves,
+        dtypes=(torch.float32, torch.int32, torch.int32, torch.float32,
+                torch.int32))
+    P, d = points.shape
+    Q = queries.shape[0]
+    if (queries.shape[1] != d or point_leaves.shape != (P,)
+            or point_ids.shape != (P,) or query_leaves.shape != (Q,)):
+        raise ValueError("fused_topk: mismatched shapes")
+    if not 1 <= d <= MAX_D or not 1 <= k <= min(MAX_K, P) or Q < 1:
+        raise ValueError(f"fused_topk: unsupported {P=} {Q=} {d=} {k=}")
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=points.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=points.device)
+    err = _build.lib().fusedscan_launch(
+        points.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
+        queries.data_ptr(), query_leaves.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), P, Q, d, k, _build.stream_ptr(points))
+    _build.check(err, "fusedscan_launch")
+    fused_topk.launches += 1
+    return out_d, out_i
+
+
+fused_topk.launches = 0

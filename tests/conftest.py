@@ -88,6 +88,14 @@ except ModuleNotFoundError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (CUDA kernels of repro_torch); "
+        "skipped without one",
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,72 @@
+"""repro_torch stands alone: it imports neither jax nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import interop
+from repro_torch.device import resolve
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    code = (
+        "import sys, repro_torch, repro_torch.interop, repro_torch.data.synth\n"
+        "import repro_torch.kernels.l2topk, repro_torch.kernels.fusedscan\n"
+        "import repro_torch.kernels.l2nn, repro_torch.kernels._build\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sources_name_no_jax_import():
+    pkg = SRC / "repro_torch"
+    chip_smoke = SRC.parent / "chip_smoke.py"
+    for path in [*pkg.rglob("*.py"), chip_smoke]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0]
+                assert mod not in ("jax", "repro"), f"{path}: {line}"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+
+
+@pytest.mark.parametrize("entry", ["build_tree", "build_index", "batch_search",
+                                   "tree_from_numpy"])
+def test_default_device_raises_without_cuda(entry):
+    _no_cuda()
+    x = np.zeros((16, 4), np.float32)
+    tree = interop.tree_from_numpy([x[:2], np.zeros((2, 2, 4), np.float32)],
+                                   device="cpu")
+    calls = {
+        "build_tree": lambda: repro_torch.build_tree(
+            x, (2, 2), generator=torch.Generator().manual_seed(0)),
+        "build_index": lambda: repro_torch.build_index(x, tree),
+        "batch_search": lambda: repro_torch.batch_search(None, tree, x, 1),
+        "tree_from_numpy": lambda: interop.tree_from_numpy([x[:2]]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_resolve_cpu_when_asked():
+    assert resolve("cpu") == torch.device("cpu")

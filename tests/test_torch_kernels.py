@@ -1,0 +1,380 @@
+"""repro_torch kernels: plain versions against the JAX package's ref.py and
+its Pallas kernels (interpret mode), and on the card the CUDA kernels
+against their plain versions.
+
+Inputs are made with numpy from a seed. Tolerances: on real-valued data
+ids exact and distances within 2e-4 (the reference's contract: sums are
+taken in another order); on integer-valued data (quantized SIFT-like rows,
+every partial sum an integer below 2^24) bit for bit. Integers in [0, 255]
+are exact in TF32 and bf16 too, so reduced precision is caught on
+real-valued data instead: within the fp32 error bound of a float64 oracle
+(``kernels/fp32_bound.py``), which TF32 rounding must break.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fusedscan.ops import fused_topk as j_fused_topk
+from repro.kernels.fusedscan.ref import fused_topk_ref as j_fused_ref
+from repro.kernels.l2nn.ops import l2_nearest as j_l2_nearest
+from repro.kernels.l2nn.ref import l2_nearest_ref as j_l2nn_ref
+from repro.kernels.l2topk.ops import l2_topk as j_l2_topk
+from repro.kernels.l2topk.ref import l2_topk_ref as j_l2topk_ref
+from repro_torch import interop
+from repro_torch.kernels import fp32_bound
+from repro_torch.kernels.fusedscan.ops import fused_topk
+from repro_torch.kernels.fusedscan.ref import fused_topk_ref
+from repro_torch.kernels.l2nn.ops import l2_nearest
+from repro_torch.kernels.l2nn.ref import l2_nearest_ref
+from repro_torch.kernels.l2topk.ops import l2_topk, split_layout
+from repro_torch.kernels.l2topk.ref import l2_topk_ref
+
+TOL = 2e-4
+
+
+def _vecs(rng, n, d, integer):
+    if integer:
+        return rng.integers(0, 256, size=(n, d)).astype(np.float32)
+    return rng.standard_normal((n, d)).astype(np.float32)
+
+
+def _tile_case(seed, P, Q, d, n_leaves, integer=True, dup=True, sort=False):
+    """Points/queries with leaves from a small set; duplicated point rows
+    make exact distance ties, so the tie order is exercised."""
+    rng = np.random.default_rng(seed)
+    pts = _vecs(rng, P, d, integer)
+    if dup and P >= 4:
+        pts[P // 2: P // 2 + P // 4] = pts[: P // 4]
+    qrs = _vecs(rng, Q, d, integer)
+    plf = rng.integers(0, n_leaves, size=P).astype(np.int32)
+    qlf = rng.integers(0, n_leaves, size=Q).astype(np.int32)
+    if dup and P >= 4:
+        plf[P // 2: P // 2 + P // 4] = plf[: P // 4]
+    if sort:
+        order = np.argsort(plf, kind="stable")
+        pts, plf = pts[order], plf[order]
+        qo = np.argsort(qlf, kind="stable")
+        qrs, qlf = qrs[qo], qlf[qo]
+    return pts, plf, qrs, qlf
+
+
+def _t(*arrays, device="cpu"):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def _assert_table(d_a, i_a, d_b, i_b, *, exact, id_frac=1.0):
+    """Equal tables; ``id_frac < 1`` lets that share of ids differ, for
+    real-valued data summed in another order on the card (two candidates
+    within rounding of each other may swap places)."""
+    d_a, d_b = np.asarray(d_a), np.asarray(d_b)
+    if id_frac == 1.0:
+        np.testing.assert_array_equal(np.asarray(i_a), np.asarray(i_b))
+    else:
+        assert (np.asarray(i_a) == np.asarray(i_b)).mean() >= id_frac
+    np.testing.assert_array_equal(np.isfinite(d_a), np.isfinite(d_b))
+    fin = np.isfinite(d_a)
+    if exact:
+        np.testing.assert_array_equal(d_a, d_b)
+    else:
+        np.testing.assert_allclose(d_a[fin], d_b[fin], rtol=TOL, atol=TOL)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the JAX package (CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize(
+    "P,Q,d,k,n_leaves",
+    [(96, 40, 16, 5, 3), (130, 70, 8, 8, 5), (64, 64, 32, 20, 2),
+     (33, 17, 4, 3, 1)],
+)
+def test_l2topk_plain_matches_jax_ref(P, Q, d, k, n_leaves, integer):
+    pts, plf, qrs, qlf = _tile_case(P + Q, P, Q, d, n_leaves, integer)
+    jd, ji = j_l2topk_ref(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(qrs),
+                          jnp.asarray(qlf), k)
+    td, ti = l2_topk(*_t(pts, plf, qrs, qlf), k=k)
+    _assert_table(jd, ji, td, ti, exact=integer)
+
+
+@pytest.mark.parametrize("P,Q,d,k", [(200, 100, 16, 6), (128, 256, 8, 4)])
+def test_l2topk_plain_matches_pallas_interpret(P, Q, d, k):
+    # the Pallas kernel contracts [-2q|1].[p|‖p‖²] and keeps an unordered
+    # table, so it is held by distance only (within 2e-4)
+    pts, plf, qrs, qlf = _tile_case(7, P, Q, d, 4, integer=False, dup=False)
+    jd, _ = j_l2_topk(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(qrs),
+                      jnp.asarray(qlf), k=k, impl="pallas", tile_p=128,
+                      tile_q=128)
+    td, ti = l2_topk(*_t(pts, plf, qrs, qlf), k=k)
+    jd = np.asarray(jd)
+    np.testing.assert_array_equal(np.isfinite(jd), np.isfinite(td.numpy()))
+    fin = np.isfinite(jd)
+    np.testing.assert_allclose(jd[fin], td.numpy()[fin], rtol=TOL, atol=TOL)
+    assert (ti.numpy()[~fin] == -1).all()
+
+
+def _fused_case(seed, P, Q, d, n_leaves, integer, tombstone_frac=0.2):
+    pts, plf, qrs, qlf = _tile_case(seed, P, Q, d, n_leaves, integer, sort=True)
+    rng = np.random.default_rng(seed + 1)
+    pid = rng.permutation(10 * P)[:P].astype(np.int32)
+    pid[rng.random(P) < tombstone_frac] = -1  # tombstoned rows
+    return pts, plf, pid, qrs, qlf
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize(
+    "P,Q,d,k,n_leaves",
+    [(256, 96, 16, 5, 6), (150, 40, 8, 10, 3), (40, 30, 8, 20, 4)],
+)
+def test_fused_plain_matches_jax_ref(P, Q, d, k, n_leaves, integer):
+    # the last case has k larger than the live rows of most leaves
+    pts, plf, pid, qrs, qlf = _fused_case(P, P, Q, d, n_leaves, integer)
+    jd, ji = j_fused_ref(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(pid),
+                         jnp.asarray(qrs), jnp.asarray(qlf), k)
+    td, ti = fused_topk(*_t(pts, plf, pid, qrs, qlf), k=k)
+    _assert_table(jd, ji, td, ti, exact=integer)
+    assert (ti.numpy() == -1).any()
+
+
+@pytest.mark.parametrize("P,Q,d,k", [(256, 128, 16, 5), (300, 90, 8, 12)])
+def test_fused_plain_matches_pallas_interpret(P, Q, d, k):
+    pts, plf, pid, qrs, qlf = _fused_case(3, P, Q, d, 5, integer=True)
+    jd, ji = j_fused_topk(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(pid),
+                          jnp.asarray(qrs), jnp.asarray(qlf), k=k,
+                          impl="pallas", tile_p=128, tile_q=128)
+    td, ti = fused_topk(*_t(pts, plf, pid, qrs, qlf), k=k)
+    _assert_table(jd, ji, td, ti, exact=True)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,c,d", [(128, 64, 16), (200, 70, 8), (64, 256, 128),
+                                   (33, 5, 4)])
+def test_l2nn_plain_matches_jax_ref(n, c, d, integer):
+    rng = np.random.default_rng(n * c)
+    x = _vecs(rng, n, d, integer)
+    cen = _vecs(rng, c, d, integer)
+    if integer:
+        cen[c // 2:] = cen[: c - c // 2]  # duplicate centroids: tie order
+    ji, jd = j_l2nn_ref(jnp.asarray(x), jnp.asarray(cen))
+    ti, td = l2_nearest(*_t(x, cen))
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    if integer:
+        np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    else:
+        np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n,c,d", [(128, 64, 16), (200, 70, 8)])
+def test_l2nn_plain_matches_pallas_interpret(n, c, d):
+    rng = np.random.default_rng(c)
+    x = _vecs(rng, n, d, True)
+    cen = _vecs(rng, c, d, True)
+    ji, jd = j_l2_nearest(jnp.asarray(x), jnp.asarray(cen), impl="pallas",
+                          tile_n=64, tile_c=32)
+    ti, td = l2_nearest(*_t(x, cen))
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_refs_are_the_wrappers_cpu_path():
+    pts, plf, qrs, qlf = _tile_case(1, 50, 20, 8, 2)
+    a = l2_topk(*_t(pts, plf, qrs, qlf), k=4)
+    b = l2_topk_ref(*_t(pts, plf, qrs, qlf), k=4)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    pid = np.arange(50, dtype=np.int32)
+    a = fused_topk(*_t(pts, plf, pid, qrs, qlf), k=4)
+    b = fused_topk_ref(*_t(pts, plf, pid, qrs, qlf), k=4)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    a = l2_nearest(*_t(qrs, pts))
+    b = l2_nearest_ref(*_t(qrs, pts))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_cpu_path_launches_no_kernel():
+    before = (l2_topk.launches, fused_topk.launches, l2_nearest.launches)
+    pts, plf, qrs, qlf = _tile_case(2, 40, 10, 8, 2)
+    l2_topk(*_t(pts, plf, qrs, qlf), k=3)
+    fused_topk(*_t(pts, plf, np.arange(40, dtype=np.int32), qrs, qlf), k=3)
+    l2_nearest(*_t(qrs, pts))
+    assert (l2_topk.launches, fused_topk.launches, l2_nearest.launches) == before
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32's 10 stored significand bits (to nearest)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _real_case(kernel, device="cpu", big=False):
+    """SIFT-range real-valued inputs (integers in [0, 255] moved by uniform
+    noise in [-0.5, 0.5)) for one kernel, as tensors on ``device``."""
+    rng = np.random.default_rng(11)
+    if kernel == "l2nn":
+        n, c = (70000, 256) if big else (512, 64)
+        x, cen = (_vecs(rng, m, 128, True) + rng.random((m, 128), np.float32) - 0.5
+                  for m in (n, c))
+        return _t(x, cen, device=device)
+    P, Q = (20000, 3000) if big else (512, 128)
+    pts, plf, qrs, qlf = _tile_case(5, P, Q, 128, 8, sort=True)
+    pts = pts + rng.random(pts.shape, np.float32) - 0.5
+    qrs = qrs + rng.random(qrs.shape, np.float32) - 0.5
+    return _t(pts, plf, qrs, qlf, device=device)
+
+
+def _bound_ratio(kernel, args, run, run_args=None):
+    """Largest error / fp32 bound of ``run`` (the kernel's function) on
+    ``run_args`` (default ``args``) against the float64 oracle on ``args``."""
+    ra = args if run_args is None else run_args
+    if kernel == "l2nn":
+        idx, dist = run(*ra)
+        return fp32_bound.nearest_error_ratio(idx, dist, *args)
+    pts, plf, qrs, qlf = args
+    exact, _, tol = fp32_bound.topk_f64(pts, plf, qrs, qlf, 20,
+                                        chunk_rows=pts.shape[0] // 3 + 1)
+    if kernel == "l2topk":
+        dists, rows = run(*ra, 20)
+    else:  # shard rows as ids, so the result names rows
+        rows_as_ids = torch.arange(pts.shape[0], dtype=torch.int32,
+                                   device=pts.device)
+        dists, rows = run(ra[0], ra[1], rows_as_ids, ra[2], ra[3], 20)
+    return fp32_bound.topk_error_ratio(dists, rows, pts, qrs, exact, tol)
+
+
+_PLAIN = {"l2topk": l2_topk_ref, "fusedscan": fused_topk_ref, "l2nn": l2_nearest_ref}
+_KERNEL = {"l2topk": lambda *a: l2_topk(*a[:-1], k=a[-1]),
+           "fusedscan": lambda *a: fused_topk(*a[:-1], k=a[-1]),
+           "l2nn": l2_nearest}
+
+
+def test_fp32_oracle_chunks_fold_like_one_pass():
+    pts, plf, qrs, qlf = _real_case("l2topk")
+    one = fp32_bound.topk_f64(pts, plf, qrs, qlf, 20)
+    chunked = fp32_bound.topk_f64(pts, plf, qrs, qlf, 20, chunk_rows=100)
+    for a, b in zip(one, chunked):
+        assert torch.equal(a, b)
+    # and its selection is the plain version's, in (distance, row) order
+    _, rows = l2_topk_ref(pts, plf, qrs, qlf, 20)
+    assert torch.equal(one[1], rows.long())
+
+
+@pytest.mark.parametrize("kernel", ["l2topk", "fusedscan", "l2nn"])
+def test_plain_versions_hold_the_fp32_bound(kernel):
+    ratio = _bound_ratio(kernel, _real_case(kernel), _PLAIN[kernel])
+    assert 0.0 < ratio <= 1.0
+
+
+@pytest.mark.parametrize("kernel", ["l2topk", "fusedscan", "l2nn"])
+def test_fp32_bound_catches_tf32_rounding(kernel):
+    # the plain version on inputs rounded as TF32 rounds them: the bound
+    # must fail, or it would not catch a kernel that computed in TF32
+    args = _real_case(kernel)
+    rounded = [_tf32(a) if a.is_floating_point() else a for a in args]
+    assert _bound_ratio(kernel, args, _PLAIN[kernel], rounded) > 1.0
+
+
+@pytest.mark.parametrize("P,Q", [(4096, 1024), (100, 10), (64, 3000), (1, 1)])
+def test_split_layout_covers_points(P, Q):
+    n_splits, split_rows = split_layout(P, Q)
+    assert split_rows % 64 == 0
+    assert (n_splits - 1) * split_rows < P <= n_splits * split_rows
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize(
+    "P,Q,d,k,n_leaves",
+    [(4096, 1024, 128, 20, 16), (1000, 77, 32, 64, 3), (70, 130, 8, 1, 2),
+     (517, 300, 200, 33, 7), (64, 64, 128, 20, 1)],
+)
+def test_cuda_l2topk_matches_plain(cuda, P, Q, d, k, n_leaves, integer):
+    args = _tile_case(P * 3 + Q, P, Q, d, n_leaves, integer)
+    rd, ri = l2_topk_ref(*_t(*args, device=cuda), k=k)
+    n0 = l2_topk.launches
+    kd, ki = l2_topk(*_t(*args, device=cuda), k=k)
+    torch.cuda.synchronize()
+    assert l2_topk.launches == n0 + 1
+    _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
+                  id_frac=1.0 if integer else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize(
+    "P,Q,d,k,n_leaves",
+    [(20000, 3000, 128, 20, 300), (1000, 77, 32, 64, 3), (70, 130, 8, 1, 2),
+     (517, 300, 200, 33, 7)],
+)
+def test_cuda_fused_matches_plain(cuda, P, Q, d, k, n_leaves, integer):
+    args = _fused_case(P + Q, P, Q, d, n_leaves, integer)
+    rd, ri = fused_topk_ref(*_t(*args, device=cuda), k=k)
+    n0 = fused_topk.launches
+    kd, ki = fused_topk(*_t(*args, device=cuda), k=k)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == n0 + 1
+    _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
+                  id_frac=1.0 if integer else 0.999)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rejects_unsorted_points(cuda):
+    # the kernel binary-searches leaf runs; an index whose leaves do not
+    # ascend is refused where it enters the port, before any search
+    pts, plf, pid, _, _ = _fused_case(5, 100, 20, 8, 4, True)
+    with pytest.raises(ValueError, match="sorted"):
+        interop.index_from_numpy(
+            vecs=pts, ids=pid, leaves=plf[::-1].copy(),
+            offsets=np.zeros((1, 5), np.int32), n_valid=np.array([100]),
+            overflow=np.int32(0), n_leaves=4, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,c,d", [(70000, 256, 128), (200, 70, 8),
+                                   (64, 1000, 200), (1, 1, 3)])
+def test_cuda_l2nn_matches_plain(cuda, n, c, d, integer):
+    rng = np.random.default_rng(n + c)
+    x = _vecs(rng, n, d, integer)
+    cen = _vecs(rng, c, d, integer)
+    cen[c // 2:] = cen[: c - c // 2]
+    ri, rdist = l2_nearest_ref(*_t(x, cen, device=cuda))
+    n0 = l2_nearest.launches
+    ki, kdist = l2_nearest(*_t(x, cen, device=cuda))
+    torch.cuda.synchronize()
+    assert l2_nearest.launches == n0 + 1
+    if integer:
+        assert torch.equal(ri, ki) and torch.equal(rdist, kdist)
+    else:
+        # ids may differ only where two centroids are within rounding
+        same = (ri == ki).float().mean().item()
+        assert same > 0.999
+        torch.testing.assert_close(rdist, kdist, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["l2topk", "fusedscan", "l2nn"])
+def test_cuda_kernels_hold_the_fp32_bound(cuda, kernel):
+    # real-valued data: the kernel stays within the fp32 bound of the
+    # float64 oracle, and the plain version computed in TF32 does not
+    args = _real_case(kernel, device=cuda, big=True)
+    assert _bound_ratio(kernel, args, _KERNEL[kernel]) <= 1.0
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert _bound_ratio(kernel, args, _PLAIN[kernel]) > 1.0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
