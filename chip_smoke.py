@@ -15,7 +15,23 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      paths, the launch counts, in-leaf top-1 exactness against a brute-force
      scan of the query's leaf for 256 queries, and prints recall@1 against
      the exact full-corpus nearest neighbour;
-  3. kernels against their plain PyTorch versions at the main path's own
+  3. codes path on the same index and queries, as the JAX package's
+     ``Index.search`` runs it on one segment: ``ProductQuantizer.train``
+     (m = 8, bits = 8, a 65,536-row sample, 16 iterations, seed 0) on the
+     live rows, ``encode`` of every index row (l2nn per subspace), then
+     ``search_with_lookup`` with a ``scan_codes`` plan (rerank 128) at
+     ``impl="pallas"`` (adcscan in every wave), ``"fused"`` (one fusedadc
+     launch) and ``"fused"`` at probes = 2, each followed by
+     ``rerank_exact`` to k = 20. It checks zero overflows, bit-identical
+     candidates on both scan paths, reranked distances equal to the exact
+     distances of their ids, the launch counts, and prints recall@1 next to
+     the dense path's and the share of top-1 ids equal to the dense search's.
+     For 256 sampled queries it finds where the exact nearest neighbour went
+     (among the ADC candidates, in the query's leaf outside them, or in
+     another leaf) and, for in-leaf misses, its rank under a plain numpy ADC
+     of the leaf; the run fails if the scan dropped a row that numpy ranks
+     inside its candidates;
+  4. kernels against their plain PyTorch versions at the main path's own
      shapes and inputs: ids and distances bit for bit (the data are
      integers, so every fp32 sum is exact). fusedscan runs the main path's
      call (the whole 2^25-row shard against the padded 2^15-row lookup)
@@ -25,8 +41,17 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      same inputs moved off the integer grid and held within the fp32 error
      bound of a float64 oracle (``kernels/fp32_bound.py``); the plain
      version computed in TF32 must break that bound, or the check fails.
-     Prints the kernel's, the plain version's and one PyTorch yardstick's
-     time, and the roofline bound of the same work.
+     l2nn is also run at encode's shape: per subspace, one mid-shard
+     2^21-row chunk (d = 16, 256 trained centroids), where its codes must
+     equal encode's, differ from the plain version's only at near-ties
+     within the fp32 bound, and hold that bound while TF32 breaks it.
+     adcscan runs 64 waves of the codes sweep as the sweep calls it (the
+     whole LUT table, the slab start on the device) and fusedadc the codes
+     path's own call (held on 256 sampled lookup rows, like fusedscan);
+     their LUTs come from the trained, real-valued codebooks, and ADC adds
+     without products, so both are held bit for bit on real values. Prints the
+     kernel's, the plain version's and one PyTorch yardstick's time, and
+     the roofline bound of the same work.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -45,6 +70,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 DIM = 128
@@ -61,6 +87,8 @@ K1_WAVES = 64  # distinct waves the l2topk kernel is timed over
 N_SAMPLE = 256  # lookup rows the fusedscan output is checked on
 CHUNK_POINTS = 2**20  # point rows per chunk of the sampled plain version
 N_REAL_WAVES = 8  # l2topk waves of the real-valued check
+# PQ codes at the JAX package's defaults (Index.enable_codes)
+PQ = dict(m=8, bits=8, sample=65_536, iters=16, seed=0)
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -261,15 +289,166 @@ def check_main_path(rt, run, sizes, seed):
     nv = int(index.n_valid[0])
     qn = (q * q).sum(1)
     best_d = torch.full((N_CHECK,), float("inf"), device=q.device)
+    best_row = torch.zeros((N_CHECK,), dtype=torch.int64, device=q.device)
     for s in range(0, nv, 2**22):
         v = index.vecs[s:min(nv, s + 2**22)]
         d2 = qn[:, None] - 2.0 * (q @ v.T) + (v * v).sum(1)[None, :]
-        best_d = torch.minimum(best_d, d2.min(1).values)
+        dmin, arg = d2.min(1)
+        better = dmin < best_d  # earlier chunks keep ties: the lowest row
+        best_d = torch.where(better, dmin, best_d)
+        best_row = torch.where(better, arg + s, best_row)
+    run["nn"] = (pick, best_d, best_row, qleaf)
     recall = {name: float((r.dists[pick, 0] == best_d).float().mean())
               for name, r in res.items()}
     log(f"in-leaf top-1 exact {exact}/{N_CHECK}; recall@1 vs exact full-corpus "
         f"NN: probes=1 {recall['pallas']}, probes=2 {recall['fused_p2']}")
     return recall
+
+
+def run_codes_path(rt, run, sizes):
+    """Train and encode PQ codes on the main path's index, then search
+    its queries three ways through the scan_codes layout and rerank."""
+    index, tree, queries = run["index"], run["tree"], run["queries"]
+    n = queries.shape[0]
+    t0 = sync_now()
+    live = index.vecs[index.ids >= 0]  # the live rows, as enable_codes trains
+    pq = rt.ProductQuantizer.train(live, **PQ)
+    t_train = sync_now() - t0
+    del live
+    torch.cuda.empty_cache()
+    t0 = sync_now()
+    codes = pq.encode(index.vecs)  # every index row, padding included
+    t_encode = sync_now() - t0
+    t0 = sync_now()
+    reader = rt.IndexRowReader(index)
+    t_reader = sync_now() - t0
+    log(f"codes: train {t_train:.3f} s ({pq.meta}), encode {t_encode:.3f} s "
+        f"({index.rows} rows x {pq.m} B), row reader {t_reader:.3f} s")
+    out, times = {}, dict(train=t_train, encode=t_encode, reader=t_reader)
+    k4_before = rt.adc_topk.launches
+    for name, impl, probes in (("pallas", "pallas", 1), ("fused", "fused", 1),
+                               ("fused_p2", "fused", 2)):
+        t0 = sync_now()
+        lookup = rt.build_lookup(tree, queries, probes=probes)
+        plan = rt.make_plan(
+            rows=index.rows, n_leaves=index.n_leaves, n_queries=n, n_shards=1,
+            k=sizes["k"], probes=probes, layout="scan_codes", impl=impl,
+            q_cap=sizes["q_cap"], block_rows=sizes["block_rows"],
+            code_m=pq.m, code_bits=pq.bits)
+        cand = rt.search_with_lookup(index, lookup, plan, n_queries=n,
+                                     codes=codes, codebooks=pq.codebooks)
+        t_search = sync_now() - t0
+        if name == "pallas":
+            run["k4_wave_launches"] = rt.adc_topk.launches - k4_before
+        t0 = sync_now()
+        ids, dists = rt.rerank_exact(reader, queries, cand.ids, sizes["k"])
+        t_rerank = sync_now() - t0
+        times[name], times[name + "_rerank"] = t_search, t_rerank
+        out[name] = dict(cand=cand, ids=ids, dists=dists, plan=plan)
+        log(f"codes search {name}: {t_search:.3f} s (rerank {plan.rerank}), "
+            f"rerank_exact {t_rerank:.3f} s, pairs {float(cand.pairs):.0f}, "
+            f"q_cap_overflow {int(cand.q_cap_overflow)}")
+    run["codes"] = dict(pq=pq, codes=codes, reader=reader, results=out,
+                        times=times)
+
+
+def check_codes_path(rt, run, sizes):
+    """Overflows, wave sweep == fused scan, exact reranked distances,
+    launch counts; recall@1 and agreement with the dense search."""
+    index, queries, c = run["index"], run["queries"], run["codes"]
+    res, k = c["results"], sizes["k"]
+    for name, r in res.items():
+        cand = r["cand"]
+        if int(cand.q_cap_overflow) != 0:
+            raise AssertionError(f"codes {name}: q_cap overflow")
+        if cand.ids.shape != (sizes["n_queries"], r["plan"].rerank):
+            raise AssertionError(f"codes {name}: shape {tuple(cand.ids.shape)}")
+        if r["ids"].shape != (sizes["n_queries"], k):
+            raise AssertionError(f"codes {name}: reranked {tuple(r['ids'].shape)}")
+        if not torch.isfinite(r["dists"][:, 0]).all():
+            raise AssertionError(f"codes {name}: a query found no neighbour")
+        # exact distances of the reranked ids, in float64 (the data are
+        # integers, so every fp32 sum below 2^24 is exact): bit for bit
+        for s in range(0, r["ids"].shape[0], 4096):
+            ids, d = r["ids"][s:s + 4096], r["dists"][s:s + 4096]
+            ok = ids >= 0
+            rows = c["reader"](ids[ok])
+            q = queries[s:s + 4096][:, None, :].expand(-1, k, -1)[ok]
+            d64 = ((rows.double() - q.double()) ** 2).sum(-1)
+            if not (torch.equal(d64.float(), d[ok]) and bool((d64 < 2**24).all())
+                    and bool(torch.isinf(d[~ok]).all())):
+                raise AssertionError(f"codes {name}: reranked distances are "
+                                     f"not the exact distances of their ids")
+    a, b = res["pallas"]["cand"], res["fused"]["cand"]
+    if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            and torch.equal(a.pairs, b.pairs)):
+        raise AssertionError("adcscan and fusedadc search paths differ")
+    n_waves = index.rows // sizes["block_rows"]
+    if run["k4_wave_launches"] != n_waves:
+        raise AssertionError(f"adcscan launched {run['k4_wave_launches']} "
+                             f"times for {n_waves} waves")
+    log(f"codes checks: q_cap_overflow 0 on all three searches; adcscan and "
+        f"fusedadc paths bit-identical (ids, ADC distances, pairs); reranked "
+        f"distances equal the exact distances of their ids for "
+        f"{len(res)} x {sizes['n_queries']} queries; adcscan launched "
+        f"{run['k4_wave_launches']} times for {n_waves} waves")
+    pick, best_d = run["nn"][:2]
+    recall = {name: float((r["dists"][pick, 0] == best_d).float().mean())
+              for name, r in res.items()}
+    dense = run["results"]["pallas"].ids[:, 0]
+    same = float((res["pallas"]["ids"][:, 0] == dense).float().mean())
+    log(f"codes recall@1 vs exact full-corpus NN ({N_CHECK} queries): "
+        f"probes=1 {recall['pallas']} (dense {run['recall']['pallas']}), "
+        f"probes=2 {recall['fused_p2']} (dense {run['recall']['fused_p2']}); "
+        f"reranked top-1 equal to the dense point-major top-1: {same}")
+    adc_miss_witness(run, res["pallas"]["cand"])
+    return recall, same
+
+
+def adc_miss_witness(run, cand):
+    """Where the exact nearest neighbour of each sampled query went in the
+    probes = 1 ADC scan: among the rerank candidates, in the query's leaf
+    but outside them, or in another leaf (which the dense path misses too).
+    For the in-leaf misses, a plain numpy ADC over the leaf (``pq.lut``'s
+    difference form, independent of the kernels and of the device LUT)
+    gives the neighbour's rank; the scan is at fault, and the run fails,
+    if that ADC distance lies below the scan's last candidate's by more
+    than 1e-3 of it (the device builds its LUT by the norm expansion,
+    whose fp32 rounding moves a sum of 8 entries by far less)."""
+    index, queries, c = run["index"], run["queries"], run["codes"]
+    pick, best_d, best_row, qleaf = run["nn"]
+    pq, codes = c["pq"], c["codes"]
+    nn_id = index.ids[best_row]
+    ids = cand.ids[pick]
+    in_cand = (ids == nn_id[:, None]).any(1)
+    same_leaf = index.leaves[best_row].long() == qleaf
+    offs = index.offsets[0].long()
+    ranks, sizes = [], []
+    for j in torch.nonzero(~in_cand & same_leaf)[:, 0].tolist():
+        lo, hi = int(offs[qleaf[j]]), int(offs[qleaf[j] + 1])
+        lut = pq.lut(queries[pick[j]][None].cpu().numpy())[0]  # (m, C)
+        cd = codes[lo:hi].cpu().numpy().astype(np.int64)
+        adc = lut[np.arange(pq.m)[None, :], cd].sum(1, dtype=np.float32)
+        me = int(best_row[j]) - lo
+        rank = int((adc < adc[me]).sum() + (adc[:me] == adc[me]).sum())
+        last = float(cand.dists[pick[j], -1])
+        if adc[me] < last * (1 - 1e-3):
+            raise AssertionError(
+                f"adc witness: query {int(pick[j])}'s nearest neighbour has "
+                f"numpy ADC {adc[me]} (rank {rank} of {hi - lo} in its leaf) "
+                f"below the scan's last candidate's {last}")
+        ranks.append(rank)
+        sizes.append(hi - lo)
+    n_in, n_leaf = int(in_cand.sum()), len(ranks)
+    log(f"adc witness ({N_CHECK} queries, probes=1, rerank "
+        f"{cand.ids.shape[1]}): exact NN id among the ADC candidates "
+        f"{n_in}/{N_CHECK} ({n_in / N_CHECK}); in the query's leaf but outside "
+        f"them {n_leaf}; in another leaf {N_CHECK - n_in - n_leaf}; numpy ADC "
+        f"rank of the in-leaf misses (sorted) {sorted(ranks)}, their leaf sizes "
+        f"{[sizes[i] for i in np.argsort(ranks, kind='stable')]}")
+    run["adc_witness"] = dict(in_candidates=n_in, in_leaf_missed=n_leaf,
+                              other_leaf=N_CHECK - n_in - n_leaf,
+                              in_leaf_miss_ranks=sorted(ranks))
 
 
 def kernel_checks(rt, run, sizes, seed):
@@ -281,6 +460,10 @@ def kernel_checks(rt, run, sizes, seed):
 
     def record(name, src, replaces, launches, max_err, real, kern, plain, bnd,
                lib, **extra):
+        """``real``: the (kernel, TF32 plain) real-valued error over the
+        fp32 bound, or None for the ADC kernels, which add without
+        products and are held bit for bit on real-valued LUTs instead."""
+        real = real or (None, None)
         out.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                         launches=launches, max_abs_err=max_err, ms=kern[0],
                         plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
@@ -423,10 +606,157 @@ def kernel_checks(rt, run, sizes, seed):
     lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), [(x, c)] * 5)
     C = c.shape[0]
     bnd = bound(n * d * 4 + C * d * 4 + n * 8, n * C * 2 * d + (n + C) * 2 * d)
+    del x, c
+    enc = encode_check(rt, run, g)
     record("l2nn", "src/repro_torch/csrc/l2nn.cu",
            "src/repro/kernels/l2nn/kernel.py:60", run["launches"]["l2nn"],
-           err, real, kern, plain, bnd, lib)
+           err, real, kern, plain, bnd, lib,
+           codes_path_launches=run["codes_launches"]["l2nn"], **enc)
+    adc_checks(rt, run, sizes, seed, record, equal)
     return out
+
+
+def encode_check(rt, run, g):
+    """K3 at the shape the codes path gives it: per subspace, one mid-shard
+    encode chunk (``pq.encode``'s own 2^21-row call, d = 16, 256 trained
+    real-valued centroids) through the kernel and its plain version. The
+    codes must equal those ``encode`` wrote; where kernel and plain version
+    pick different centroids, the two must be a near-tie within the fp32
+    bound (``fp32_bound.ties_within_bound``); the kernel's distances must
+    hold the fp32 bound and the TF32 plain version's must not. Returns the
+    numbers for the kernels line."""
+    index, c = run["index"], run["codes"]
+    pq, codes = c["pq"], c["codes"]
+    n = rt.encode_chunk
+    s = int(index.n_valid[0]) // 2 // n * n
+    ratios, tf32, differ, kern, plain = [], [], 0, [], []
+    for j in range(pq.m):
+        x = index.vecs[s:s + n, j * pq.dsub:(j + 1) * pq.dsub].contiguous()
+        cb = torch.as_tensor(pq.codebooks[j], device=x.device)
+        ki, kd = rt.l2_nearest(x, cb)
+        ri, _ = rt.l2_nearest_ref(x, cb)
+        if not torch.equal(ki.to(torch.uint8), codes[s:s + n, j]):
+            raise AssertionError(f"l2nn encode: subspace {j}'s codes differ "
+                                 f"from the kernel's on the same rows")
+        bad = torch.nonzero(ki != ri)[:, 0]
+        differ += bad.numel()
+        if bad.numel() and not bool(rt.ties_within_bound(
+                x[bad], cb, ki[bad], ri[bad]).all()):
+            raise AssertionError(f"l2nn encode: subspace {j}: a code differs "
+                                 f"from the plain version's past a near-tie")
+        for t in range(0, n, 2**19):  # bounded float64 temporaries
+            sl = slice(t, t + 2**19)
+            ratios.append(rt.nearest_error_ratio(ki[sl], kd[sl], x[sl], cb))
+            with tf32_matmuls():
+                tf32.append(rt.nearest_error_ratio(
+                    *rt.l2_nearest_ref(x[sl], cb), x[sl], cb))
+        kern.append(time_ms(lambda x, cb: rt.l2_nearest(x, cb), [(x, cb)] * 5)[0])
+        plain.append(time_ms(lambda x, cb: rt.l2_nearest_ref(x, cb), [(x, cb)] * 3)[0])
+    kr, tr = real_check("l2nn encode", max(ratios), max(tf32))
+    out = dict(encode_shape=[n, pq.n_centers, pq.dsub], encode_rows_checked=n * pq.m,
+               encode_codes_differing_near_ties=differ,
+               encode_fp32_bound_ratio=kr, encode_tf32_bound_ratio=tr,
+               encode_ms=sum(kern) / len(kern), encode_plain_ms=sum(plain) / len(plain))
+    log(f"l2nn at the encode shape: {json.dumps(out)}")
+    return out
+
+
+def adc_checks(rt, run, sizes, seed, record, equal):
+    """K4 on 64 waves of the codes sweep and K5 on the codes path's own
+    call, each against its plain version on the same real-valued LUTs."""
+    index, tree, queries, c = run["index"], run["tree"], run["queries"], run["codes"]
+    dev, B, pq, codes = index.vecs.device, sizes["block_rows"], c["pq"], c["codes"]
+    r = c["results"]["pallas"]["plan"].rerank
+    m, C = pq.m, pq.n_centers
+    n = queries.shape[0]
+    lk = rt.build_lookup(tree, queries, probes=1)
+    flk = rt.pad_lookup(lk, rt.lookup_q_total(c["results"]["fused"]["plan"], n))
+    Q = flk.vecs.shape[0]
+    lut = rt.build_adc_lut(flk.vecs, torch.as_tensor(pq.codebooks, device=dev),
+                           q_total=Q, m=m, n_centers=C).view(Q, m, C)
+    live = rt.live_leaves(index.leaves, index.ids)
+
+    # --- K4 adcscan: real waves of the codes sweep, called as the sweep
+    # calls it (the whole LUT table, the slab start on the device); the
+    # plain version and the yardstick get the slab's rows ---
+    mid = int(index.n_valid[0]) // 2 // B * B
+    qc = sizes["q_cap"]
+    waves, slabs, need, pairs = [], [], 0, 0
+    for i in range(sizes["k1_waves"]):
+        s = mid + i * B
+        plf = live[s:s + B]
+        start = int(flk.offsets[int(index.leaves[s])].clamp(0, Q - qc))
+        qlf = flk.leaves[start:start + qc]
+        waves.append((codes[s:s + B], plf, torch.tensor([start], device=dev)))
+        slabs.append((codes[s:s + B], plf, lut[start:start + qc], qlf))
+        need += int(torch.isin(qlf, plf).sum())  # LUTs the wave needs
+        pairs += int(rt.count_pairs(plf, qlf))
+
+    def k4(cd, plf, start):
+        return rt.adc_topk(cd, plf, lut, flk.leaves, k=r, q_start=start, q_rows=qc)
+
+    err = max(equal(k4(*w), rt.adc_topk_ref(*sw, r), "adcscan")
+              for w, sw in zip(waves, slabs))
+    kern = time_ms(k4, waves)
+    plain = time_ms(lambda *w: rt.adc_topk_ref(*w, r), slabs)
+    offs = torch.arange(m, device=dev) * C
+
+    def lib_adc(cd, plf, lt, qlf):
+        d2 = lt.reshape(lt.shape[0], m * C)[:, (cd.long() + offs).view(-1)]
+        d2 = torch.where(qlf[:, None] == plf[None, :],
+                         d2.view(lt.shape[0], -1, m).sum(-1), torch.inf)
+        return torch.topk(d2, r, dim=1, largest=False)
+
+    lib = time_ms(lib_adc, slabs)
+    nw = len(waves)
+    byt = nw * (B * (m + 4) + qc * 4 + qc * r * 8) + need * m * C * 4
+    bnd = bound(byt / nw, pairs * m / nw)
+    record("adcscan", "src/repro_torch/csrc/adcscan.cu",
+           "src/repro/kernels/adcscan/kernel.py:101", run["codes_launches"]["adcscan"],
+           err, None, kern, plain, bnd, lib, luts_needed_per_wave=need / nw)
+    del waves, slabs
+
+    # --- K5 fusedadc: the codes path's call, the whole shard's codes
+    # against the padded probes=1 lookup's LUTs; the plain version on
+    # sampled lookup rows, over the shard in point chunks ---
+    full = (codes, index.leaves, index.ids, lut, flk.leaves)
+    kd, ki = rt.fused_adc_topk(*full, k=r)
+    real_rows = torch.nonzero(flk.leaves >= 0)[:, 0]
+    gs = torch.Generator().manual_seed(seed + 4)
+    pick = real_rows[torch.randperm(real_rows.numel(), generator=gs)[:sizes["n_sample"]]
+                     .to(dev)].sort().values
+    sq, sl = lut[pick], flk.leaves[pick]
+
+    def plain_sample(lt, qlf):
+        best_d = torch.full((lt.shape[0], r), torch.inf, device=dev)
+        best_r = torch.full((lt.shape[0], r), -1, dtype=torch.int32, device=dev)
+        for s in range(0, codes.shape[0], CHUNK_POINTS):
+            e = s + CHUNK_POINTS
+            d, rr = rt.adc_topk_ref(codes[s:e], live[s:e], lt, qlf, r)
+            best_d, best_r = rt.fold_topk(best_d, best_r, d,
+                                          torch.where(rr >= 0, rr + s, -1))
+        return rt.map_ids(best_d, best_r, index.ids)
+
+    want = plain_sample(sq, sl)
+    if not torch.isfinite(want[0][:, 0]).all():
+        raise AssertionError("fusedadc: a sampled lookup row has no same-leaf row")
+    err = equal((kd[pick], ki[pick]), want, "fusedadc")
+    kern = time_ms(lambda *a: rt.fused_adc_topk(*a, k=r), [full] * 5, warmup=1)
+    plain = time_ms(plain_sample, [(sq, sl)], warmup=1)
+    nl = index.n_leaves
+    ok = (live >= 0) & (live < nl)
+    hp = torch.bincount(live[ok].long(), minlength=nl)
+    hq = torch.bincount(flk.leaves[flk.leaves >= 0].long(), minlength=nl)
+    rows_needed = int(hp[hq > 0].sum())  # live rows whose leaf a lookup row holds
+    luts = int(hq[hp > 0].sum())  # lookup rows whose leaf holds a live row
+    kpairs = int((hp * hq).sum())
+    bnd = bound(rows_needed * (m + 8) + luts * m * C * 4 + Q * 4 + Q * r * 8,
+                kpairs * m)
+    # no single PyTorch call fits: the (P, Q) distance matrix is 4 TB
+    record("fusedadc", "src/repro_torch/csrc/fusedadc.cu",
+           "src/repro/kernels/fusedscan/kernel.py:223", run["codes_launches"]["fusedadc"],
+           err, None, kern, plain, bnd, None, rows=Q, plain_rows=pick.numel(),
+           rows_needed=rows_needed, luts_needed=luts, pairs=kpairs)
 
 
 def trace_searches(rt, run, sizes):
@@ -434,17 +764,32 @@ def trace_searches(rt, run, sizes):
     the wall time of the same search in the main-path run."""
     index, tree, queries = run["index"], run["tree"], run["queries"]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for name, impl in (("pallas", "pallas"), ("fused", "fused")):
+    codes = run["codes"]
+
+    def dense(impl):
+        rt.batch_search(index, tree, queries, sizes["k"], q_cap=sizes["q_cap"],
+                        block_rows=sizes["block_rows"], impl=impl,
+                        device=index.device)
+
+    def scan_codes(impl):
+        r = codes["results"][impl]
+        lookup = rt.build_lookup(tree, queries, probes=1)
+        rt.search_with_lookup(index, lookup, r["plan"],
+                              n_queries=queries.shape[0], codes=codes["codes"],
+                              codebooks=codes["pq"].codebooks)
+
+    for name, search, impl, wall in (
+            ("pallas", dense, "pallas", run["times"]["pallas"]),
+            ("fused", dense, "fused", run["times"]["fused"]),
+            ("codes pallas", scan_codes, "pallas", codes["times"]["pallas"]),
+            ("codes fused", scan_codes, "fused", codes["times"]["fused"])):
         with torch.profiler.profile(activities=acts) as prof:
-            rt.batch_search(index, tree, queries, sizes["k"], q_cap=sizes["q_cap"],
-                            block_rows=sizes["block_rows"], impl=impl,
-                            device=index.device)
+            search(impl)
             torch.cuda.synchronize()
         # device-side events only: a CPU op's device time repeats its kernels'
         ev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ev) / 1e6
-        wall = run["times"][name]
         top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
         log(f"trace {name}: device busy {busy} s of {wall} s wall "
             f"(idle share {1 - busy / wall}); top device time: " + "; ".join(
@@ -458,13 +803,22 @@ class Port:
     def __init__(self):
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         import repro_torch
+        from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact
+        from repro_torch.codes import pq as pq_module
+        from repro_torch.core.engine.executors import _build_adc_lut, _live_leaves
         from repro_torch.core.engine.plan import plan as make_plan
         from repro_torch.core.engine.tilescan import count_pairs, fold_topk
         from repro_torch.core.lookup import build_lookup
-        from repro_torch.core.search import lookup_q_total, pad_lookup
+        from repro_torch.core.search import (
+            lookup_q_total,
+            pad_lookup,
+            search_with_lookup,
+        )
         from repro_torch.data import synth
         from repro_torch.kernels import _build, fp32_bound
-        from repro_torch.kernels.fusedscan.ops import fused_topk
+        from repro_torch.kernels.adcscan.ops import adc_topk
+        from repro_torch.kernels.adcscan.ref import adc_topk_ref
+        from repro_torch.kernels.fusedscan.ops import fused_adc_topk, fused_topk
         from repro_torch.kernels.fusedscan.ref import map_ids
         from repro_torch.kernels.l2nn.ops import l2_nearest
         from repro_torch.kernels.l2nn.ref import l2_nearest_ref
@@ -485,18 +839,26 @@ class Port:
         self.topk_f64 = fp32_bound.topk_f64
         self.topk_error_ratio = fp32_bound.topk_error_ratio
         self.nearest_error_ratio = fp32_bound.nearest_error_ratio
+        self.ties_within_bound = fp32_bound.ties_within_bound
+        self.encode_chunk = pq_module._ENCODE_CHUNK
         self.l2_topk, self.l2_topk_ref = l2_topk, l2_topk_ref
         self.fused_topk = fused_topk
         self.l2_nearest, self.l2_nearest_ref = l2_nearest, l2_nearest_ref
+        self.ProductQuantizer, self.IndexRowReader = ProductQuantizer, IndexRowReader
+        self.rerank_exact, self.search_with_lookup = rerank_exact, search_with_lookup
+        self.build_adc_lut, self.live_leaves = _build_adc_lut, _live_leaves
+        self.adc_topk, self.adc_topk_ref = adc_topk, adc_topk_ref
+        self.fused_adc_topk = fused_adc_topk
+        self.wrappers = {"l2topk": l2_topk, "fusedscan": fused_topk,
+                         "l2nn": l2_nearest, "adcscan": adc_topk,
+                         "fusedadc": fused_adc_topk}
 
     def reset_counts(self):
-        for fn in (self.l2_topk, self.fused_topk, self.l2_nearest):
+        for fn in self.wrappers.values():
             fn.launches = 0
 
     def counts(self):
-        return {"l2topk": self.l2_topk.launches,
-                "fusedscan": self.fused_topk.launches,
-                "l2nn": self.l2_nearest.launches}
+        return {name: fn.launches for name, fn in self.wrappers.items()}
 
 
 def main(argv=None) -> int:
@@ -536,7 +898,18 @@ def main(argv=None) -> int:
     for name in ("l2topk", "fusedscan", "l2nn"):
         if run["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    check_main_path(rt, run, sizes, args.seed)
+    run["recall"] = check_main_path(rt, run, sizes, args.seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    rt.reset_counts()
+    run_codes_path(rt, run, sizes)
+    run["codes_launches"] = rt.counts()
+    log(f"codes-path launches {json.dumps(run['codes_launches'])}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name in ("adcscan", "fusedadc", "l2nn"):
+        if run["codes_launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the codes path")
+    check_codes_path(rt, run, sizes)
     trace_searches(rt, run, sizes)
     kernels = kernel_checks(rt, run, sizes, args.seed)
     log(json.dumps({"kernels": kernels}))

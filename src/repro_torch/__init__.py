@@ -1,16 +1,21 @@
 """PyTorch/CUDA port of the vocabulary-tree indexing and batch search
 system (paper sections 2.3-2.4), for one NVIDIA H100.
 
-The main path is ``build_tree -> build_index -> batch_search``. Every entry
-point runs on the card unless the caller passes ``device="cpu"``; on a CUDA
-tensor the hot loops go through hand-written CUDA kernels
-(``kernels/l2nn``, ``kernels/l2topk``, ``kernels/fusedscan``, sources in
-``csrc/``), built with ``nvcc`` at first use. On a CPU tensor each kernel
-wrapper runs its plain PyTorch version.
+The main path is ``build_tree -> build_index -> batch_search``; the
+compressed-codes path trains a ``codes.ProductQuantizer`` on the index,
+encodes its rows, scans the codes (``search_with_lookup`` with a
+``scan_codes`` plan) and reranks the survivors exactly
+(``codes.rerank_exact``). Every entry point runs on the card unless the
+caller passes ``device="cpu"``; on a CUDA tensor the hot loops go through
+hand-written CUDA kernels (``kernels/l2nn``, ``kernels/l2topk``,
+``kernels/fusedscan``, ``kernels/adcscan``, sources in ``csrc/``), built
+with ``nvcc`` at first use. On a CPU tensor each kernel wrapper runs its
+plain PyTorch version.
 
 This package imports torch and numpy only.
 """
 
+from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact  # noqa: F401
 from repro_torch.core.engine import SearchPlan, SearchResult, plan  # noqa: F401
 from repro_torch.core.index_build import DistributedIndex, build_index  # noqa: F401
 from repro_torch.core.lookup import LookupTable, build_lookup, probe_leaves  # noqa: F401

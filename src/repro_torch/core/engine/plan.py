@@ -1,10 +1,10 @@
-"""Declarative search plans, point-major subset.
+"""Declarative search plans: the point-major and codes layouts.
 
 A :class:`SearchPlan` is the static description an executor is built from.
-``plan()`` resolves unset budgets from the index and query shapes. This
-slice of the port runs the point-major layout with a fixed ``impl``: the
-one-candidate branch of the JAX package's ``plan()``, so no cost model is
-involved. The query-routed layout (ROADMAP M7), the codes tier (M9) and
+``plan()`` resolves unset budgets from the index and query shapes. The port
+runs the point-major and ``scan_codes`` layouts with a fixed ``impl``: the
+one-candidate branches of the JAX package's ``plan()``, so no cost model is
+involved. The query-routed layout (ROADMAP M7) and
 ``impl="auto"``/``layout="auto"`` (the cost model, M10) raise
 ``NotImplementedError``.
 """
@@ -19,7 +19,6 @@ IMPLS = ("xla", "pallas", "fused", "auto")
 
 _NOT_PORTED = {
     "query_routed": "the query-routed layout is ROADMAP M7",
-    "scan_codes": "the codes tier is ROADMAP M9",
     "auto": "layout='auto' needs the cost model, ROADMAP M10",
 }
 
@@ -59,18 +58,25 @@ class SearchPlan:
     """Static description of one search execution (hashable).
 
     ``impl``: ``"xla"`` and ``"pallas"`` both run the per-wave sweep through
-    ``l2topk.ops.l2_topk`` (K1 on the card, the plain version on the CPU);
-    ``"fused"`` runs the whole-shard scan (``fusedscan.ops.fused_topk``,
-    K2 on the card). ``None`` budgets mean "let ``plan()`` pick"; the
+    ``l2topk.ops.l2_topk`` (``adcscan.ops.adc_topk`` for ``scan_codes``;
+    K1/K4 on the card, the plain versions on the CPU); ``"fused"`` runs the
+    whole-shard scan (``fusedscan.ops.fused_topk``/``fused_adc_topk``,
+    K2/K5 on the card). ``None`` budgets mean "let ``plan()`` pick"; the
     executors require them resolved.
     """
 
-    layout: str  # "point_major" (others: see module docstring)
+    layout: str  # "point_major" | "scan_codes" (others: module docstring)
     k: int
     probes: int = 1  # multi-probe width T: leaves visited per query
     impl: str = "xla"
+    # point-major budgets (scan_codes shares them: its code scan is a
+    # point-major wave sweep over uint8 code slabs)
     block_rows: int | None = None  # index rows per wave tile
     q_cap: int | None = None  # query-slab rows per tile
+    # scan_codes (compressed-tier) parameters
+    rerank: int | None = None  # ADC survivors fetched for exact rerank
+    code_m: int | None = None  # PQ subvectors (code bytes per row)
+    code_bits: int | None = None  # bits per subvector (2**bits centroids)
 
     def __post_init__(self):
         if self.layout not in LAYOUTS:
@@ -82,10 +88,15 @@ class SearchPlan:
             raise ValueError(f"{self.k=} must be >= 1")
         if self.probes < 1:
             raise ValueError(f"{self.probes=} must be >= 1")
+        if self.rerank is not None and self.rerank < self.k:
+            raise ValueError(f"{self.rerank=} must be >= {self.k=}")
 
     def resolved(self) -> "SearchPlan":
         """Check the budgets this layout needs are set."""
-        for f in ("block_rows", "q_cap"):
+        need = ("block_rows", "q_cap")
+        if self.layout == "scan_codes":
+            need += ("rerank", "code_m", "code_bits")
+        for f in need:
             if getattr(self, f) is None:
                 raise ValueError(f"plan field {f!r} unresolved for {self.layout}")
         return self
@@ -110,6 +121,30 @@ def _point_major_budgets(
     return dataclasses.replace(p, block_rows=block_rows, q_cap=q_cap)
 
 
+def default_rerank(k: int, rows: int) -> int:
+    """Default exact-rerank depth for the codes layout: generous relative
+    to ``k`` (8x, floored at 64) so recall survives the lossy ADC scan,
+    capped at 128 (the kernels' list capacity) and at the corpus itself."""
+    return max(k, min(rows, max(8 * k, 64), 128))
+
+
+def _scan_codes_budgets(
+    p: SearchPlan, *, shard_rows: int, n_leaves: int, q_rows: int,
+    n_shards: int
+) -> SearchPlan:
+    """The codes scan is a point-major sweep over uint8 code slabs -- it
+    reuses the point-major block/slab derivation, plus a rerank depth."""
+    p = _point_major_budgets(
+        p, shard_rows=shard_rows, n_leaves=n_leaves, q_rows=q_rows,
+        n_shards=n_shards,
+    )
+    rerank = p.rerank or default_rerank(p.k, shard_rows * n_shards)
+    # the running candidate table needs rerank <= block_rows (same bound
+    # as k <= block_rows on the dense scan)
+    rerank = max(p.k, min(rerank, p.block_rows))
+    return dataclasses.replace(p, rerank=rerank)
+
+
 def plan(
     *,
     rows: int,
@@ -122,6 +157,9 @@ def plan(
     impl: str = "xla",
     block_rows: int | None = None,
     q_cap: int | None = None,
+    rerank: int | None = None,
+    code_m: int | None = None,
+    code_bits: int | None = None,
 ) -> SearchPlan:
     """Resolve a full :class:`SearchPlan` from shapes.
 
@@ -131,13 +169,18 @@ def plan(
       n_queries: query rows per batch (pre-probe-expansion).
       n_shards: row shards (1 on one GPU).
       k: neighbours returned per query; ``probes``: multi-probe width.
-      layout: ``"point_major"``; the others raise ``NotImplementedError``.
+      layout: ``"point_major"`` or ``"scan_codes"``; the others raise
+        ``NotImplementedError``.
       impl: ``"xla"``, ``"pallas"`` or ``"fused"``; ``"auto"`` raises
         ``NotImplementedError``.
       block_rows/q_cap: pin a budget instead of deriving it.
+      rerank: ADC survivors per query for ``scan_codes`` (default
+        :func:`default_rerank`); code_m/code_bits: the PQ codes' shape,
+        required for ``scan_codes``.
 
     Raises:
-      ValueError: ``probes > n_leaves``; an unknown ``layout`` or ``impl``.
+      ValueError: ``probes > n_leaves``; an unknown ``layout`` or ``impl``;
+        ``scan_codes`` without ``code_m``/``code_bits``.
     """
     if probes > n_leaves:
         raise ValueError(f"{probes=} must be <= {n_leaves=}")
@@ -148,10 +191,17 @@ def plan(
     _check_ported(layout, impl)
     shard_rows = max(1, rows // max(1, n_shards))
     q_rows = max(1, n_queries * probes)  # probe-expanded lookup rows
-    pm = _point_major_budgets(
-        SearchPlan(layout="point_major", k=k, probes=probes, impl=impl,
-                   block_rows=block_rows, q_cap=q_cap),
-        shard_rows=shard_rows, n_leaves=n_leaves, q_rows=q_rows,
-        n_shards=n_shards,
-    )
-    return pm.resolved()
+    base = dict(k=k, probes=probes, impl=impl, block_rows=block_rows,
+                q_cap=q_cap)
+    shapes = dict(shard_rows=shard_rows, n_leaves=n_leaves, q_rows=q_rows,
+                  n_shards=n_shards)
+    if layout == "scan_codes":
+        if code_m is None or code_bits is None:
+            raise ValueError(
+                "layout='scan_codes' needs code_m/code_bits (the shape of "
+                "the index's PQ codes)")
+        return _scan_codes_budgets(
+            SearchPlan(layout="scan_codes", rerank=rerank, code_m=code_m,
+                       code_bits=code_bits, **base), **shapes).resolved()
+    return _point_major_budgets(
+        SearchPlan(layout="point_major", **base), **shapes).resolved()

@@ -88,17 +88,20 @@ def count_pairs(plf: torch.Tensor, qlf: torch.Tensor) -> torch.Tensor:
 
 def sweep_accounting(leaves: torch.Tensor, slab_starts: torch.Tensor,
                      lk_offsets: torch.Tensor, *, block_rows: int, q_cap: int,
-                     n_leaves: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     n_leaves: int, pair_leaves: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(pairs, overflow) of a whole wave sweep, exact int64, computed for
     all waves at once and with no host sync.
 
     Equals the sums of :func:`count_pairs` and :func:`slab_overflow` over
     the waves: a point of valid leaf ``L`` meets exactly the lookup rows
     ``[offsets[L], offsets[L+1])`` that fall inside its wave's slab
-    (lookup padding lies outside every CSR span).
+    (lookup padding lies outside every CSR span). ``pair_leaves`` (default
+    ``leaves``) are the leaves the scan matched on -- the codes scan masks
+    tombstones there -- while the slab budget follows ``leaves``.
     """
     n_waves = slab_starts.shape[0]
-    lv = leaves.long()
+    lv = (leaves if pair_leaves is None else pair_leaves).long()
     ok = (lv >= 0) & (lv < n_leaves)
     lc = lv.clamp(0, n_leaves - 1)
     s = slab_starts.repeat_interleave(block_rows)

@@ -5,7 +5,9 @@ run the executor, trim.
     ``probes=T``, ``impl`` "xla"/"pallas" for the wave sweep or "fused"
     for the whole-shard scan);
   * ``search_with_lookup`` -- one executor run over a *pre-built* lookup
-    table.
+    table; with a ``scan_codes`` plan it scans the index's PQ codes and
+    returns ``plan.rerank`` approximate candidates per query for
+    ``codes.rerank_exact``.
 """
 
 from __future__ import annotations
@@ -32,19 +34,34 @@ def lookup_q_total(p: SearchPlan, n_queries: int) -> int:
 
 
 def search_with_lookup(index: DistributedIndex, lookup: LookupTable,
-                       plan: SearchPlan, *, n_queries: int) -> SearchResult:
+                       plan: SearchPlan, *, n_queries: int, codes=None,
+                       codebooks=None) -> SearchResult:
     """Run one resolved plan's executor over a pre-built lookup table.
 
     ``lookup`` is the unpadded ``n_queries * probes``-row table from
     :func:`~repro_torch.core.lookup.build_lookup`; it is padded here to the
     executor's row count. Results are trimmed back to ``n_queries`` rows.
+
+    For a ``scan_codes`` plan, ``codes`` (the index's ``(rows, m)`` uint8
+    PQ codes on its device, row-aligned with ``index``) and ``codebooks``
+    (the quantizer's ``(m, C, dsub)`` table, numpy or a tensor) are
+    required, and the returned tables hold ``plan.rerank`` approximate ADC
+    candidates per query -- the caller reranks exactly
+    (:func:`repro_torch.codes.rerank_exact`).
     """
     n_shards = index.n_shards
     shard_rows = index.rows // n_shards
     q_total = lookup_q_total(plan, n_queries)
     fn = make_executor(plan, n_leaves=index.n_leaves, shard_rows=shard_rows,
                        q_total=q_total, n_shards=n_shards)
-    res = fn(index, pad_lookup(lookup, q_total))
+    padded = pad_lookup(lookup, q_total)
+    if plan.layout == "scan_codes":
+        if codes is None or codebooks is None:
+            raise ValueError("scan_codes plan needs codes + codebooks")
+        res = fn(index, padded, codes,
+                 torch.as_tensor(codebooks, device=index.device))
+    else:
+        res = fn(index, padded)
     return SearchResult(
         ids=res.ids[:n_queries],
         dists=res.dists[:n_queries],

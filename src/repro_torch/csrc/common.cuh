@@ -1,7 +1,8 @@
-// Device functions shared by the l2topk (K1), fusedscan (K2) and l2nn (K3)
-// kernels. K1 and K2 compute the partial distance and insert candidates
-// through the SAME functions, so the wave-sweep and the fused search paths
-// agree bit for bit.
+// Device functions shared by the l2topk (K1), fusedscan (K2), l2nn (K3),
+// adcscan (K4) and fusedadc (K5) kernels. K1 and K2 compute the partial
+// distance and insert candidates through the SAME functions, and so do K4
+// and K5 for the ADC distance, so the wave-sweep and the fused search paths
+// agree bit for bit, dense and codes alike.
 //
 // Arithmetic contract (the plain versions in kernels/*/ref.py):
 //   partial[q, p] = ||p||^2 - 2 * (q . p)     fp32, FMA chains over d
@@ -13,10 +14,19 @@
 // error bound of a float64 oracle (kernels/fp32_bound.py), which TF32 or
 // bf16 inputs would break (integer data are exact in those too).
 //
+// ADC contract (kernels/adcscan/ref.py): d2[q, p] = sum_j lut[q, j, c_pj],
+// fp32 adds in the order j = 0..m-1 starting from 0, with no product, so
+// neither TF32 nor an FMA can enter and the kernels equal the plain
+// versions bit for bit on any LUT.
+//
 // Selection contract: the k smallest by (distance, row) lexicographic,
 // ties to the lower row, ascending -- what jax.lax.top_k on negated
 // values gives. Rows are unique, so that order is total and the result
-// does not depend on the order candidates arrive in.
+// does not depend on the order candidates arrive in. The list capacity
+// KCAP (a multiple of 32, k <= KCAP) is a template parameter: each lane
+// keeps KCAP / 32 registers while it shifts the list, so the dense kernels
+// stay at 64 and only the codes kernels, whose k is the rerank depth,
+// take 128.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,7 +42,8 @@ constexpr int QPITCH = TQ;      // row pitch of the transposed query tile
 constexpr int PPITCH = TP + 4;  // row pitch of the transposed point tile
 constexpr int DPITCH = TP + 1;  // row pitch of the distance tile
 constexpr int MAX_D = 256;
-constexpr int MAX_K = 64;
+constexpr int DENSE_KCAP = 64;  // k of K1 and K2 (kernels/l2topk/ops.py)
+constexpr int ADC_KCAP = 128;   // k of K4 and K5: the rerank depth
 constexpr unsigned FULL = 0xffffffffu;
 
 // Same values as core/sentinels.py.
@@ -109,8 +120,10 @@ __device__ __forceinline__ void write_tile(float* __restrict__ dt,
     }
 }
 
-// Insert (cd, ci) into the ascending list rd/ri of k entries; the caller
-// has checked that it beats the last entry. All 32 lanes of the warp call.
+// Insert (cd, ci) into the ascending list rd/ri of k <= KCAP entries; the
+// caller has checked that it beats the last entry. All 32 lanes of the
+// warp call.
+template <int KCAP>
 __device__ __forceinline__ void warp_insert(float* rd, int* ri, int k,
                                             float cd, int ci) {
   const int lane = threadIdx.x & 31;
@@ -120,10 +133,10 @@ __device__ __forceinline__ void warp_insert(float* rd, int* ri, int k,
     bool lt = p < k && lex_less(rd[p], ri[p], cd, ci);
     pos += __popc(__ballot_sync(FULL, lt));
   }
-  float od[MAX_K / 32];
-  int oi[MAX_K / 32];
+  float od[KCAP / 32];
+  int oi[KCAP / 32];
 #pragma unroll
-  for (int t = 0; t < MAX_K / 32; ++t) {
+  for (int t = 0; t < KCAP / 32; ++t) {
     int p = t * 32 + lane;
     if (p < k && p > pos) {
       od[t] = rd[p - 1];
@@ -132,7 +145,7 @@ __device__ __forceinline__ void warp_insert(float* rd, int* ri, int k,
   }
   __syncwarp();
 #pragma unroll
-  for (int t = 0; t < MAX_K / 32; ++t) {
+  for (int t = 0; t < KCAP / 32; ++t) {
     int p = t * 32 + lane;
     if (p < k && p > pos) {
       rd[p] = od[t];
@@ -148,6 +161,7 @@ __device__ __forceinline__ void warp_insert(float* rd, int* ri, int k,
 // Each lane offers one candidate (dv, row) when ok; the warp inserts every
 // candidate that beats the current k-th entry. Candidates that stop
 // qualifying as the list improves drop out without an insert.
+template <int KCAP>
 __device__ __forceinline__ void warp_offer(float* rd, int* ri, int k, float dv,
                                            int row, bool ok) {
   unsigned m = __ballot_sync(FULL, ok && lex_less(dv, row, rd[k - 1], ri[k - 1]));
@@ -155,7 +169,7 @@ __device__ __forceinline__ void warp_offer(float* rd, int* ri, int k, float dv,
     int src = __ffs(m) - 1;
     float cd = __shfl_sync(FULL, dv, src);
     int ci = __shfl_sync(FULL, row, src);
-    warp_insert(rd, ri, k, cd, ci);
+    warp_insert<KCAP>(rd, ri, k, cd, ci);
     m &= ~(1u << src);
     m &= __ballot_sync(FULL, ok && lex_less(dv, row, rd[k - 1], ri[k - 1]));
   }
@@ -278,10 +292,110 @@ __device__ inline void scan_points(const ScanSmem& s, const float* points,
       for (int half = 0; half < TP / 32; ++half) {
         int p = half * 32 + lane;
         float dv = s.dt[q * DPITCH + p];
-        warp_offer(rd, ri, k, dv, (int)(pt + p), p < np && dv < CUDART_INF_F);
+        warp_offer<DENSE_KCAP>(rd, ri, k, dv, (int)(pt + p),
+                               p < np && dv < CUDART_INF_F);
       }
     }
     __syncthreads();
+  }
+}
+
+// First / one-past-last index of v in the ascending array a[0, n).
+__device__ __forceinline__ long long lower_bound_i32(const int* a, long long n,
+                                                     int v) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    long long mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ long long upper_bound_i32(const int* a, long long n,
+                                                     int v) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    long long mid = (lo + hi) >> 1;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// ---- ADC (K4, K5): one warp per query row, its LUT in shared memory ----
+
+// Shared-memory bytes of one warp of an ADC kernel: the query's m * C LUT,
+// then its running list of k distances and k rows.
+__host__ __device__ inline size_t adc_warp_smem_bytes(int lut_n, int k) {
+  return sizeof(float) * ((size_t)lut_n + k) + sizeof(int) * (size_t)k;
+}
+
+// Warps per block of an ADC kernel: at most THREADS / 32, as many as one
+// block's shared memory holds; 0 when not even one warp fits.
+inline int adc_warps_per_block(int lut_n, int k) {
+  const size_t per_warp = adc_warp_smem_bytes(lut_n, k);
+  const size_t fit = (size_t)(227 * 1024 - 64) / per_warp;  // H100 opt-in
+  return fit < (size_t)(THREADS / 32) ? (int)fit : THREADS / 32;
+}
+
+// The calling warp's LUT and list in its block's dynamic shared memory.
+__device__ inline void adc_warp_smem(void* base, int lut_n, int k,
+                                     float** lut, float** rd, int** ri) {
+  char* p = reinterpret_cast<char*>(base) +
+            (threadIdx.x >> 5) * adc_warp_smem_bytes(lut_n, k);
+  *lut = reinterpret_cast<float*>(p);
+  *rd = *lut + lut_n;
+  *ri = reinterpret_cast<int*>(*rd + k);
+}
+
+__device__ inline void adc_reset_list(float* rd, int* ri, int k) {
+  for (int j = threadIdx.x & 31; j < k; j += 32) {
+    rd[j] = CUDART_INF_F;
+    ri[j] = -1;
+  }
+  __syncwarp();
+}
+
+__device__ inline void adc_stage_lut(float* dst, const float* __restrict__ src,
+                                     int lut_n) {
+  for (int j = threadIdx.x & 31; j < lut_n; j += 32) dst[j] = src[j];
+  __syncwarp();
+}
+
+// sum_j lut[j * C + code[j]] in fp32, in the order j = 0..m-1 from 0 (the
+// plain version's loop); __fadd_rn keeps the compiler from reassociating.
+__device__ __forceinline__ float adc_dist(const float* lut,
+                                          const uint8_t* __restrict__ code,
+                                          int m, int C) {
+  float acc = 0.f;
+  for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, lut[j * C + code[j]]);
+  return acc;
+}
+
+// One warp offers every code row p in [r0, r1) with ok(p) to its sorted
+// list of k <= ADC_KCAP, 32 rows at a time, lane i taking row base + i.
+template <typename Ok>
+__device__ inline void adc_scan_rows(float* rd, int* ri, int k,
+                                     const float* lut,
+                                     const uint8_t* __restrict__ codes, int m,
+                                     int C, long long r0, long long r1, Ok ok) {
+  const int lane = threadIdx.x & 31;
+  for (long long base = r0; base < r1; base += 32) {
+    const long long p = base + lane;
+    const bool in = p < r1 && ok(p);
+    const float dv = in ? adc_dist(lut, codes + p * m, m, C) : CUDART_INF_F;
+    warp_offer<ADC_KCAP>(rd, ri, k, dv, (int)p, in);
+  }
+}
+
+// Write a warp's list: distances, and rows through map(row) (-1 where the
+// distance is inf, that is where fewer than k rows matched).
+template <typename Map>
+__device__ inline void adc_emit(const float* rd, const int* ri, int k,
+                                float* out_d, int* out_i, Map map) {
+  for (int j = threadIdx.x & 31; j < k; j += 32) {
+    const float dv = rd[j];
+    out_d[j] = dv;
+    out_i[j] = dv < CUDART_INF_F ? map(ri[j]) : -1;
   }
 }
 

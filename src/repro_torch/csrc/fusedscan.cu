@@ -32,26 +32,6 @@
 
 using namespace rt;
 
-__device__ __forceinline__ long long lower_bound_i32(const int* a, long long n,
-                                                     int v) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ long long upper_bound_i32(const int* a, long long n,
-                                                     int v) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (a[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(THREADS)
 fusedscan_kernel(const float* __restrict__ points,
                  const int* __restrict__ pleaves,

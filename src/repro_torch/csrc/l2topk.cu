@@ -77,7 +77,7 @@ l2topk_merge_kernel(const float* __restrict__ part_d,
       int j = j0 + lane;
       float dv = j < k ? part_d[base + j] : CUDART_INF_F;
       int r = j < k ? part_i[base + j] : -1;
-      warp_offer(rd, ri, k, dv, r, dv < CUDART_INF_F);
+      warp_offer<DENSE_KCAP>(rd, ri, k, dv, r, dv < CUDART_INF_F);
     }
   }
   for (int j = lane; j < k; j += 32) {

@@ -13,6 +13,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.codes.pq import ProductQuantizer
 from repro_torch.core.index_build import DistributedIndex
 from repro_torch.core.lookup import LookupTable
 from repro_torch.core.tree import VocabTree
@@ -55,3 +56,21 @@ def lookup_from_numpy(*, vecs, qids, leaves, offsets,
         leaves=torch.as_tensor(np.array(leaves, np.int32), device=dev),
         offsets=torch.as_tensor(np.array(offsets, np.int32), device=dev),
     )
+
+
+def codes_from_numpy(codes, device: str | torch.device | None = "cuda"
+                     ) -> torch.Tensor:
+    """``(rows, m)`` uint8 PQ codes (``Index._codes[segment]``) on
+    ``device``."""
+    c = np.asarray(codes)
+    if c.dtype != np.uint8 or c.ndim != 2:
+        raise ValueError(f"codes must be (rows, m) uint8, got {c.shape} {c.dtype}")
+    return torch.as_tensor(np.array(c), device=resolve(device))
+
+
+def quantizer_from_numpy(codebooks, meta: dict | None = None
+                         ) -> ProductQuantizer:
+    """The port's quantizer over the reference's ``(m, C, dsub)`` codebooks
+    (``ProductQuantizer.codebooks``, ``.meta``); the codebooks stay numpy
+    on the host, as in the reference."""
+    return ProductQuantizer(np.array(codebooks, np.float32), meta=meta)

@@ -37,6 +37,8 @@ SIGNATURES = {
     "l2topk_launch": [_VP] * 8 + [_I] * 6 + [_VP],
     "fusedscan_launch": [_VP] * 7 + [_I] * 4 + [_VP],
     "l2nn_launch": [_VP] * 4 + [_I] * 3 + [_VP],
+    "adcscan_launch": [_VP] * 7 + [_I] * 6 + [_VP],
+    "fusedadc_launch": [_VP] * 7 + [_I] * 5 + [_VP],
 }
 
 _lock = threading.Lock()

@@ -116,3 +116,19 @@ def nearest_error_ratio(idx, dist, x, centroids) -> float:
     r1 = (dist.double() - exact).abs() / tol
     r2 = (chosen - best) / (2.0 * pb)
     return float(torch.maximum(r1, r2).max())
+
+
+def ties_within_bound(x, centroids, idx_a, idx_b) -> torch.Tensor:
+    """(N,) bool: whether centroids ``idx_a`` and ``idx_b`` are each a
+    right fp32 nearest centroid of their row -- equal, or their float64
+    partials ``||c||^2 - 2 x.c`` within twice the row's fp32 bound of each
+    other (a near-tie that two fp32 evaluations may break either way)."""
+    xd, c = x.double(), centroids.double()
+    cn = (c * c).sum(-1)
+    partial = cn[None, :] - 2.0 * (xd @ c.T)
+    g = gamma(x.shape[1])
+    pb = (g * (cn[None, :] + 2.0 * (xd.abs() @ c.abs().T))
+          + U32 * partial.abs()).amax(1)
+    pa = partial.gather(1, idx_a.long()[:, None])[:, 0]
+    pbb = partial.gather(1, idx_b.long()[:, None])[:, 0]
+    return (idx_a == idx_b) | ((pa - pbb).abs() <= 2.0 * pb)

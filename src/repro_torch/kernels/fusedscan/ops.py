@@ -1,5 +1,6 @@
-"""Whole-shard fused scan wrapper: the plain version for a CPU tensor, the
-K2 CUDA kernel (``csrc/fusedscan.cu``) for a CUDA tensor.
+"""Whole-shard fused scan wrappers: the plain versions for a CPU tensor,
+the CUDA kernels for a CUDA tensor -- K2 (``csrc/fusedscan.cu``) for dense
+rows, K5 (``csrc/fusedadc.cu``) for PQ code rows.
 
 Unlike the per-tile kernel this returns *global descriptor ids* (mapped
 through ``point_ids``, -1 where no match or tombstoned), because the whole
@@ -12,7 +13,8 @@ import torch
 
 from repro_torch.device import check_kernel_inputs
 from repro_torch.kernels import _build
-from repro_torch.kernels.fusedscan.ref import fused_topk_ref
+from repro_torch.kernels.adcscan.ops import check_adc_shapes
+from repro_torch.kernels.fusedscan.ref import fused_adc_topk_ref, fused_topk_ref
 from repro_torch.kernels.l2topk.ops import MAX_D, MAX_K
 
 
@@ -55,3 +57,41 @@ def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
 
 
 fused_topk.launches = 0
+
+
+def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
+                   point_ids: torch.Tensor, lut: torch.Tensor,
+                   query_leaves: torch.Tensor, *, k: int):
+    """(dists (Q,k), ids (Q,k)) whole-shard fused ADC k-NN; see ref.py.
+
+    ``codes`` (P, m) uint8 and ``lut`` (Q, m, C) float32. Rows with id < 0
+    (tombstones) never match. On the card the point leaves must be sorted
+    ascending, as for :func:`fused_topk`: the K5 kernel binary-searches
+    each lookup row's leaf run, and skips the tombstones inside it, which
+    keep their leaf so that the order holds.
+    """
+    if codes.device.type == "cpu":
+        return fused_adc_topk_ref(codes, point_leaves, point_ids, lut,
+                                  query_leaves, k)
+    if codes.device.type != "cuda":
+        raise ValueError(f"fused_adc_topk: unsupported device {codes.device}")
+    check_kernel_inputs(
+        "fused_adc_topk", codes, point_leaves, point_ids, lut, query_leaves,
+        dtypes=(torch.uint8, torch.int32, torch.int32, torch.float32,
+                torch.int32))
+    check_adc_shapes("fused_adc_topk", codes, point_leaves, lut, query_leaves,
+                     k, point_ids)
+    P, m = codes.shape
+    Q, _, C = lut.shape
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=codes.device)
+    err = _build.lib().fusedadc_launch(
+        codes.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
+        lut.data_ptr(), query_leaves.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), P, Q, m, C, k, _build.stream_ptr(codes))
+    _build.check(err, "fusedadc_launch")
+    fused_adc_topk.launches += 1
+    return out_d, out_i
+
+
+fused_adc_topk.launches = 0

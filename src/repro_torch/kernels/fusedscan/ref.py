@@ -13,6 +13,8 @@ Semantics (shared by the kernel and this version):
 
 Selection contract: the k smallest by ``(distance, shard row)``, which is
 what the wave-folded executor produces, so the fused path equals it.
+``fused_adc_topk_ref`` is the same scan over PQ codes under the asymmetric
+distance (``kernels/adcscan/ref.py``).
 
 This version forms the full (P, Q) matrix, so it is for small inputs.
 At a whole shard's size the kernel is held against it on sampled lookup
@@ -24,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.sentinels import INVALID_ID
+from repro_torch.core.sentinels import INVALID_ID, PAD_TILE_POINT_LEAF
+from repro_torch.kernels.adcscan.ref import adc_topk_ref
 from repro_torch.kernels.l2topk.ref import l2_topk_ref
 
 
@@ -38,4 +41,19 @@ def map_ids(dists, sel, point_ids):
 def fused_topk_ref(points, point_leaves, point_ids, queries, query_leaves,
                    k: int):
     dists, sel = l2_topk_ref(points, point_leaves, queries, query_leaves, k)
+    return map_ids(dists, sel, point_ids)
+
+
+def fused_adc_topk_ref(codes, point_leaves, point_ids, lut, query_leaves,
+                       k: int):
+    """ADC variant over PQ code rows (``lut`` is (Q, m, C) f32); distances
+    are *full* squared estimates -- no deferred ``||q||^2`` term.
+
+    Tombstoned rows (id < 0) never match: their leaves are masked to
+    ``PAD_TILE_POINT_LEAF`` here, as the JAX package's executor masks them
+    before its fused ADC call. The kernel takes the unmasked (sorted)
+    leaves and skips those rows itself.
+    """
+    live = torch.where(point_ids >= 0, point_leaves, PAD_TILE_POINT_LEAF)
+    dists, sel = adc_topk_ref(codes, live, lut, query_leaves, k)
     return map_ids(dists, sel, point_ids)

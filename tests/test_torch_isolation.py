@@ -22,6 +22,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import sys, repro_torch, repro_torch.interop, repro_torch.data.synth\n"
         "import repro_torch.kernels.l2topk, repro_torch.kernels.fusedscan\n"
         "import repro_torch.kernels.l2nn, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.adcscan, repro_torch.codes\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

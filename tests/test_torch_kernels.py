@@ -345,7 +345,8 @@ def test_cuda_fused_rejects_unsorted_points(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("n,c,d", [(70000, 256, 128), (200, 70, 8),
-                                   (64, 1000, 200), (1, 1, 3)])
+                                   (64, 1000, 200), (1, 1, 3),
+                                   (70000, 256, 16)])  # PQ encode's shape
 def test_cuda_l2nn_matches_plain(cuda, n, c, d, integer):
     rng = np.random.default_rng(n + c)
     x = _vecs(rng, n, d, integer)

@@ -182,12 +182,12 @@ def test_largest_divisor_leq(n, cap):
 
 
 @pytest.mark.parametrize("layout,impl", [("auto", "xla"), ("query_routed", "xla"),
-                                         ("scan_codes", "xla"),
+                                         ("scan_codes", "auto"),
                                          ("point_major", "auto")])
 def test_unported_plans_raise(layout, impl):
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
         tplan.plan(rows=64, n_leaves=4, n_queries=4, n_shards=1, k=1,
-                   layout=layout, impl=impl)
+                   layout=layout, impl=impl, code_m=2, code_bits=2)
 
 
 def test_plan_rejects_unknown_values():
