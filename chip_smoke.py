@@ -51,7 +51,28 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      their LUTs come from the trained, real-valued codebooks, and ADC adds
      without products, so both are held bit for bit on real values. Prints the
      kernel's, the plain version's and one PyTorch yardstick's time, and
-     the roofline bound of the same work.
+     the roofline bound of the same work;
+  5. LM serving path, after the search phases' tensors are dropped: gemma3-4b
+     at full width and depth (34 layers, bf16 weights drawn on the card from
+     ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
+     with ``attn_impl="chunked"`` (flashattn in every layer), then 32 greedy
+     ``decode_step``s. Checks: (a) the prefill logits against the same
+     prefill with ``attn_impl="full"`` (plain ``attend``), within the bf16
+     model's own rounding error (the largest |bf16 - fp32| logit of the
+     full-attention prefill with the same weights in fp32), and layer 0's KV
+     cache bit for bit; (b) each decode step against ``forward`` over the
+     prompt and the generated tokens at the same position, within that
+     rounding error over the prompt's last 33 positions; (c) flashattn
+     against its plain version on the q, k, v that the prefill fed to layer
+     0 (local) and layer 5 (global): bf16 within
+     ``fp32_bound.attention_bf16_tol``, and fp32 copies moved off the bf16
+     grid within the fp32 bound of a float64 oracle, which the plain version
+     in TF32 must break; plain variants with the window, the causal
+     diagonal or the GQA head map off by one must fail the bf16 check.
+     Prints wall times, tokens/s, peak memory, a profiler breakdown of one
+     prefill and one decode step, and flashattn's time at layer 5's shape
+     beside its plain version's, ``scaled_dot_product_attention``'s and its
+     bound.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -62,6 +83,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -92,6 +115,12 @@ PQ = dict(m=8, bits=8, sample=65_536, iters=16, seed=0)
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# LM serving phase: gemma3-4b, 4 prompts of 2048 tokens, 32 decode steps
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_DECODE = 32
+LM_CHECK_LAYERS = (0, 5)  # one local (window 1024), one global layer
 
 
 def log(msg: str) -> None:
@@ -135,9 +164,10 @@ def time_ms(fn, args_list, warmup: int = 2) -> tuple[float, float]:
     return start.elapsed_time(end) / len(args_list), wall
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS
+          ) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -797,6 +827,251 @@ def trace_searches(rt, run, sizes):
                 for e in top))
 
 
+def lm_pairs(sq: int, skv: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head of causal attention with the
+    query offset skv - sq and an optional window."""
+    qa = np.arange(sq, dtype=np.int64) + (skv - sq)
+    lo = np.maximum(0, qa - window + 1) if window > 0 else np.zeros_like(qa)
+    return int((qa - lo + 1).sum())
+
+
+def run_lm_path(rt, args, dev):
+    """Serve gemma3-4b: prefill 4 x 2048 prompt tokens through flashattn,
+    then 32 greedy decode steps. Returns what the checks need."""
+    cfg = dataclasses.replace(rt.lm.GEMMA3_4B, attn_impl="chunked")
+    t0 = sync_now()
+    params = rt.init_params(cfg.param_specs(),
+                            torch.Generator(device=dev).manual_seed(args.seed),
+                            device=dev, dtype=cfg.compute_dtype)
+    t_init = sync_now() - t0
+    prompts = torch.as_tensor(
+        rt.lm_batch(LM_BATCH, LM_PROMPT, cfg.vocab_size, seed=args.seed)["tokens"],
+        device=dev)
+    max_seq = LM_PROMPT + LM_DECODE
+    weights = [params["embed"], params["final_norm"], *params["layers"].values()]
+    gib = sum(t.numel() * t.element_size() for t in weights) / 2**30
+    log(f"lm: {cfg.name}, {cfg.param_count()} parameters drawn on the card in "
+        f"{t_init:.3f} s ({gib:.3f} GiB in bf16); {LM_BATCH} prompts x {LM_PROMPT} "
+        f"tokens, {LM_DECODE} decode steps")
+    # warm-up: one short request (cuBLAS handles, first-call set-up)
+    _, wc = rt.tfm.prefill(params, cfg, prompts[:1, :64], 65, device=dev)
+    rt.tfm.decode_step(params, cfg, prompts[:1, :1], wc, 64, device=dev)
+    del wc
+
+    captured, calls = {}, [0]  # the q, k, v the prefill feeds to the checked layers
+    real = rt.tfm.flash_attention
+
+    def capture(q, k, v, *, window):
+        if calls[0] in LM_CHECK_LAYERS:
+            captured[calls[0]] = (q.clone(), k.clone(), v.clone(), window)
+        calls[0] += 1
+        return real(q, k, v, window=window)
+
+    torch.cuda.reset_peak_memory_stats()
+    rt.reset_counts()
+    rt.tfm.flash_attention = capture
+    try:
+        t0 = sync_now()
+        logits, cache = rt.tfm.prefill(params, cfg, prompts, max_seq, device=dev)
+        t_prefill = sync_now() - t0
+    finally:
+        rt.tfm.flash_attention = real
+    step_logits, generated = [], []
+    nxt = logits[:, -1:].argmax(-1)
+    t0 = sync_now()
+    for t in range(LM_DECODE):
+        generated.append(nxt)
+        dl, cache = rt.tfm.decode_step(params, cfg, nxt, cache, LM_PROMPT + t, device=dev)
+        step_logits.append(dl[:, 0])
+        nxt = dl[:, -1:].argmax(-1)
+    t_decode = sync_now() - t0
+    launches = rt.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = rt.lm.lm_model_flops(cfg, LM_BATCH, LM_PROMPT, "prefill")
+    log(f"lm prefill: {t_prefill:.4f} s for {LM_BATCH * LM_PROMPT} tokens "
+        f"({LM_BATCH * LM_PROMPT / t_prefill:.1f} tokens/s, "
+        f"{flops / t_prefill / 1e12:.2f} TFLOP/s of {flops / 1e12:.2f} TFLOP model "
+        f"FLOPs); decode: {LM_DECODE} steps in {t_decode:.4f} s "
+        f"({t_decode / LM_DECODE * 1e3:.3f} ms a step, "
+        f"{LM_BATCH * LM_DECODE / t_decode:.1f} tokens/s); peak device memory "
+        f"{peak:.3f} GiB; launches {json.dumps(launches)}")
+    if launches["flashattn"] != cfg.n_layers:
+        raise AssertionError(f"flashattn launched {launches['flashattn']} times in "
+                             f"the prefill of {cfg.n_layers} layers")
+    return dict(cfg=cfg, params=params, prompts=prompts, logits=logits, cache=cache,
+                step_logits=torch.stack(step_logits, 1),
+                generated=torch.cat(generated, 1), captured=captured,
+                launches=launches, times=dict(prefill=t_prefill, decode=t_decode))
+
+
+def check_lm_path(rt, lm):
+    """(a) chunked (flashattn) against full (plain attend) prefill logits and
+    layer 0's cache; (b) decode steps against forward; both within the bf16
+    model's own rounding error, the largest |bf16 - fp32| logit of the full
+    prefill with the same weights in fp32."""
+    cfg, params, prompts, dev = lm["cfg"], lm["params"], lm["prompts"], lm["prompts"].device
+    max_seq = LM_PROMPT + LM_DECODE
+    lc = lm["logits"]
+    if lc.shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size) or lc.dtype != torch.float32:
+        raise AssertionError(f"lm prefill logits {tuple(lc.shape)} {lc.dtype}")
+    if not (bool(torch.isfinite(lc).all()) and bool(torch.isfinite(lm["step_logits"]).all())):
+        raise AssertionError("lm: non-finite logits")
+    n = LM_DECODE + 1  # the prompt's last position and each step's
+    # (b) decode after prefill == forward over prompt + generated, same positions
+    full_toks = torch.cat([prompts, lm["generated"]], 1)
+    fwd, _ = rt.tfm.forward(params, cfg, full_toks, device=dev)
+    fwd_tail = fwd[:, LM_PROMPT - 1:].clone()
+    del fwd
+    served = torch.cat([lc[:, -1:], lm["step_logits"]], 1)  # (B, 33, V)
+    e_dec = float((served - fwd_tail).abs().max())
+    greedy = float((served.argmax(-1) == fwd_tail.argmax(-1)).float().mean())
+    del fwd_tail
+    # (a) the same prefill through plain attend
+    full_cfg = dataclasses.replace(cfg, attn_impl="full")
+    lf, cf = rt.tfm.prefill(params, full_cfg, prompts, max_seq, device=dev)
+    for key in ("k", "v"):
+        if not torch.equal(cf[key][0, :, :LM_PROMPT], lm["cache"][key][0, :, :LM_PROMPT]):
+            raise AssertionError(f"lm: layer 0's {key} cache differs between paths")
+    del cf
+    e_cf = float((lc - lf).abs().max())
+    rms_cf = float((lc - lf).square().mean().sqrt())
+    top1 = float((lc[:, -1].argmax(-1) == lf[:, -1].argmax(-1)).float().mean())
+    # the yardstick: the same weights and prefill in fp32
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="full")
+    p32 = {"embed": params["embed"].float(), "final_norm": params["final_norm"].float(),
+           "layers": {k: v.float() for k, v in params["layers"].items()}}
+    l32, c32 = rt.tfm.prefill(p32, cfg32, prompts, LM_PROMPT, device=dev)
+    del p32, c32
+    gc.collect()
+    e_b = float((lf - l32).abs().max())
+    rms_b = float((lf - l32).square().mean().sqrt())
+    e_b_tail = float((lf[:, -n:] - l32[:, -n:]).abs().max())
+    e_c32 = float((lc - l32).abs().max())
+    del l32, lf
+    torch.cuda.empty_cache()
+    out = dict(chunked_vs_full=e_cf, bf16_vs_fp32=e_b, chunked_vs_fp32=e_c32,
+               decode_vs_forward=e_dec, bf16_vs_fp32_last33=e_b_tail,
+               greedy_agree_decode_forward=greedy, last_top1_agree_chunked_full=top1,
+               rms_chunked_vs_full=rms_cf, rms_bf16_vs_fp32=rms_b,
+               logit_abs_max=float(lc.abs().max()))
+    log(f"lm checks: {json.dumps(out)}")
+    if not e_cf <= e_b:
+        raise AssertionError(f"lm (a): chunked vs full prefill logits differ by {e_cf}, "
+                             f"more than the bf16 model's own error {e_b}")
+    if not e_dec <= e_b_tail:
+        raise AssertionError(f"lm (b): decode vs forward logits differ by {e_dec}, more "
+                             f"than the bf16 model's own error {e_b_tail}")
+    return out
+
+
+def lm_kernel_check(rt, lm, seed):
+    """(c) flashattn against its plain version on the prefill's own q, k, v
+    at layers 0 and 5, bf16 and fp32 copies, with broken plain variants
+    that must fail; times at layer 5's shape. Returns the kernels-line row."""
+    fa, ref = rt.flash_attention, rt.flash_attention_ref
+    dev = lm["prompts"].device
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    rows, errs = {}, {}
+    for layer in LM_CHECK_LAYERS:
+        q, k, v, window = lm["captured"][layer]
+        got, want = fa(q, k, v, window=window), ref(q, k, v, window=window)
+        tol = rt.attention_bf16_tol(q, k, v, window=window)
+        ratio = float(((got.double() - want.double()).abs() / tol).max())
+        errs[layer] = float((got.float() - want.float()).abs().max())
+        # broken plain variants: (kernel rows, variant, tolerance rows)
+        broken = {
+            "heads_shifted": (got, ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
+                                       window=window), tol),
+            # each row misses its own key and may see one more in the past
+            "diagonal_off_by_one": (got[:, 1:], ref(q[:, 1:], k[:, :-1], v[:, :-1],
+                                                    window=window), tol[:, 1:]),
+        }
+        if window > 0:
+            broken["window_plus_one"] = (got, ref(q, k, v, window=window + 1), tol)
+        broken_ratio = {name: float(((a.double() - b.double()).abs() / t).max())
+                        for name, (a, b, t) in broken.items()}
+        del got, want, tol, broken
+        # fp32 copies off the bf16 grid, batch row 0 (the oracle is float64)
+        q32, k32, v32 = (t[:1].float().mul_(1 + (torch.rand(t[:1].shape, generator=g,
+                                                             device=dev) - 0.5) * 2**-8)
+                         for t in (q, k, v))
+        exact, bnd = rt.attention_f64(q32, k32, v32, window=window)
+        r32 = rt.attention_error_ratio(fa(q32, k32, v32, window=window), exact, bnd)
+        with tf32_matmuls():
+            rtf = rt.attention_error_ratio(ref(q32, k32, v32, window=window), exact, bnd)
+        del exact, bnd, q32, k32, v32
+        rows[layer] = dict(window=window, bf16_tol_ratio=ratio, max_abs_err=errs[layer],
+                           broken_variant_ratios=broken_ratio, fp32_bound_ratio=r32,
+                           tf32_bound_ratio=rtf)
+        log(f"flashattn at layer {layer} (window {window}, q {tuple(q.shape)}, kv "
+            f"{tuple(k.shape)}): {json.dumps(rows[layer])}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"flashattn layer {layer}: {ratio} x the bf16 tolerance")
+        for name, br in broken_ratio.items():
+            if not br > 1.0:
+                raise AssertionError(f"flashattn layer {layer}: the broken plain variant "
+                                     f"{name} passes the check ({br} x)")
+        real_check(f"flashattn layer {layer}", r32, rtf)
+
+    # times at layer 5's shape (global, causal), back to back
+    q, k, v, window = lm["captured"][5]
+    reps = [(q, k, v)] * 10
+    kern = time_ms(lambda q, k, v: fa(q, k, v, window=window), reps)
+    plain = time_ms(lambda q, k, v: ref(q, k, v, window=window), reps[:5])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads_first = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # (B, H, S, hd)
+    lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                  [heads_first] * 10)
+    del heads_first
+    q0, k0, v0, w0 = lm["captured"][0]
+    kern0 = time_ms(lambda q, k, v: fa(q, k, v, window=w0), [(q0, k0, v0)] * 10)
+    B, Sq, Hq, hd = q.shape
+    flops = 4.0 * hd * B * Hq * lm_pairs(Sq, k.shape[1], window)
+    byt = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v, out
+    bnd = bound(byt, flops, BF16_FLOPS)
+    row = dict(name="flashattn", route="cuda", source="src/repro_torch/csrc/flashattn.cu",
+               replaces="src/repro/kernels/flashattn/kernel.py:80",
+               launches=lm["launches"]["flashattn"], max_abs_err=max(errs.values()),
+               ms=kern[0], plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=lib[0], wall_ms=kern[1],
+               fp32_bound_ratio=max(r["fp32_bound_ratio"] for r in rows.values()),
+               tf32_bound_ratio=min(r["tf32_bound_ratio"] for r in rows.values()),
+               shape=[B, Sq, Hq, k.shape[2], hd], flops=flops, bytes=byt,
+               layer0_ms=kern0[0], layers={str(i): r for i, r in rows.items()})
+    log(f"flashattn: {kern[0]} ms back to back at layer 5's shape ({kern[1]} ms "
+        f"wall); plain {plain[0]} ms; sdpa {lib[0]} ms; bound {bnd[0]} ms by "
+        f"{bnd[1]} ({flops / 1e9:.2f} GFLOP, {byt / 2**20:.1f} MiB); layer 0 "
+        f"(window {w0}) {kern0[0]} ms; {kern[0] and flops / kern[0] / 1e9:.2f} TFLOP/s")
+    return row
+
+
+def trace_lm(rt, lm):
+    """Device time by kernel (``torch.profiler``) of one chunked prefill and
+    one decode step, against the wall times of the served run."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cfg, params, prompts = lm["cfg"], lm["params"], lm["prompts"]
+    dev = prompts.device
+    cache = rt.tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_DECODE, device=dev)
+    steps = (
+        ("prefill", lm["times"]["prefill"], lambda: rt.tfm.prefill(
+            params, cfg, prompts, LM_PROMPT + LM_DECODE, device=dev)),
+        ("decode step", lm["times"]["decode"] / LM_DECODE, lambda: rt.tfm.decode_step(
+            params, cfg, lm["generated"][:, :1], cache, LM_PROMPT, device=dev)),
+    )
+    for name, wall, fn in steps:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ev) / 1e6
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+        log(f"trace lm {name}: device busy {busy} s of {wall} s wall (idle share "
+            f"{1 - busy / wall}); {sum(e.count for e in ev)} kernels; top device "
+            "time: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3} ms "
+                                 f"x{e.count}" for e in top))
+
+
 class Port:
     """The port's entry points and kernel wrappers, imported from ``src``."""
 
@@ -805,6 +1080,7 @@ class Port:
         import repro_torch
         from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact
         from repro_torch.codes import pq as pq_module
+        from repro_torch.configs import lm
         from repro_torch.core.engine.executors import _build_adc_lut, _live_leaves
         from repro_torch.core.engine.plan import plan as make_plan
         from repro_torch.core.engine.tilescan import count_pairs, fold_topk
@@ -815,15 +1091,20 @@ class Port:
             search_with_lookup,
         )
         from repro_torch.data import synth
+        from repro_torch.data.batches import lm_batch
         from repro_torch.kernels import _build, fp32_bound
         from repro_torch.kernels.adcscan.ops import adc_topk
         from repro_torch.kernels.adcscan.ref import adc_topk_ref
+        from repro_torch.kernels.flashattn.ops import flash_attention
+        from repro_torch.kernels.flashattn.ref import flash_attention_ref
         from repro_torch.kernels.fusedscan.ops import fused_adc_topk, fused_topk
         from repro_torch.kernels.fusedscan.ref import map_ids
         from repro_torch.kernels.l2nn.ops import l2_nearest
         from repro_torch.kernels.l2nn.ref import l2_nearest_ref
         from repro_torch.kernels.l2topk.ops import l2_topk
         from repro_torch.kernels.l2topk.ref import l2_topk_ref
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.module import init_params
 
         self.build_tree = repro_torch.build_tree
         self.build_index = repro_torch.build_index
@@ -849,9 +1130,14 @@ class Port:
         self.build_adc_lut, self.live_leaves = _build_adc_lut, _live_leaves
         self.adc_topk, self.adc_topk_ref = adc_topk, adc_topk_ref
         self.fused_adc_topk = fused_adc_topk
+        self.lm, self.tfm, self.lm_batch, self.init_params = lm, tfm, lm_batch, init_params
+        self.flash_attention, self.flash_attention_ref = flash_attention, flash_attention_ref
+        self.attention_f64 = fp32_bound.attention_f64
+        self.attention_error_ratio = fp32_bound.attention_error_ratio
+        self.attention_bf16_tol = fp32_bound.attention_bf16_tol
         self.wrappers = {"l2topk": l2_topk, "fusedscan": fused_topk,
                          "l2nn": l2_nearest, "adcscan": adc_topk,
-                         "fusedadc": fused_adc_topk}
+                         "fusedadc": fused_adc_topk, "flashattn": flash_attention}
 
     def reset_counts(self):
         for fn in self.wrappers.values():
@@ -912,6 +1198,15 @@ def main(argv=None) -> int:
     check_codes_path(rt, run, sizes)
     trace_searches(rt, run, sizes)
     kernels = kernel_checks(rt, run, sizes, args.seed)
+
+    del run  # the search phases' tensors (the dense phase peaks at 41 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the LM phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    lm = run_lm_path(rt, args, dev)
+    check_lm_path(rt, lm)
+    kernels.append(lm_kernel_check(rt, lm, args.seed))
+    trace_lm(rt, lm)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

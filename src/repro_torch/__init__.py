@@ -5,10 +5,12 @@ The main path is ``build_tree -> build_index -> batch_search``; the
 compressed-codes path trains a ``codes.ProductQuantizer`` on the index,
 encodes its rows, scans the codes (``search_with_lookup`` with a
 ``scan_codes`` plan) and reranks the survivors exactly
-(``codes.rerank_exact``). Every entry point runs on the card unless the
-caller passes ``device="cpu"``; on a CUDA tensor the hot loops go through
-hand-written CUDA kernels (``kernels/l2nn``, ``kernels/l2topk``,
-``kernels/fusedscan``, ``kernels/adcscan``, sources in ``csrc/``), built
+(``codes.rerank_exact``). The model side serves a dense decoder LM
+(``models.transformer``: ``prefill`` then ``decode_step``). Every entry
+point runs on the card unless the caller passes ``device="cpu"``; on a
+CUDA tensor the hot loops go through hand-written CUDA kernels
+(``kernels/l2nn``, ``kernels/l2topk``, ``kernels/fusedscan``,
+``kernels/adcscan``, ``kernels/flashattn``, sources in ``csrc/``), built
 with ``nvcc`` at first use. On a CPU tensor each kernel wrapper runs its
 plain PyTorch version.
 

@@ -1,0 +1,70 @@
+"""Dense LM configurations, copied from the JAX package's
+``configs/{gemma3_4b,llama32_3b,internlm2_18b}.py`` (``CONFIG`` and
+``SMOKE_CONFIG`` of each, the numbers as the repository has them), and
+``lm_model_flops`` from ``configs/lm_common.py``. The reference's
+``ArchDef`` registry and cells are not copied: they import jax.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models.transformer import TransformerConfig
+
+GEMMA3_4B = TransformerConfig(
+    name="gemma3-4b", n_layers=34, d_model=2560, n_heads=8, n_kv_heads=4,
+    head_dim=256, d_ff=10240, vocab_size=262144, window=1024,
+    global_every=6,  # 5 local : 1 global
+    rope_theta=1_000_000.0, scale_embed=True, qk_norm=True,
+)
+GEMMA3_4B_SMOKE = TransformerConfig(
+    name="gemma3-4b-smoke", n_layers=6, d_model=32, n_heads=4, n_kv_heads=2,
+    head_dim=8, d_ff=64, vocab_size=256, window=4, global_every=6,
+    scale_embed=True, qk_norm=True, dtype="float32",
+)
+LLAMA32_3B = TransformerConfig(
+    name="llama3.2-3b", n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
+    head_dim=128, d_ff=8192, vocab_size=128256, rope_theta=500_000.0,
+)
+LLAMA32_3B_SMOKE = TransformerConfig(
+    name="llama3.2-3b-smoke", n_layers=2, d_model=48, n_heads=6, n_kv_heads=2,
+    head_dim=8, d_ff=96, vocab_size=256, dtype="float32",
+)
+INTERNLM2_18B = TransformerConfig(
+    name="internlm2-1.8b", n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
+    head_dim=128, d_ff=8192, vocab_size=92544, rope_theta=1_000_000.0,
+)
+INTERNLM2_18B_SMOKE = TransformerConfig(
+    name="internlm2-1.8b-smoke", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+    head_dim=8, d_ff=64, vocab_size=256, dtype="float32",
+)
+
+
+def _attn_eff_context(cfg: TransformerConfig, seq: int, *, decode: bool):
+    """Per-layer average attended context length (window-aware)."""
+    wins = []
+    for i in range(cfg.n_layers):
+        is_global = cfg.window <= 0 or (
+            cfg.global_every > 0 and (i + 1) % cfg.global_every == 0
+        )
+        w = seq if is_global else min(cfg.window, seq)
+        if not decode and w == seq:
+            w = seq / 2  # causal averaging over query positions
+        wins.append(w)
+    return wins
+
+
+def lm_model_flops(cfg: TransformerConfig, batch: int, seq: int, mode: str):
+    """Useful-FLOPs bookkeeping: 6ND (train) / 2ND (inference) + lm-head +
+    window-aware attention term. N excludes the embedding table (its only
+    compute is the tied lm-head matmul, counted separately)."""
+    V, D = cfg.vocab_size, cfg.d_model
+    n_active = cfg.param_count() - V * D  # dense: every parameter is active
+    if mode == "decode":
+        toks = batch
+        ctx = _attn_eff_context(cfg, seq, decode=True)
+        attn = sum(4.0 * toks * w * cfg.q_dim for w in ctx)
+        return 2.0 * toks * (n_active + D * V) + attn
+    toks = batch * seq
+    ctx = _attn_eff_context(cfg, seq, decode=False)
+    attn = sum(4.0 * toks * w * cfg.q_dim for w in ctx)
+    fwd = 2.0 * toks * (n_active + D * V) + attn
+    return 3.0 * fwd if mode == "train" else fwd

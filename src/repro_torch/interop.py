@@ -74,3 +74,43 @@ def quantizer_from_numpy(codebooks, meta: dict | None = None
     (``ProductQuantizer.codebooks``, ``.meta``); the codebooks stay numpy
     on the host, as in the reference."""
     return ProductQuantizer(np.array(codebooks, np.float32), meta=meta)
+
+
+def transformer_params_from_numpy(params, cfg, device: str | torch.device | None = "cuda",
+                                  dtype: torch.dtype | None = None):
+    """The port's transformer weights from the reference's params pytree as
+    numpy arrays: ``embed``, ``final_norm`` and ``layers`` with every
+    ``(L, ...)`` stack that ``cfg.param_specs()`` names. ``dtype`` casts
+    each weight once on ``device`` (the compute dtype gives the same bits
+    as the reference's cast at every use); by default they stay fp32.
+    Raises on a missing, extra or misshapen weight."""
+    dev = resolve(device)
+    specs = cfg.param_specs()
+
+    def carry(spec_tree, arrays, path):
+        if not isinstance(spec_tree, dict):
+            a = np.asarray(arrays)
+            if tuple(a.shape) != tuple(spec_tree.shape):
+                raise ValueError(f"{path}: shape {a.shape}, expected {spec_tree.shape}")
+            t = torch.as_tensor(np.array(a, np.float32), device=dev)
+            return t.to(dtype) if dtype is not None else t
+        if set(arrays) != set(spec_tree):
+            raise ValueError(f"{path or 'params'}: keys {sorted(arrays)}, "
+                             f"expected {sorted(spec_tree)}")
+        return {key: carry(spec_tree[key], arrays[key], f"{path}.{key}".strip("."))
+                for key in sorted(spec_tree)}
+
+    return carry(specs, params, "")
+
+
+def cache_from_numpy(cache, device: str | torch.device | None = "cuda"):
+    """A KV cache ``{"k", "v"}`` of shape ``(L, B, S, Hkv, hd)`` (the
+    reference's ``prefill``/``init_cache`` output) on ``device``, in fp32."""
+    dev = resolve(device)
+    out = {}
+    for key in ("k", "v"):
+        a = np.asarray(cache[key], np.float32)
+        if a.ndim != 5:
+            raise ValueError(f"cache {key}: expected (L, B, S, Hkv, hd), got {a.shape}")
+        out[key] = torch.as_tensor(np.array(a), device=dev)
+    return out

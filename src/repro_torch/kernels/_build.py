@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
     "l2topk_launch": [_VP] * 8 + [_I] * 6 + [_VP],
@@ -39,6 +41,7 @@ SIGNATURES = {
     "l2nn_launch": [_VP] * 4 + [_I] * 3 + [_VP],
     "adcscan_launch": [_VP] * 7 + [_I] * 6 + [_VP],
     "fusedadc_launch": [_VP] * 7 + [_I] * 5 + [_VP],
+    "flashattn_launch": [_VP] * 4 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
 }
 
 _lock = threading.Lock()

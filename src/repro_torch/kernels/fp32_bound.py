@@ -15,6 +15,9 @@ to first order in u). The i-th smallest of a set of values moves by no more
 than the largest move of any one value, so a right fp32 kernel's sorted
 distances lie within the bound of the oracle's. TF32, which rounds each
 product's inputs to 11 significant bits, misses it several times over.
+``attention_f64`` does the same for flash attention (its bound is in its
+docstring), and ``attention_bf16_tol`` bounds the gap between a bf16
+attention kernel and its plain version.
 
 These run on any device; they are checks, not part of the search path.
 """
@@ -132,3 +135,104 @@ def ties_within_bound(x, centroids, idx_a, idx_b) -> torch.Tensor:
     pa = partial.gather(1, idx_a.long()[:, None])[:, 0]
     pbb = partial.gather(1, idx_b.long()[:, None])[:, 0]
     return (idx_a == idx_b) | ((pa - pbb).abs() <= 2.0 * pb)
+
+
+def attention_f64(q, k, v, *, window: int = -1, rows: int = 8):
+    """The flash-attention plain version in float64, with an fp32 bound.
+
+    Returns ``(out (B,Sq,Hq,hd) f64, tol (B,Sq,Hq,hd) f64)``. ``tol`` bounds,
+    to first order in u, the error of any fp32 evaluation of
+    ``kernels/flashattn/ref.py`` on these fp32 inputs that sums in any order
+    and rescales its running sums at most once per 16 keys (an online
+    softmax; K6 rescales once per 64). With exact scores s_j, weights
+    w_j = softmax(s)_j and output o = sum_j w_j v_j, a relative error eps_j
+    in the j-th unnormalised
+    weight moves o by sum_j w_j eps_j (v_j - o); the two sums of the n
+    unmasked terms (denominator and accumulator) and the final division add
+    (2 gamma_n + u) sum_j w_j |v_j|:
+
+        eps_j = scale gamma_hd sum_d |q_d k_jd|      (the dot product)
+              + u (2 |s_j| + max_k |s_k|)             (scaling; s - m)
+              + u (4 + 6 ceil(Skv / 16))              (exp within 2 ulp; each
+                                                      rescale's exp, product
+                                                      and subtraction)
+
+    Masked keys add exact zeros. TF32, which rounds every product's inputs
+    to 11 significant bits, breaks the bound where attention rests on a few
+    keys (its errors cancel where it spreads over many). ``rows`` query
+    rows are expanded against every key at a time.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    qg = q.double().reshape(B, Sq, Hkv, G, hd)
+    kd, vd = k.double(), v.double()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kd) * scale
+    a = torch.einsum("bqkgh,bskh->bkgqs", qg.abs(), kd.abs()) * scale
+    dist = (torch.arange(Sq, device=q.device) + (Skv - Sq))[:, None] - torch.arange(
+        Skv, device=q.device)[None, :]
+    mask = dist >= 0
+    if window > 0:
+        mask &= dist < window
+    w = torch.softmax(torch.where(mask, s, -math.inf), dim=-1)
+    out = torch.einsum("bkgqs,bskh->bkgqh", w, vd)
+    s = torch.where(mask, s, 0.0)
+    eps = (gamma(hd) * a + U32 * (2.0 * s.abs() + s.abs().amax(-1, keepdim=True))
+           + U32 * (4.0 + 6.0 * math.ceil(Skv / 16)))
+    we = w * eps  # masked keys have w = 0
+    del s, a, eps
+    vt = vd.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, Skv, hd)
+    spread = torch.empty_like(out)
+    for i in range(0, Sq, rows):
+        o_i = out[:, :, :, i:i + rows, None, :]  # (B, Hkv, G, r, 1, hd)
+        spread[:, :, :, i:i + rows] = torch.einsum(
+            "bkgqs,bkgqsh->bkgqh", we[:, :, :, i:i + rows],
+            (vt[:, :, :, None] - o_i).abs())
+    n = mask.sum(-1).double()  # (Sq,) unmasked keys per row
+    g_n = n * U32 / (1.0 - n * U32)
+    absv = torch.einsum("bkgqs,bskh->bkgqh", w, vd.abs())
+    tol = spread + (2.0 * g_n[:, None] + U32) * absv
+    perm = (0, 3, 1, 2, 4)
+    return (out.permute(*perm).reshape(B, Sq, Hq, hd),
+            tol.permute(*perm).reshape(B, Sq, Hq, hd))
+
+
+def attention_error_ratio(out, exact, tol) -> float:
+    """Largest |out - exact| / tol over an attention output."""
+    return float(((out.double() - exact).abs() / tol).max())
+
+
+U_BF16 = 2.0**-8  # unit roundoff of bf16 (8 significant bits)
+
+
+def attention_bf16_tol(q, k, v, *, window: int = -1):
+    """Per-element tolerance ``(B, Sq, Hq, hd)`` between two bf16 attention
+    outputs on the same bf16 inputs: a kernel that keeps its weights in fp32,
+    and the plain version, which rounds them to bf16 before the PV product.
+    With w, o the exact weights and output (float64 here):
+
+        |kernel - plain| <= u_b sum_j w_j |v_j|      (the plain weights' rounding)
+                          + 2 u_b |o|                 (each output's rounding)
+                          + 2^-12 sum_j w_j |v_j|     (fp32 evaluation order)
+
+    The last term covers the two fp32 evaluations, which ``attention_f64``'s
+    bound holds to a small fraction of 2^-12 sum_j w_j |v_j|.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.double().reshape(B, Sq, Hkv, G, hd),
+                     k.double()) * scale
+    dist = (torch.arange(Sq, device=q.device) + (Skv - Sq))[:, None] - torch.arange(
+        Skv, device=q.device)[None, :]
+    mask = dist >= 0
+    if window > 0:
+        mask &= dist < window
+    w = torch.softmax(torch.where(mask, s, -math.inf), dim=-1)
+    del s
+    vd = v.double()
+    o = torch.einsum("bkgqs,bskh->bqkgh", w, vd).reshape(B, Sq, Hq, hd)
+    absv = torch.einsum("bkgqs,bskh->bqkgh", w, vd.abs()).reshape(B, Sq, Hq, hd)
+    return (U_BF16 + 2.0**-12) * absv + 2.0 * U_BF16 * o.abs()

@@ -1,0 +1,287 @@
+"""repro_torch flash attention (K6): the plain version and the CPU path of
+the wrapper against the JAX package's ``flash_attention`` (``impl="xla"``
+and the Pallas kernel in interpret mode), and on the card the CUDA kernel
+against the plain version.
+
+Inputs are made with numpy from a seed. Tolerances on the CPU are the
+reference's own (``tests/test_flashattn.py``): 2e-4 in fp32 (sums in
+another order), 2e-2 in bf16. On the card: fp32 outputs within the fp32
+error bound of a float64 oracle (``kernels/fp32_bound.attention_f64``),
+which the plain version with TF32-rounded products must break; bf16 outputs within
+``fp32_bound.attention_bf16_tol`` of the plain version (its bf16-rounded
+weights and the two outputs' roundings).
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels.flashattn.ops import flash_attention as j_flash
+from repro_torch.kernels import fp32_bound
+from repro_torch.kernels.flashattn.ops import flash_attention
+from repro_torch.kernels.flashattn.ref import flash_attention_ref
+from repro_torch.models import transformer as tfm
+
+SHAPES = [  # b, sq, skv, hq, hkv, hd, win, tq, tkv (tests/test_flashattn.py)
+    (2, 64, 64, 4, 2, 16, -1, 32, 32),  # GQA causal
+    (1, 32, 64, 6, 2, 8, 12, 16, 16),  # prefill-with-history + window
+    (2, 128, 128, 8, 8, 32, -1, 64, 32),  # MHA
+    (1, 64, 64, 4, 1, 16, 7, 64, 64),  # MQA, single tiles
+]
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-4),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _qkv(seed, b, sq, skv, hq, hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, hq, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, hkv, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, hkv, hd)).astype(np.float32))
+
+
+def _both(arrays, tdt, jdt, device="cpu"):
+    """The same values in both packages: rounded to ``jdt`` once by JAX."""
+    j = [jnp.asarray(a).astype(jdt) for a in arrays]
+    t = [torch.as_tensor(np.array(x, np.float32), device=device).to(tdt) for x in j]
+    return j, t
+
+
+def _f32(x):
+    return np.asarray(x.float().cpu() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def _jax_both(seed, shape, dtype):
+    """Inputs in both packages and the JAX outputs of ``impl="xla"`` and of
+    the Pallas kernel (interpret mode on the CPU)."""
+    b, sq, skv, hq, hkv, hd, win, tq, tkv = shape
+    tdt, jdt, tol = DTYPES[dtype]
+    (jq, jk, jv), t = _both(_qkv(seed, b, sq, skv, hq, hkv, hd), tdt, jdt)
+    wants = (j_flash(jq, jk, jv, window=win, impl="xla"),
+             j_flash(jq, jk, jv, window=win, impl="pallas", tile_q=tq, tile_kv=tkv))
+    return t, wants, tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_jax(shape, dtype):
+    (q, k, v), wants, tol = _jax_both(0, shape, dtype)
+    got = flash_attention_ref(q, k, v, window=shape[6])
+    assert got.dtype == q.dtype and got.shape == q.shape
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cpu_wrapper_matches_jax(shape, dtype):
+    (q, k, v), wants, tol = _jax_both(1, shape, dtype)
+    got = flash_attention(q, k, v, window=shape[6])
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_plain_matches_model_attend():
+    """The plain version equals the port's own attend() with arange positions."""
+    B, S, Hq, Hkv, hd = 2, 32, 4, 2, 8
+    q, k, v = (torch.as_tensor(a) for a in _qkv(3, B, S, S, Hq, Hkv, hd))
+    pos = torch.arange(S)
+    want = tfm.attend(q, k, v, q_pos=pos, kv_pos=pos, window=-1)
+    got = flash_attention_ref(q, k, v)
+    np.testing.assert_allclose(got.reshape(B, S, Hq * hd).numpy(), want.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@settings(max_examples=10, deadline=None)
+@given(
+    seed=st.integers(0, 2**30),
+    hkv=st.sampled_from([1, 2, 4]),
+    g=st.sampled_from([1, 2, 3]),
+    win=st.sampled_from([-1, 5, 16]),
+)
+def test_property_sweep(seed, hkv, g, win):
+    (jq, jk, jv), (q, k, v) = _both(_qkv(seed, 1, 32, 32, hkv * g, hkv, 8),
+                                    torch.float32, jnp.float32)
+    got = flash_attention(q, k, v, window=win).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_flash(jq, jk, jv, window=win, impl="xla")),
+                               rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(j_flash(jq, jk, jv, window=win, impl="pallas",
+                                tile_q=16, tile_kv=16)), rtol=3e-4, atol=3e-4)
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 (11 significant bits), to nearest."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000 + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _ref_tf32(q, k, v, window):
+    """The plain version with every product's inputs rounded to TF32, as
+    the card's TF32 matmuls do."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = _tf32(q).reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, _tf32(k)) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(Skv, device=q.device)
+    dist = (pos[Skv - Sq:])[:, None] - pos[None]
+    mask = (dist >= 0) & ((dist < window) if window > 0 else True)
+    probs = torch.softmax(torch.where(mask, logits, -1e30), -1)
+    return torch.einsum("bkgqs,bskh->bqkgh", _tf32(probs), _tf32(v)).reshape(B, Sq, Hq, hd)
+
+
+def _real_qkv(seed, b, sq, skv, hq, hkv, hd):
+    """Unit-RMS rows (as qk_norm gives) moved off the bf16 grid."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(seed, b, sq, skv, hq, hkv, hd))
+    q = q / q.pow(2).mean(-1, keepdim=True).sqrt()
+    k = k / k.pow(2).mean(-1, keepdim=True).sqrt()
+    return q, k, v
+
+
+@pytest.mark.parametrize("sq,skv,hd,win", [(64, 64, 8, -1), (48, 96, 32, 20),
+                                           (128, 128, 128, -1)])
+def test_fp32_bound_holds_plain_and_breaks_tf32(sq, skv, hd, win):
+    q, k, v = _real_qkv(5, 1, sq, skv, 4, 2, hd)
+    exact, tol = fp32_bound.attention_f64(q, k, v, window=win)
+    assert fp32_bound.attention_error_ratio(flash_attention_ref(q, k, v, window=win),
+                                            exact, tol) <= 0.5
+    assert fp32_bound.attention_error_ratio(_ref_tf32(q, k, v, win), exact, tol) > 4.0
+
+
+def test_fp32_bound_breaks_tf32_on_peaked_long_rows():
+    """Over gemma3's ~1000 keys a row's TF32 errors cancel and stay inside
+    the bound; a peaked copy (q x 8, exact in fp32) rests each row on a few
+    keys, where the TF32 plain version breaks it and the fp32 one holds."""
+    q, k, v = _real_qkv(5, 1, 130, 1100, 4, 2, 256)
+    q = q * 8
+    exact, tol = fp32_bound.attention_f64(q, k, v, window=1024)
+    assert fp32_bound.attention_error_ratio(flash_attention_ref(q, k, v, window=1024),
+                                            exact, tol) <= 0.5
+    assert fp32_bound.attention_error_ratio(_ref_tf32(q, k, v, 1024), exact, tol) > 4.0
+
+
+def test_fp32_oracle_row_chunks_agree():
+    q, k, v = _real_qkv(6, 2, 40, 40, 4, 2, 16)
+    a = fp32_bound.attention_f64(q, k, v, window=9, rows=3)
+    b = fp32_bound.attention_f64(q, k, v, window=9, rows=64)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-12, atol=0)
+
+
+def test_bf16_tol_separates_window_and_head_faults():
+    """The plain version in bf16 stays within the bf16 tolerance of the
+    fp32 weights' output; a window off by one and a shifted GQA head map
+    break it."""
+    q, k, v = (t.bfloat16() for t in _real_qkv(7, 1, 256, 256, 4, 2, 32))
+    win = 64
+    tol = fp32_bound.attention_bf16_tol(q, k, v, window=win)
+    fp32_weights = flash_attention_ref(q.float(), k.float(), v.float(), window=win)
+    good = flash_attention_ref(q, k, v, window=win).double()
+    assert float(((good - fp32_weights.bfloat16().double()).abs() / tol).max()) <= 1.0
+    off_by_one = flash_attention_ref(q, k, v, window=win + 1).double()
+    assert float(((off_by_one - good).abs() / tol).max()) > 1.0
+    shifted = flash_attention_ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
+                                  window=win).double()
+    assert float(((shifted - good).abs() / tol).max()) > 1.0
+
+
+def test_cpu_wrapper_counts_no_launch():
+    before = flash_attention.launches
+    q, k, v = (torch.as_tensor(a) for a in _qkv(8, 1, 8, 8, 2, 1, 8))
+    flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel against the plain version (on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+CUDA_SHAPES = [  # b, sq, skv, hq, hkv, hd, win
+    *[s[:7] for s in SHAPES],
+    (2, 200, 200, 8, 4, 128, -1),  # lengths off the 64 tile
+    (1, 77, 333, 6, 2, 128, 1),  # Sq < Skv, window 1
+    (2, 130, 1100, 8, 4, 256, 1024),  # gemma3's local window, history
+    (1, 1100, 1100, 8, 4, 256, -1),  # gemma3's global layers
+    (1, 3, 90, 24, 8, 128, 1024),  # llama's 3 query heads per KV head
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", CUDA_SHAPES)
+def test_cuda_bf16_matches_plain(cuda, b, sq, skv, hq, hkv, hd, win):
+    q, k, v = (t.bfloat16().to(cuda) for t in _real_qkv(9, b, sq, skv, hq, hkv, hd))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, window=win)
+    tol = fp32_bound.attention_bf16_tol(q, k, v, window=win)
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert float(((got.double() - want.double()).abs() / tol).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", CUDA_SHAPES)
+def test_cuda_fp32_within_bound(cuda, b, sq, skv, hq, hkv, hd, win):
+    q, k, v = (t.to(cuda) for t in _real_qkv(10, b, sq, skv, hq, hkv, hd))
+    exact, tol = fp32_bound.attention_f64(q, k, v, window=win)
+    got = flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert fp32_bound.attention_error_ratio(got, exact, tol) <= 1.0
+    np.testing.assert_allclose(_f32(got), _f32(flash_attention_ref(q, k, v, window=win)),
+                               rtol=2e-4, atol=2e-4)
+    if min(win if win > 0 else skv, skv - sq + 1) > 64:
+        # Every row spreads over many keys, where TF32's errors cancel: the
+        # control runs on a peaked copy (q x 8, exact in fp32), which rests
+        # each row on a few keys, and the kernel must hold the bound there too.
+        q = q * 8
+        exact, tol = fp32_bound.attention_f64(q, k, v, window=win)
+        got = flash_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        assert fp32_bound.attention_error_ratio(got, exact, tol) <= 1.0
+    # TF32 rounding emulated: cuBLAS keeps small products (a few query rows)
+    # in fp32 even with allow_tf32 set, so the flag is no control there.
+    assert fp32_bound.attention_error_ratio(_ref_tf32(q, k, v, win), exact, tol) > 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_reads_strided_cache_views(cuda):
+    """q, k, v as views of larger tensors (a KV cache's leading rows, heads
+    of a fused projection) give what dense copies give."""
+    L, B, S_max, Hkv, hd = 2, 2, 160, 2, 128
+    g = torch.Generator().manual_seed(11)
+    cache = torch.randn((L, B, S_max, Hkv, hd), generator=g).bfloat16().to(cuda)
+    qkv = torch.randn((B, 100, 6, hd), generator=g).bfloat16().to(cuda)
+    q, k, v = qkv[:, :, :4], cache[0, :, :130], cache[1, :, :130]
+    got = flash_attention(q, k, v, window=50)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=50)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 24), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :1], q[:, :, :1])  # hd 24
+    q = torch.zeros((1, 8, 3, 16), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])  # 3 heads over 2
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :4, :1], q[:, :4, :1])  # Sq > Skv
+    with pytest.raises(TypeError):
+        h = q.half()
+        flash_attention(h, h[:, :, :1], h[:, :, :1])

@@ -12,7 +12,10 @@ import torch
 
 import repro_torch
 from repro_torch import interop
+from repro_torch.configs.lm import GEMMA3_4B_SMOKE
 from repro_torch.device import resolve
+from repro_torch.models import transformer as tfm
+from repro_torch.models.module import init_params
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -23,6 +26,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.kernels.l2topk, repro_torch.kernels.fusedscan\n"
         "import repro_torch.kernels.l2nn, repro_torch.kernels._build\n"
         "import repro_torch.kernels.adcscan, repro_torch.codes\n"
+        "import repro_torch.models.transformer, repro_torch.kernels.flashattn\n"
+        "import repro_torch.configs.lm, repro_torch.data.batches\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -52,18 +57,29 @@ def _no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["build_tree", "build_index", "batch_search",
-                                   "tree_from_numpy"])
+                                   "tree_from_numpy", "init_params", "prefill",
+                                   "transformer_params_from_numpy"])
 def test_default_device_raises_without_cuda(entry):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
     tree = interop.tree_from_numpy([x[:2], np.zeros((2, 2, 4), np.float32)],
                                    device="cpu")
+    cfg = GEMMA3_4B_SMOKE
+    cpu_params = init_params(cfg.param_specs(), torch.Generator().manual_seed(0),
+                             device="cpu")
     calls = {
         "build_tree": lambda: repro_torch.build_tree(
             x, (2, 2), generator=torch.Generator().manual_seed(0)),
         "build_index": lambda: repro_torch.build_index(x, tree),
         "batch_search": lambda: repro_torch.batch_search(None, tree, x, 1),
         "tree_from_numpy": lambda: interop.tree_from_numpy([x[:2]]),
+        "init_params": lambda: init_params(
+            cfg.param_specs(), torch.Generator().manual_seed(0)),
+        "prefill": lambda: tfm.prefill(cpu_params, cfg, x[:1, :4].astype(np.int32), 8),
+        "transformer_params_from_numpy": lambda: interop.transformer_params_from_numpy(
+            dict(embed=cpu_params["embed"].numpy(),
+                 final_norm=cpu_params["final_norm"].numpy(),
+                 layers={k: t.numpy() for k, t in cpu_params["layers"].items()}), cfg),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
