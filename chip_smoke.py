@@ -44,9 +44,14 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      l2nn is also run at encode's shape: per subspace, one mid-shard
      2^21-row chunk (d = 16, 256 trained centroids), where its codes must
      equal encode's, differ from the plain version's only at near-ties
-     within the fp32 bound, and hold that bound while TF32 breaks it.
+     within the fp32 bound, and hold that bound while TF32 breaks it; and
+     at the shape of most of its launches, build_index's 4,096-row waves
+     against the 256 level-0 centroids (64 waves).
      adcscan runs 64 waves of the codes sweep as the sweep calls it (the
-     whole LUT table, the slab start on the device) and fusedadc the codes
+     wave's sorted leaves and ids, the whole LUT table, the slab start on
+     the device), one of them again with tombstones, and is timed once more
+     with every lookup leaf moved past the index's leaves (its floor: the
+     launch and the empty lists); fusedadc runs the codes
      path's own call (held on 256 sampled lookup rows, like fusedscan);
      their LUTs come from the trained, real-valued codebooks, and ADC adds
      without products, so both are held bit for bit on real values. Prints the
@@ -56,8 +61,10 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      at full width and depth (34 layers, bf16 weights drawn on the card from
      ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
      with ``attn_impl="chunked"`` (flashattn in every layer), then 32 greedy
-     ``decode_step``s. Checks: (a) the prefill logits against the same
-     prefill with ``attn_impl="full"`` (plain ``attend``), within the bf16
+     ``decode_step``s; every flashattn launch of the prefill must go to the
+     tensor-core kernel (bf16 at hd 256). Checks: (a) the prefill logits
+     against the same prefill with ``attn_impl="full"`` (plain
+     ``attend``), within the bf16
      model's own rounding error (the largest |bf16 - fp32| logit of the
      full-attention prefill with the same weights in fp32), and layer 0's KV
      cache bit for bit; (b) each decode step against ``forward`` over the
@@ -65,14 +72,16 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      rounding error over the prompt's last 33 positions; (c) flashattn
      against its plain version on the q, k, v that the prefill fed to layer
      0 (local) and layer 5 (global): bf16 within
-     ``fp32_bound.attention_bf16_tol``, and fp32 copies moved off the bf16
-     grid within the fp32 bound of a float64 oracle, which the plain version
-     in TF32 must break; plain variants with the window, the causal
-     diagonal or the GQA head map off by one must fail the bf16 check.
-     Prints wall times, tokens/s, peak memory, a profiler breakdown of one
-     prefill and one decode step, and flashattn's time at layer 5's shape
-     beside its plain version's, ``scaled_dot_product_attention``'s and its
-     bound.
+     ``fp32_bound.attention_bf16_tol`` (the tensor-core kernel, and the
+     CUDA-core kernel on the same inputs), and fp32 copies moved off the
+     bf16 grid (the CUDA-core kernel, which serves fp32) within the fp32
+     bound of a float64 oracle, which the plain version in TF32 must break;
+     plain variants with the window, the causal diagonal or the GQA head
+     map off by one must fail the bf16 check. Prints wall times, tokens/s,
+     peak memory, a profiler breakdown of one prefill and one decode step,
+     and flashattn's time at layer 5's shape beside the CUDA-core kernel's
+     on the same bf16 inputs, its plain version's,
+     ``scaled_dot_product_attention``'s and its bound.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -637,12 +646,37 @@ def kernel_checks(rt, run, sizes, seed):
     C = c.shape[0]
     bnd = bound(n * d * 4 + C * d * 4 + n * 8, n * C * 2 * d + (n + C) * 2 * d)
     del x, c
+    wave = l2nn_wave_shape(rt, run, sizes, equal)
     enc = encode_check(rt, run, g)
     record("l2nn", "src/repro_torch/csrc/l2nn.cu",
            "src/repro/kernels/l2nn/kernel.py:60", run["launches"]["l2nn"],
            err, real, kern, plain, bnd, lib,
-           codes_path_launches=run["codes_launches"]["l2nn"], **enc)
+           codes_path_launches=run["codes_launches"]["l2nn"], **wave, **enc)
     adc_checks(rt, run, sizes, seed, record, equal)
+    return out
+
+
+def l2nn_wave_shape(rt, run, sizes, equal):
+    """K3 at the shape most of its main-path launches have: build_index's
+    tree assignment calls it once a wave of ``block_rows`` rows against
+    the 256 level-0 centroids. 64 distinct mid-corpus waves, each held
+    against the plain version (bit for bit: integer data); times beside
+    the bound of one wave. Returns the numbers for the kernels line."""
+    index, B, c = run["index"], sizes["block_rows"], run["tree"].levels[0]
+    mid = int(index.n_valid[0]) // 2 // B * B
+    waves = [(index.vecs[mid + i * B: mid + (i + 1) * B], c)
+             for i in range(sizes["k1_waves"])]
+    err = max(equal(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1],
+                    "l2nn wave") for x, c in waves)
+    kern = time_ms(lambda x, c: rt.l2_nearest(x, c), waves)
+    plain = time_ms(lambda x, c: rt.l2_nearest_ref(x, c), waves)
+    lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), waves)
+    C, d = c.shape
+    bnd = bound(B * d * 4 + C * d * 4 + B * 8, B * C * 2 * d + (B + C) * 2 * d)
+    out = dict(wave_shape=[B, C, d], wave_ms=kern[0], wave_plain_ms=plain[0],
+               wave_library_ms=lib[0], wave_bound_ms=bnd[0], wave_bound_by=bnd[1],
+               wave_max_abs_err=err)
+    log(f"l2nn at the build's wave shape: {json.dumps(out)}")
     return out
 
 
@@ -707,8 +741,9 @@ def adc_checks(rt, run, sizes, seed, record, equal):
     live = rt.live_leaves(index.leaves, index.ids)
 
     # --- K4 adcscan: real waves of the codes sweep, called as the sweep
-    # calls it (the whole LUT table, the slab start on the device); the
-    # plain version and the yardstick get the slab's rows ---
+    # calls it (the wave's sorted leaves and ids, the whole LUT table, the
+    # slab start on the device); the plain version and the yardstick get
+    # the slab's rows and the masked leaves ---
     mid = int(index.n_valid[0]) // 2 // B * B
     qc = sizes["q_cap"]
     waves, slabs, need, pairs = [], [], 0, 0
@@ -717,17 +752,30 @@ def adc_checks(rt, run, sizes, seed, record, equal):
         plf = live[s:s + B]
         start = int(flk.offsets[int(index.leaves[s])].clamp(0, Q - qc))
         qlf = flk.leaves[start:start + qc]
-        waves.append((codes[s:s + B], plf, torch.tensor([start], device=dev)))
+        waves.append((codes[s:s + B], index.leaves[s:s + B], index.ids[s:s + B],
+                      torch.tensor([start], device=dev)))
         slabs.append((codes[s:s + B], plf, lut[start:start + qc], qlf))
         need += int(torch.isin(qlf, plf).sum())  # LUTs the wave needs
         pairs += int(rt.count_pairs(plf, qlf))
 
-    def k4(cd, plf, start):
-        return rt.adc_topk(cd, plf, lut, flk.leaves, k=r, q_start=start, q_rows=qc)
+    def k4(cd, plf, ids, start, qleaves=flk.leaves):
+        return rt.adc_topk(cd, plf, lut, qleaves, k=r, point_ids=ids,
+                           q_start=start, q_rows=qc)
 
     err = max(equal(k4(*w), rt.adc_topk_ref(*sw, r), "adcscan")
               for w, sw in zip(waves, slabs))
+    # a wave with tombstones (every 5th id dead; they keep their leaf)
+    cd, plf, ids, start = waves[0]
+    dead = ids.clone()
+    dead[::5] = -1
+    err = max(err, equal(k4(cd, plf, dead, start),
+                         rt.adc_topk_ref(cd, rt.live_leaves(plf, dead),
+                                         *slabs[0][2:], r), "adcscan tombstones"))
     kern = time_ms(k4, waves)
+    # the floor: the same waves with every lookup leaf past the index's
+    # leaves, so that no block finds a run (launch, leaf test, empty lists)
+    past = torch.where(flk.leaves >= 0, flk.leaves + index.n_leaves, flk.leaves)
+    floor = time_ms(lambda *w: k4(*w, qleaves=past), waves)
     plain = time_ms(lambda *w: rt.adc_topk_ref(*w, r), slabs)
     offs = torch.arange(m, device=dev) * C
 
@@ -743,7 +791,8 @@ def adc_checks(rt, run, sizes, seed, record, equal):
     bnd = bound(byt / nw, pairs * m / nw)
     record("adcscan", "src/repro_torch/csrc/adcscan.cu",
            "src/repro/kernels/adcscan/kernel.py:101", run["codes_launches"]["adcscan"],
-           err, None, kern, plain, bnd, lib, luts_needed_per_wave=need / nw)
+           err, None, kern, plain, bnd, lib, luts_needed_per_wave=need / nw,
+           floor_ms=floor[0], tombstone_wave_checked=True)
     del waves, slabs
 
     # --- K5 fusedadc: the codes path's call, the whole shard's codes
@@ -898,6 +947,10 @@ def run_lm_path(rt, args, dev):
     if launches["flashattn"] != cfg.n_layers:
         raise AssertionError(f"flashattn launched {launches['flashattn']} times in "
                              f"the prefill of {cfg.n_layers} layers")
+    if (launches["flashattn.tensor_core"] != cfg.n_layers
+            or launches["flashattn.cuda_core"] != 0):
+        raise AssertionError(f"the prefill's flashattn launches did not all go to "
+                             f"the tensor-core kernel: {json.dumps(launches)}")
     return dict(cfg=cfg, params=params, prompts=prompts, logits=logits, cache=cache,
                 step_logits=torch.stack(step_logits, 1),
                 generated=torch.cat(generated, 1), captured=captured,
@@ -974,10 +1027,16 @@ def lm_kernel_check(rt, lm, seed):
     rows, errs = {}, {}
     for layer in LM_CHECK_LAYERS:
         q, k, v, window = lm["captured"][layer]
+        if rt.fa_variant(q.dtype, q.shape[-1]) != "tensor_core":
+            raise AssertionError(f"flashattn layer {layer}: bf16 at hd {q.shape[-1]} "
+                                 f"does not take the tensor-core kernel")
         got, want = fa(q, k, v, window=window), ref(q, k, v, window=window)
         tol = rt.attention_bf16_tol(q, k, v, window=window)
         ratio = float(((got.double() - want.double()).abs() / tol).max())
         errs[layer] = float((got.float() - want.float()).abs().max())
+        cc = fa(q, k, v, window=window, kernel="cuda_core")  # the yardstick kernel
+        cc_ratio = float(((cc.double() - want.double()).abs() / tol).max())
+        del cc
         # broken plain variants: (kernel rows, variant, tolerance rows)
         broken = {
             "heads_shifted": (got, ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
@@ -1001,35 +1060,45 @@ def lm_kernel_check(rt, lm, seed):
             rtf = rt.attention_error_ratio(ref(q32, k32, v32, window=window), exact, bnd)
         del exact, bnd, q32, k32, v32
         rows[layer] = dict(window=window, bf16_tol_ratio=ratio, max_abs_err=errs[layer],
+                           cuda_core_bf16_tol_ratio=cc_ratio,
                            broken_variant_ratios=broken_ratio, fp32_bound_ratio=r32,
                            tf32_bound_ratio=rtf)
         log(f"flashattn at layer {layer} (window {window}, q {tuple(q.shape)}, kv "
             f"{tuple(k.shape)}): {json.dumps(rows[layer])}")
         if not ratio <= 1.0:
             raise AssertionError(f"flashattn layer {layer}: {ratio} x the bf16 tolerance")
+        if not cc_ratio <= 1.0:
+            raise AssertionError(f"flashattn layer {layer}: the CUDA-core kernel at "
+                                 f"{cc_ratio} x the bf16 tolerance")
         for name, br in broken_ratio.items():
             if not br > 1.0:
                 raise AssertionError(f"flashattn layer {layer}: the broken plain variant "
                                      f"{name} passes the check ({br} x)")
         real_check(f"flashattn layer {layer}", r32, rtf)
 
-    # times at layer 5's shape (global, causal), back to back
+    # times at layer 5's shape (global, causal), back to back: the
+    # tensor-core kernel the prefill runs, the CUDA-core kernel on the same
+    # bf16 inputs, the plain version and sdpa. The sub-millisecond calls run
+    # 50 times, so that each timed run lasts tens of milliseconds (over 10
+    # calls one run read the tensor-core kernel 20 % slower than two others)
     q, k, v, window = lm["captured"][5]
-    reps = [(q, k, v)] * 10
+    reps = [(q, k, v)] * 50
     kern = time_ms(lambda q, k, v: fa(q, k, v, window=window), reps)
+    kern_cc = time_ms(lambda q, k, v: fa(q, k, v, window=window, kernel="cuda_core"),
+                      reps[:5])
     plain = time_ms(lambda q, k, v: ref(q, k, v, window=window), reps[:5])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads_first = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # (B, H, S, hd)
     lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                  [heads_first] * 10)
+                  [heads_first] * 50)
     del heads_first
     q0, k0, v0, w0 = lm["captured"][0]
-    kern0 = time_ms(lambda q, k, v: fa(q, k, v, window=w0), [(q0, k0, v0)] * 10)
+    kern0 = time_ms(lambda q, k, v: fa(q, k, v, window=w0), [(q0, k0, v0)] * 50)
     B, Sq, Hq, hd = q.shape
     flops = 4.0 * hd * B * Hq * lm_pairs(Sq, k.shape[1], window)
     byt = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v, out
     bnd = bound(byt, flops, BF16_FLOPS)
-    row = dict(name="flashattn", route="cuda", source="src/repro_torch/csrc/flashattn.cu",
+    row = dict(name="flashattn", route="cuda", source="src/repro_torch/csrc/flashattn_tc.cu",
                replaces="src/repro/kernels/flashattn/kernel.py:80",
                launches=lm["launches"]["flashattn"], max_abs_err=max(errs.values()),
                ms=kern[0], plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
@@ -1037,11 +1106,19 @@ def lm_kernel_check(rt, lm, seed):
                fp32_bound_ratio=max(r["fp32_bound_ratio"] for r in rows.values()),
                tf32_bound_ratio=min(r["tf32_bound_ratio"] for r in rows.values()),
                shape=[B, Sq, Hq, k.shape[2], hd], flops=flops, bytes=byt,
-               layer0_ms=kern0[0], layers={str(i): r for i, r in rows.items()})
-    log(f"flashattn: {kern[0]} ms back to back at layer 5's shape ({kern[1]} ms "
-        f"wall); plain {plain[0]} ms; sdpa {lib[0]} ms; bound {bnd[0]} ms by "
-        f"{bnd[1]} ({flops / 1e9:.2f} GFLOP, {byt / 2**20:.1f} MiB); layer 0 "
-        f"(window {w0}) {kern0[0]} ms; {kern[0] and flops / kern[0] / 1e9:.2f} TFLOP/s")
+               layer0_ms=kern0[0], tflops=flops / kern[0] / 1e9,
+               prefill_launches_by_kernel={
+                   "tensor_core": lm["launches"]["flashattn.tensor_core"],
+                   "cuda_core": lm["launches"]["flashattn.cuda_core"]},
+               cuda_core_source="src/repro_torch/csrc/flashattn.cu",
+               cuda_core_ms=kern_cc[0], cuda_core_tflops=flops / kern_cc[0] / 1e9,
+               fp32_checked_on="cuda_core", layers={str(i): r for i, r in rows.items()})
+    log(f"flashattn (tensor-core kernel): {kern[0]} ms back to back at layer 5's shape "
+        f"({kern[1]} ms wall, {flops / kern[0] / 1e9:.2f} TFLOP/s); CUDA-core kernel on "
+        f"the same bf16 inputs {kern_cc[0]} ms ({flops / kern_cc[0] / 1e9:.2f} TFLOP/s); "
+        f"plain {plain[0]} ms; sdpa {lib[0]} ms; bound {bnd[0]} ms by {bnd[1]} "
+        f"({flops / 1e9:.2f} GFLOP, {byt / 2**20:.1f} MiB); layer 0 (window {w0}) "
+        f"{kern0[0]} ms")
     return row
 
 
@@ -1095,7 +1172,7 @@ class Port:
         from repro_torch.kernels import _build, fp32_bound
         from repro_torch.kernels.adcscan.ops import adc_topk
         from repro_torch.kernels.adcscan.ref import adc_topk_ref
-        from repro_torch.kernels.flashattn.ops import flash_attention
+        from repro_torch.kernels.flashattn.ops import flash_attention, variant
         from repro_torch.kernels.flashattn.ref import flash_attention_ref
         from repro_torch.kernels.fusedscan.ops import fused_adc_topk, fused_topk
         from repro_torch.kernels.fusedscan.ref import map_ids
@@ -1132,6 +1209,7 @@ class Port:
         self.fused_adc_topk = fused_adc_topk
         self.lm, self.tfm, self.lm_batch, self.init_params = lm, tfm, lm_batch, init_params
         self.flash_attention, self.flash_attention_ref = flash_attention, flash_attention_ref
+        self.fa_variant = variant
         self.attention_f64 = fp32_bound.attention_f64
         self.attention_error_ratio = fp32_bound.attention_error_ratio
         self.attention_bf16_tol = fp32_bound.attention_bf16_tol
@@ -1142,9 +1220,15 @@ class Port:
     def reset_counts(self):
         for fn in self.wrappers.values():
             fn.launches = 0
+        fa = self.flash_attention.variant_launches
+        for name in fa:
+            fa[name] = 0
 
     def counts(self):
-        return {name: fn.launches for name, fn in self.wrappers.items()}
+        out = {name: fn.launches for name, fn in self.wrappers.items()}
+        for name, n in self.flash_attention.variant_launches.items():
+            out[f"flashattn.{name}"] = n
+        return out
 
 
 def main(argv=None) -> int:

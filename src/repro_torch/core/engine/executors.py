@@ -248,17 +248,18 @@ def _scan_codes_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
 
     def shard_fn(index, lookup, codes, lut):
         leaves, ids = index.leaves, index.ids
-        # tombstoned rows keep their leaf for slab location, never match
-        live = _live_leaves(leaves, ids)
 
         def tile(wave, start, slab):
+            # the wave's sorted leaves with its ids: tombstones keep their
+            # leaf, so the order holds, and the kernel skips them (P6)
             return map_ids(*adc_ops.adc_topk(
-                codes[wave], live[wave], lut, lookup.leaves, k=plan.rerank,
-                q_start=start, q_rows=plan.q_cap), ids[wave])
+                codes[wave], leaves[wave], lut, lookup.leaves, k=plan.rerank,
+                point_ids=ids[wave], q_start=start, q_rows=plan.q_cap),
+                ids[wave])
 
         return _wave_sweep(plan, tile, leaves, lookup, n_leaves=n_leaves,
                            q_total=q_total, width=plan.rerank,
-                           pair_leaves=live)
+                           pair_leaves=_live_leaves(leaves, ids))
 
     return _codes_pipeline(plan, shard_fn, q_total=q_total)
 

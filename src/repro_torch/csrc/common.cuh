@@ -1,8 +1,10 @@
 // Device functions shared by the l2topk (K1), fusedscan (K2), l2nn (K3),
 // adcscan (K4) and fusedadc (K5) kernels. K1 and K2 compute the partial
-// distance and insert candidates through the SAME functions, and so do K4
-// and K5 for the ADC distance, so the wave-sweep and the fused search paths
-// agree bit for bit, dense and codes alike.
+// distance and insert candidates through the SAME functions, and K4 and K5
+// the ADC distance; K4 merges candidates in batches (warp_merge_offer),
+// which builds the lists K5's one-at-a-time insertion (warp_offer) builds.
+// So the wave-sweep and the fused search paths agree bit for bit, dense
+// and codes alike.
 //
 // Arithmetic contract (the plain versions in kernels/*/ref.py):
 //   partial[q, p] = ||p||^2 - 2 * (q . p)     fp32, FMA chains over d
@@ -321,7 +323,110 @@ __device__ __forceinline__ long long upper_bound_i32(const int* a, long long n,
   return lo;
 }
 
-// ---- ADC (K4, K5): one warp per query row, its LUT in shared memory ----
+// The same two searches with the whole warp: each round reads 32 samples
+// of the remaining range at once, so P = 4096 takes 3 rounds of loads, not
+// 12 dependent ones. `upper` counts entries <= v (upper bound), else < v.
+// All 32 lanes call, with the same arguments; all get the result.
+__device__ inline long long warp_bound_i32(const int* a, long long n, int v,
+                                           bool upper) {
+  const int lane = threadIdx.x & 31;
+  long long lo = 0, hi = n;  // a[< lo] before v's bound, a[>= hi] after it
+  while (hi - lo > 32) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long i = lo + lane * step;
+    const bool before = i < hi && (upper ? a[i] <= v : a[i] < v);
+    const int c = __popc(__ballot_sync(FULL, before));  // a prefix of lanes
+    if (c == 0) return lo;
+    hi = min(hi, lo + c * step);
+    lo += (c - 1) * step + 1;
+  }
+  const long long i = lo + lane;
+  const bool before = i < hi && (upper ? a[i] <= v : a[i] < v);
+  return lo + __popc(__ballot_sync(FULL, before));
+}
+
+// Sort one (d, row) pair per lane ascending by (d, row) across the warp
+// (bitonic network over shuffles).
+__device__ __forceinline__ void warp_sort32(float& d, int& r) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float od = __shfl_xor_sync(FULL, d, stride);
+      const int orow = __shfl_xor_sync(FULL, r, stride);
+      const bool keep_min = ((lane & size) == 0) == ((lane & stride) == 0);
+      const bool other_less = lex_less(od, orow, d, r);
+      if (keep_min ? other_less : !other_less) {
+        d = od;
+        r = orow;
+      }
+    }
+  }
+}
+
+// warp_offer's result in one step for up to 32 candidates: the candidates
+// that beat the k-th entry are sorted across the warp and merged into the
+// ascending list rd/ri of k <= KCAP entries, each entry and candidate
+// moving straight to its rank in the union (keys (distance, row) are
+// unique), truncated to k. The list equals the one warp_offer builds; the
+// critical path is a sort and two searches instead of one insertion a
+// candidate. All 32 lanes of the warp call.
+template <int KCAP>
+__device__ inline void warp_merge_offer(float* rd, int* ri, int k, float dv,
+                                        int row, bool ok) {
+  const int lane = threadIdx.x & 31;
+  ok = ok && lex_less(dv, row, rd[k - 1], ri[k - 1]);
+  const unsigned any = __ballot_sync(FULL, ok);
+  if (!any) return;
+  const int n = __popc(any);
+  float cd = ok ? dv : CUDART_INF_F;
+  int cr = ok ? row : INT32_MAX;
+  warp_sort32(cd, cr);  // the n candidates in lanes 0..n-1
+  int before = INT32_MAX;  // list entries before this lane's candidate
+  if (lane < n) {
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lex_less(rd[mid], ri[mid], cd, cr)) lo = mid + 1; else hi = mid;
+    }
+    before = lo;
+  }
+  float od[KCAP / 32];
+  int oi[KCAP / 32], moved[KCAP / 32];
+#pragma unroll
+  for (int t = 0; t < KCAP / 32; ++t) {
+    const int p = t * 32 + lane;
+    if (p < k) {
+      od[t] = rd[p];
+      oi[t] = ri[p];
+    }
+    // candidates ahead of entry p: those with before <= p (ascending in lane)
+    int c = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(FULL, before, c + step - 1) <= p) c += step;
+    if (__shfl_sync(FULL, before, c) <= p) ++c;
+    moved[t] = p + c;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < KCAP / 32; ++t) {
+    const int p = t * 32 + lane;
+    if (p < k && moved[t] < k) {
+      rd[moved[t]] = od[t];
+      ri[moved[t]] = oi[t];
+    }
+  }
+  if (lane < n && lane + before < k) {
+    rd[lane + before] = cd;
+    ri[lane + before] = cr;
+  }
+  __syncwarp();
+}
+
+// ---- ADC (K4, K5): a query row's LUT in shared memory; K5 gives each
+// query row one warp (the per-warp layout below), K4 one block ----
 
 // Shared-memory bytes of one warp of an ADC kernel: the query's m * C LUT,
 // then its running list of k distances and k rows.

@@ -39,9 +39,10 @@ SIGNATURES = {
     "l2topk_launch": [_VP] * 8 + [_I] * 6 + [_VP],
     "fusedscan_launch": [_VP] * 7 + [_I] * 4 + [_VP],
     "l2nn_launch": [_VP] * 4 + [_I] * 3 + [_VP],
-    "adcscan_launch": [_VP] * 7 + [_I] * 6 + [_VP],
+    "adcscan_launch": [_VP] * 8 + [_I] * 6 + [_VP],
     "fusedadc_launch": [_VP] * 7 + [_I] * 5 + [_VP],
     "flashattn_launch": [_VP] * 4 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
+    "flashattn_tc_launch": [_VP] * 4 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
 }
 
 _lock = threading.Lock()

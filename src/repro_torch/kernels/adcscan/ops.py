@@ -1,19 +1,23 @@
 """Same-leaf ADC top-k tile wrapper: the plain version for a CPU tensor,
 the K4 CUDA kernel (``csrc/adcscan.cu``) for a CUDA tensor.
 
-The kernel walks exactly the ``P`` code rows and ``Q`` lookup rows it is
-given, one warp per lookup row, so nothing is padded; in the wave sweep it
-is given the whole LUT and the slab's start on the device, and reads only
-the LUTs of the slab rows whose leaf the wave holds. The sentinels keep
-their meaning: a point leaf of ``PAD_TILE_POINT_LEAF`` (a tombstone the
-executor masked) or ``LEAF_SENTINEL`` and a padded lookup row's
-``PAD_QUERY_LEAF`` never equal a real leaf or each other.
+The kernel takes a wave's point leaves in ascending order, as the
+leaf-sorted shard holds them, with the wave's ids: one block per lookup
+row searches its leaf's run and scans only that run, its warps splitting
+it, skipping rows with id < 0 (tombstones keep their leaf, so the order
+holds). In the wave sweep it is given the whole LUT and the slab's start
+on the device, and reads only the LUTs of the slab rows whose leaf the
+wave holds. The sentinels
+keep their meaning: a point leaf of ``LEAF_SENTINEL`` (routing padding,
+sorted last) and a padded lookup row's ``PAD_QUERY_LEAF`` never equal a
+real leaf or each other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sentinels import PAD_TILE_POINT_LEAF
 from repro_torch.device import check_kernel_inputs
 from repro_torch.kernels import _build
 from repro_torch.kernels.adcscan.ref import adc_topk_ref
@@ -39,10 +43,14 @@ def check_adc_shapes(name: str, codes, point_leaves, lut, query_leaves, k,
 
 def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
              lut: torch.Tensor, query_leaves: torch.Tensor, *, k: int,
+             point_ids: torch.Tensor | None = None,
              q_start: torch.Tensor | None = None, q_rows: int | None = None):
     """(dists (Q,k), idx (Q,k)) of same-leaf ADC k-NN; see ref.py.
 
-    ``codes`` (P, m) uint8, ``lut`` (Q, m, C) float32. With ``q_start``, a
+    ``codes`` (P, m) uint8, ``lut`` (Q, m, C) float32. Rows whose
+    ``point_ids`` (P,) int32 is < 0 never match (every row is live without
+    them). On the card ``point_leaves`` must be ascending: the kernel
+    searches each lookup row's leaf run. With ``q_start``, a
     one-element int64 tensor on the codes' device, and ``q_rows``, the call
     reads only the lookup rows ``q_start .. q_start + q_rows - 1`` of
     ``lut`` and ``query_leaves`` -- a wave's slab, whose start stays on the
@@ -56,23 +64,29 @@ def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
         raise ValueError("adc_topk: q_start must be a (1,) int64 tensor on "
                          "the codes' device, with q_rows >= 1")
     if codes.device.type == "cpu":
+        if point_ids is not None:
+            point_leaves = torch.where(point_ids >= 0, point_leaves,
+                                       PAD_TILE_POINT_LEAF)
         if q_start is not None:
             sel = q_start + torch.arange(q_rows)
             lut, query_leaves = lut.index_select(0, sel), query_leaves.index_select(0, sel)
         return adc_topk_ref(codes, point_leaves, lut, query_leaves, k)
     if codes.device.type != "cuda":
         raise ValueError(f"adc_topk: unsupported device {codes.device}")
+    ids = () if point_ids is None else (point_ids,)
     check_kernel_inputs(
-        "adc_topk", codes, point_leaves, lut, query_leaves,
-        dtypes=(torch.uint8, torch.int32, torch.float32, torch.int32))
-    check_adc_shapes("adc_topk", codes, point_leaves, lut, query_leaves, k)
+        "adc_topk", codes, point_leaves, lut, query_leaves, *ids,
+        dtypes=(torch.uint8, torch.int32, torch.float32, torch.int32, torch.int32))
+    check_adc_shapes("adc_topk", codes, point_leaves, lut, query_leaves, k,
+                     point_ids)
     P, m = codes.shape
     n_lut, _, C = lut.shape
     Q = n_lut if q_start is None else q_rows
     out_d = torch.empty((Q, k), dtype=torch.float32, device=codes.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=codes.device)
     err = _build.lib().adcscan_launch(
-        codes.data_ptr(), point_leaves.data_ptr(), lut.data_ptr(),
+        codes.data_ptr(), point_leaves.data_ptr(),
+        0 if point_ids is None else point_ids.data_ptr(), lut.data_ptr(),
         query_leaves.data_ptr(), 0 if q_start is None else q_start.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), P, Q, n_lut, m, C, k,
         _build.stream_ptr(codes))

@@ -158,6 +158,26 @@ def test_adc_wrappers_cpu_path_is_the_plain_version_and_launches_nothing():
     assert (adc_topk.launches, fused_adc_topk.launches) == before
 
 
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("P,Q,m,C,n_leaves,k", _SHAPES)
+def test_adcscan_point_ids_mask_tombstones(P, Q, m, C, n_leaves, k, integer):
+    # the wave sweep hands the sorted leaves with the ids; on the CPU the
+    # wrapper masks the tombstones' leaves, as the reference's executor
+    # does before its call
+    codes, plf, pid, lut, qlf = _adc_case(P * 5 + Q, P, Q, m, C, n_leaves,
+                                          integer=integer, sort=True,
+                                          tombstone_frac=0.25)
+    masked = np.where(pid >= 0, plf, PAD_TILE_POINT_LEAF).astype(np.int32)
+    td, ti = adc_topk(*_t(codes, plf, lut, qlf), k=k,
+                      point_ids=torch.as_tensor(pid))
+    rd, ri = adc_topk_ref(*_t(codes, masked, lut, qlf), k=k)
+    assert torch.equal(td, rd) and torch.equal(ti, ri)
+    jd, ji = j_adc_ref(jnp.asarray(codes), jnp.asarray(masked),
+                       jnp.asarray(lut), jnp.asarray(qlf), k)
+    _assert_equal(jd, ji, td, ti)
+    assert not (pid[ti.numpy()[ti.numpy() >= 0]] < 0).any()
+
+
 @pytest.mark.parametrize("start", [0, 37, 100])
 def test_adcscan_slab_reads_the_lookup_rows_it_is_given(start):
     # the wave sweep hands the whole LUT table and the slab start on the
@@ -180,7 +200,8 @@ def test_adcscan_slab_reads_the_lookup_rows_it_is_given(start):
 # ---------------------------------------------------------------------------
 
 _CUDA_SHAPES = [(4096, 1024, 8, 256, 40), (1000, 77, 8, 256, 3),
-                (70, 130, 4, 16, 2), (517, 300, 16, 64, 7)]
+                (70, 130, 4, 16, 2), (517, 300, 16, 64, 7),
+                (4096, 64, 8, 256, 1)]  # one leaf fills the wave
 
 
 @pytest.mark.cuda
@@ -188,9 +209,10 @@ _CUDA_SHAPES = [(4096, 1024, 8, 256, 40), (1000, 77, 8, 256, 3),
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("P,Q,m,C,n_leaves", _CUDA_SHAPES)
 def test_cuda_adcscan_matches_plain(cuda, P, Q, m, C, n_leaves, integer, k):
+    # the kernel binary-searches leaf runs: a wave's leaves are sorted
     k = min(k, P)
     codes, plf, _, lut, qlf = _adc_case(P + Q + k, P, Q, m, C, n_leaves,
-                                        integer=integer)
+                                        integer=integer, sort=True)
     args = _t(codes, plf, lut, qlf, device=cuda)
     rd, ri = adc_topk_ref(*args, k=k)
     n0 = adc_topk.launches
@@ -225,7 +247,7 @@ def test_cuda_fused_adc_matches_plain(cuda, P, Q, m, C, n_leaves, integer, k):
 def test_cuda_adcscan_slab_matches_plain(cuda, start, k):
     # the wave sweep's call: the whole LUT table, the slab start on the card
     codes, plf, _, lut, qlf = _adc_case(start + k, 4096, 3000, 8, 256, 40,
-                                        integer=False)
+                                        integer=False, sort=True)
     args = _t(codes, plf, lut, qlf, device=cuda)
     q0 = torch.tensor([start], device=cuda)
     rd, ri = adc_topk_ref(*_t(codes, plf, lut[start:start + 1024],
@@ -235,6 +257,29 @@ def test_cuda_adcscan_slab_matches_plain(cuda, start, k):
     torch.cuda.synchronize()
     assert adc_topk.launches == n0 + 1
     assert torch.equal(kd, rd) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("integer", [True, False])
+def test_cuda_adcscan_wave_with_tombstones(cuda, integer, k):
+    # a sorted wave with tombstones (which keep their leaf): K4 against the
+    # plain version on the masked leaves, and against K5 on the same rows
+    codes, plf, pid, lut, qlf = _adc_case(k + integer, 4096, 1024, 8, 256, 16,
+                                          integer=integer, sort=True,
+                                          tombstone_frac=0.1)
+    masked = np.where(pid >= 0, plf, PAD_TILE_POINT_LEAF).astype(np.int32)
+    args = _t(codes, plf, lut, qlf, device=cuda)
+    ids = torch.as_tensor(pid, device=cuda)
+    n0 = adc_topk.launches
+    kd, ki = adc_topk(*args, k=k, point_ids=ids)
+    torch.cuda.synchronize()
+    assert adc_topk.launches == n0 + 1
+    rd, ri = adc_topk_ref(*_t(codes, masked, lut, qlf, device=cuda), k=k)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    fd, fi = fused_adc_topk(args[0], args[1], ids, args[2], args[3], k=k)
+    assert torch.equal(fd, kd)
+    assert torch.equal(fi, torch.where(ki >= 0, ids[ki.clamp(min=0).long()], -1))
 
 
 @pytest.mark.cuda
