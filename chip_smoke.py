@@ -8,7 +8,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
   2. main path at the sift100m deployment's widths (d = 128, a 256 x 256
      vocabulary tree, k = 20, the search_32k batch): ``build_tree`` on a
      2^20-row sample, ``build_index`` on 2^24 quantized SIFT-like rows
-     (bf16 wire; 2^25 index rows with the routing padding), and
+     (bf16 wire; 2^25 index rows with the routing padding; one more build
+     is traced after the search phases, for its device busy time and l2nn's
+     share), and
      ``batch_search`` of 2^15 queries with ``impl="pallas"`` (l2topk in
      every wave), ``impl="fused"`` (one fusedscan launch), and ``"fused"``
      at probes = 2. It checks zero overflows, equal results on both search
@@ -46,7 +48,11 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      equal encode's, differ from the plain version's only at near-ties
      within the fp32 bound, and hold that bound while TF32 breaks it; and
      at the shape of most of its launches, build_index's 4,096-row waves
-     against the 256 level-0 centroids (64 waves).
+     against the 256 level-0 centroids (64 waves). l2topk runs 64 real
+     waves of the dense sweep (its bound counts only what their same-leaf
+     pairs need), is timed again with every lookup leaf moved past the
+     index's leaves (its floor) and on the wave with the most pairs alone,
+     and the dense sweep's trace must show one l2topk kernel a wave.
      adcscan runs 64 waves of the codes sweep as the sweep calls it (the
      wave's sorted leaves and ids, the whole LUT table, the slab start on
      the device), one of them again with tombstones, and is timed once more
@@ -119,6 +125,9 @@ K1_WAVES = 64  # distinct waves the l2topk kernel is timed over
 N_SAMPLE = 256  # lookup rows the fusedscan output is checked on
 CHUNK_POINTS = 2**20  # point rows per chunk of the sampled plain version
 N_REAL_WAVES = 8  # l2topk waves of the real-valued check
+SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
+             fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
+             k1_waves=K1_WAVES, n_sample=N_SAMPLE)
 # PQ codes at the JAX package's defaults (Index.enable_codes)
 PQ = dict(m=8, bits=8, sample=65_536, iters=16, seed=0)
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -528,20 +537,16 @@ def kernel_checks(rt, run, sizes, seed):
         return err
 
     lk = rt.build_lookup(tree, queries, probes=1)  # sorted by leaf
-    lk_leaves, lk_offsets = lk.leaves, lk.offsets
+    waves, k3_waves = dense_waves(run, sizes, lk)
+    times = dense_kernel_times(rt, run, sizes, waves, k3_waves)
 
     # --- K1 l2topk: real waves of the main path with their query slabs ---
     d = index.vecs.shape[1]
-    mid = int(index.n_valid[0]) // 2 // B * B
-    waves = []
-    for i in range(sizes["k1_waves"]):
-        s = mid + i * B
-        plf = index.leaves[s:s + B]
-        start = int(lk_offsets[int(plf[0])].clamp(0, lk.n_queries - sizes["q_cap"]))
-        sl = slice(start, start + sizes["q_cap"])
-        waves.append((index.vecs[s:s + B], plf, lk.vecs[sl].contiguous(),
-                      lk_leaves[sl].contiguous()))
-    pairs = sum(int(rt.count_pairs(w[1], w[3])) for w in waves)
+    pairs = sum(times["k1_pairs"])
+    # what the waves' pairs need: the points of the leaves some slab row
+    # holds and the slab rows whose leaf some point holds
+    need = sum(int(torch.isin(w[1], w[3]).sum()) for w in waves)
+    matched = sum(int(torch.isin(w[3], w[1]).sum()) for w in waves)
     err = max(equal(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), "l2topk")
               for w in waves)
     ratios = []
@@ -553,7 +558,7 @@ def kernel_checks(rt, run, sizes, seed):
             runs.append(rt.l2_topk_ref(p, plf, q, qlf, k))
         ratios.append([rt.topk_error_ratio(*r, p, q, exact, tol) for r in runs])
     real = real_check("l2topk", max(r[0] for r in ratios), max(r[1] for r in ratios))
-    kern = time_ms(lambda *w: rt.l2_topk(*w, k=k), waves)
+    kern = times["k1_wave"]
     plain = time_ms(lambda *w: rt.l2_topk_ref(*w, k), waves)
 
     def lib_topk(p, plf, q, qlf):
@@ -563,12 +568,22 @@ def kernel_checks(rt, run, sizes, seed):
         return torch.topk(d2, k, dim=1, largest=False)
 
     lib = time_ms(lib_topk, waves)
-    nw = len(waves)
-    byt = nw * (B * d * 4 + B * 4 + sizes["q_cap"] * (d * 4 + 4) + sizes["q_cap"] * k * 8)
-    bnd = bound(byt / nw, (pairs * 2 * d + nw * B * 2 * d) / nw)
+    nw, qc = len(waves), sizes["q_cap"]
+    # bytes a pair needs (points and lookup rows of shared leaves, both
+    # leaf arrays, the (Q, k) output) and the same-leaf fp32 operations
+    byt = (need + matched) * d * 4 + nw * ((B + qc) * 4 + qc * k * 8)
+    bnd = bound(byt / nw, (pairs + need) * 2 * d / nw)
+    # the earlier yardstick, kept beside it: every input of the wave read once
+    whole = bound(B * d * 4 + B * 4 + qc * (d * 4 + 4) + qc * k * 8,
+                  (pairs * 2 * d + nw * B * 2 * d) / nw)
     record("l2topk", "src/repro_torch/csrc/l2topk.cu",
            "src/repro/kernels/l2topk/kernel.py:105", run["launches"]["l2topk"],
-           err, real, kern, plain, bnd, lib)
+           err, real, kern, plain, bnd, lib, bound_ms_whole_wave=whole[0],
+           floor_ms=times["k1_floor"][0], pairs_per_wave=pairs / nw,
+           points_needed_per_wave=need / nw, rows_matched_per_wave=matched / nw,
+           busiest_wave_ms=times["k1_busiest"][0],
+           busiest_wave_pairs=times["k1_busiest_pairs"],
+           clusters=rt.l2topk_ops.resident_clusters(), **run["sweep_trace"])
 
     # --- K2 fusedscan: the main path's call, the whole shard against the
     # padded probes=1 lookup. Each output row depends on its own lookup row
@@ -640,13 +655,13 @@ def kernel_checks(rt, run, sizes, seed):
         cr_ratio = rt.nearest_error_ratio(*rt.l2_nearest_ref(xr, cr), xr, cr)
     real = real_check("l2nn", kr, cr_ratio)
     del xr, cr
-    kern = time_ms(lambda x, c: rt.l2_nearest(x, c), [(x, c)] * 10)
+    kern = times["k3_level0"]
     plain = time_ms(lambda x, c: rt.l2_nearest_ref(x, c), [(x, c)] * 5)
     lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), [(x, c)] * 5)
     C = c.shape[0]
     bnd = bound(n * d * 4 + C * d * 4 + n * 8, n * C * 2 * d + (n + C) * 2 * d)
     del x, c
-    wave = l2nn_wave_shape(rt, run, sizes, equal)
+    wave = l2nn_wave_shape(rt, k3_waves, times["k3_wave"], equal)
     enc = encode_check(rt, run, g)
     record("l2nn", "src/repro_torch/csrc/l2nn.cu",
            "src/repro/kernels/l2nn/kernel.py:60", run["launches"]["l2nn"],
@@ -656,22 +671,64 @@ def kernel_checks(rt, run, sizes, seed):
     return out
 
 
-def l2nn_wave_shape(rt, run, sizes, equal):
+def dense_waves(run, sizes, lk):
+    """The main path's waves that K1 and K3 are held and timed on: the
+    ``k1_waves`` consecutive mid-shard waves of ``block_rows`` index rows.
+    Returns (K1's: each wave's points and leaves with the ``q_cap``-row
+    slab of the leaf-sorted lookup ``lk`` that starts at the wave's first
+    leaf, as the dense sweep gives them; K3's: each wave's rows against
+    the level-0 centroids, as build_index's tree assignment gives them)."""
+    index, B, q_cap = run["index"], sizes["block_rows"], sizes["q_cap"]
+    c = run["tree"].levels[0]
+    mid = int(index.n_valid[0]) // 2 // B * B
+    k1, k3 = [], []
+    for i in range(sizes["k1_waves"]):
+        s = mid + i * B
+        plf = index.leaves[s:s + B]
+        start = int(lk.offsets[int(plf[0])].clamp(0, lk.n_queries - q_cap))
+        sl = slice(start, start + q_cap)
+        k1.append((index.vecs[s:s + B], plf, lk.vecs[sl].contiguous(),
+                   lk.leaves[sl].contiguous()))
+        k3.append((index.vecs[s:s + B], c))
+    return k1, k3
+
+
+def dense_kernel_times(rt, run, sizes, k1_waves, k3_waves):
+    """K1's and K3's (device ms, wall ms) a call at the main path's shapes
+    (``time_ms``): K1 over the real waves, over the same waves with every
+    lookup leaf moved past the index's leaves (its floor: launch, leaf
+    test, empty lists) and alone on the wave with the most pairs, whose
+    busiest lookup row sets its time; K3 over the build's waves and at
+    tree level 0 (the build_tree sample's rows against 256 centroids)."""
+    k, nl = sizes["k"], run["index"].n_leaves
+    pairs = [int(rt.count_pairs(w[1], w[3])) for w in k1_waves]
+    top = max(range(len(pairs)), key=pairs.__getitem__)
+    past = [(p, plf, q, torch.where(qlf >= 0, qlf + nl, qlf))
+            for p, plf, q, qlf in k1_waves]
+
+    def k1(*w):
+        return rt.l2_topk(*w, k=k)
+
+    level0 = (run["index"].vecs[:sizes["sample_rows"]], run["tree"].levels[0])
+    return dict(k1_wave=time_ms(k1, k1_waves), k1_floor=time_ms(k1, past),
+                k1_busiest=time_ms(k1, [k1_waves[top]] * 20),
+                k1_pairs=pairs, k1_busiest_pairs=pairs[top],
+                k3_wave=time_ms(rt.l2_nearest, k3_waves),
+                k3_level0=time_ms(rt.l2_nearest, [level0] * 10))
+
+
+def l2nn_wave_shape(rt, waves, kern, equal):
     """K3 at the shape most of its main-path launches have: build_index's
     tree assignment calls it once a wave of ``block_rows`` rows against
-    the 256 level-0 centroids. 64 distinct mid-corpus waves, each held
-    against the plain version (bit for bit: integer data); times beside
-    the bound of one wave. Returns the numbers for the kernels line."""
-    index, B, c = run["index"], sizes["block_rows"], run["tree"].levels[0]
-    mid = int(index.n_valid[0]) // 2 // B * B
-    waves = [(index.vecs[mid + i * B: mid + (i + 1) * B], c)
-             for i in range(sizes["k1_waves"])]
+    the 256 level-0 centroids. The distinct mid-corpus ``waves``, each held
+    against the plain version (bit for bit: integer data); the kernel's
+    times ``kern`` beside the plain version's, the library's and the
+    bound of one wave. Returns the numbers for the kernels line."""
     err = max(equal(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1],
                     "l2nn wave") for x, c in waves)
-    kern = time_ms(lambda x, c: rt.l2_nearest(x, c), waves)
     plain = time_ms(lambda x, c: rt.l2_nearest_ref(x, c), waves)
     lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), waves)
-    C, d = c.shape
+    B, (C, d) = waves[0][0].shape[0], waves[0][1].shape
     bnd = bound(B * d * 4 + C * d * 4 + B * 8, B * C * 2 * d + (B + C) * 2 * d)
     out = dict(wave_shape=[B, C, d], wave_ms=kern[0], wave_plain_ms=plain[0],
                wave_library_ms=lib[0], wave_bound_ms=bnd[0], wave_bound_by=bnd[1],
@@ -838,12 +895,35 @@ def adc_checks(rt, run, sizes, seed, record, equal):
            rows_needed=rows_needed, luts_needed=luts, pairs=kpairs)
 
 
+def trace_sweep(rt, run, sizes):
+    """Trace one dense sweep (``batch_search`` impl="pallas"), log its top
+    device operations against the main-path run's wall time and return
+    ({l2topk kernel: [device ms, launches]}, device busy s)."""
+    index = run["index"]
+    ev, busy = device_trace(lambda: rt.batch_search(
+        index, run["tree"], run["queries"], sizes["k"], q_cap=sizes["q_cap"],
+        block_rows=sizes["block_rows"], impl="pallas", device=index.device))
+    log_trace("pallas", ev, busy, run["times"]["pallas"], 5)
+    return {e.key: [e.self_device_time_total / 1e3, e.count]
+            for e in ev if "l2topk" in e.key}, busy
+
+
 def trace_searches(rt, run, sizes):
     """Device busy time of each search path (``torch.profiler``), against
     the wall time of the same search in the main-path run."""
     index, tree, queries = run["index"], run["tree"], run["queries"]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     codes = run["codes"]
+    # the sweep's K1 launches: one l2topk_kernel a wave and no other
+    # l2topk kernel
+    k1, busy = trace_sweep(rt, run, sizes)
+    n = sum(c for _, c in k1.values())
+    n_waves = index.rows // sizes["block_rows"]
+    if n != n_waves or any("l2topk_kernel" not in key for key in k1):
+        raise AssertionError(f"dense sweep trace: l2topk kernels "
+                             f"{sorted(k1)} x{n} for {n_waves} waves")
+    run["sweep_trace"] = dict(
+        sweep_trace_ms=sum(ms for ms, _ in k1.values()), sweep_trace_launches=n,
+        sweep_busy_s=busy, sweep_wall_s=run["times"]["pallas"])
 
     def dense(impl):
         rt.batch_search(index, tree, queries, sizes["k"], q_cap=sizes["q_cap"],
@@ -858,22 +938,49 @@ def trace_searches(rt, run, sizes):
                               codebooks=codes["pq"].codebooks)
 
     for name, search, impl, wall in (
-            ("pallas", dense, "pallas", run["times"]["pallas"]),
             ("fused", dense, "fused", run["times"]["fused"]),
             ("codes pallas", scan_codes, "pallas", codes["times"]["pallas"]),
             ("codes fused", scan_codes, "fused", codes["times"]["fused"])):
-        with torch.profiler.profile(activities=acts) as prof:
-            search(impl)
-            torch.cuda.synchronize()
-        # device-side events only: a CPU op's device time repeats its kernels'
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ev) / 1e6
-        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"trace {name}: device busy {busy} s of {wall} s wall "
-            f"(idle share {1 - busy / wall}); top device time: " + "; ".join(
-                f"{e.key[:60]} {e.self_device_time_total / 1e3} ms x{e.count}"
-                for e in top))
+        ev, busy = device_trace(lambda: search(impl))
+        log_trace(name, ev, busy, wall, 5)
+
+
+def device_trace(fn):
+    """(device-side profiler events, device busy s) of one call of ``fn``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's device time repeats its kernels'
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ev, sum(e.self_device_time_total for e in ev) / 1e6
+
+
+def log_trace(name, ev, busy, wall, n_top):
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:n_top]
+    log(f"trace {name}: device busy {busy} s of {wall} s wall "
+        f"(idle share {1 - busy / wall}); top device time: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3} ms x{e.count}"
+            for e in top))
+
+
+def trace_build(rt, args, dev, sizes, tree, wall):
+    """Device busy time of one extra ``build_index`` on the main path's
+    corpus (made again from the seed) and tree, against the wall time of
+    the timed build; returns K3's share for the kernels line."""
+    mix = rt.synth.make_mixture(256, DIM, seed=args.seed)
+    corpus = make_corpus(rt, sizes["index_rows"], args.seed, dev, mix)
+    ev, busy = device_trace(lambda: rt.build_index(
+        corpus, tree, wire_dtype=torch.bfloat16, device=dev))
+    del corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_trace("build_index", ev, busy, wall, 6)
+    k3 = [e for e in ev if "l2nn" in e.key]
+    return dict(build_trace_ms=sum(e.self_device_time_total for e in k3) / 1e3,
+                build_trace_launches=sum(e.count for e in k3),
+                build_busy_s=busy, build_wall_s=wall)
 
 
 def lm_pairs(sq: int, skv: int, window: int) -> int:
@@ -1125,7 +1232,6 @@ def lm_kernel_check(rt, lm, seed):
 def trace_lm(rt, lm):
     """Device time by kernel (``torch.profiler``) of one chunked prefill and
     one decode step, against the wall times of the served run."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     cfg, params, prompts = lm["cfg"], lm["params"], lm["prompts"]
     dev = prompts.device
     cache = rt.tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_DECODE, device=dev)
@@ -1136,12 +1242,7 @@ def trace_lm(rt, lm):
             params, cfg, lm["generated"][:, :1], cache, LM_PROMPT, device=dev)),
     )
     for name, wall, fn in steps:
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ev) / 1e6
+        ev, busy = device_trace(fn)
         top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
         log(f"trace lm {name}: device busy {busy} s of {wall} s wall (idle share "
             f"{1 - busy / wall}); {sum(e.count for e in ev)} kernels; top device "
@@ -1150,10 +1251,11 @@ def trace_lm(rt, lm):
 
 
 class Port:
-    """The port's entry points and kernel wrappers, imported from ``src``."""
+    """The port's entry points and kernel wrappers, imported from ``src``
+    (this checkout's by default)."""
 
-    def __init__(self):
-        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    def __init__(self, src=None):
+        sys.path.insert(0, str(src or Path(__file__).resolve().parent / "src"))
         import repro_torch
         from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact
         from repro_torch.codes import pq as pq_module
@@ -1178,6 +1280,7 @@ class Port:
         from repro_torch.kernels.fusedscan.ref import map_ids
         from repro_torch.kernels.l2nn.ops import l2_nearest
         from repro_torch.kernels.l2nn.ref import l2_nearest_ref
+        from repro_torch.kernels.l2topk import ops as l2topk_ops
         from repro_torch.kernels.l2topk.ops import l2_topk
         from repro_torch.kernels.l2topk.ref import l2_topk_ref
         from repro_torch.models import transformer as tfm
@@ -1200,6 +1303,7 @@ class Port:
         self.ties_within_bound = fp32_bound.ties_within_bound
         self.encode_chunk = pq_module._ENCODE_CHUNK
         self.l2_topk, self.l2_topk_ref = l2_topk, l2_topk_ref
+        self.l2topk_ops = l2topk_ops
         self.fused_topk = fused_topk
         self.l2_nearest, self.l2_nearest_ref = l2_nearest, l2_nearest_ref
         self.ProductQuantizer, self.IndexRowReader = ProductQuantizer, IndexRowReader
@@ -1256,9 +1360,7 @@ def main(argv=None) -> int:
         elif name and ("Used" in line or "spill" in line):
             log(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
-    sizes = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
-                 fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
-                 k1_waves=K1_WAVES, n_sample=N_SAMPLE)
+    sizes = SIZES
     torch.cuda.reset_peak_memory_stats()
     rt.reset_counts()
     run = run_main_path(rt, args, dev, sizes)
@@ -1283,9 +1385,13 @@ def main(argv=None) -> int:
     trace_searches(rt, run, sizes)
     kernels = kernel_checks(rt, run, sizes, args.seed)
 
+    tree, build_wall = run["tree"], run["times"]["build_index"]
     del run  # the search phases' tensors (the dense phase peaks at 41 GiB)
     gc.collect()
     torch.cuda.empty_cache()
+    k3 = next(kr for kr in kernels if kr["name"] == "l2nn")
+    k3.update(trace_build(rt, args, dev, sizes, tree, build_wall))
+    del tree
     log(f"before the LM phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     lm = run_lm_path(rt, args, dev)
     check_lm_path(rt, lm)

@@ -21,9 +21,9 @@ LEAF_SENTINEL = 2**31 - 1
 # leaf, and distinct from the tile padding below.
 PAD_QUERY_LEAF = -2
 
-# Tile padding inside the l2topk/fusedscan kernels: point-side and
-# query-side padding use *different* values so padded points never match
-# padded queries.
+# Tile padding inside the fusedscan kernel (and masked tombstones):
+# point-side and query-side padding use *different* values so padded
+# points never match padded queries.
 PAD_TILE_POINT_LEAF = -9
 PAD_TILE_QUERY_LEAF = -8
 

@@ -68,10 +68,8 @@ adcscan_kernel(const uint8_t* __restrict__ codes,
   long long lo = 0, hi = 0;  // every warp finds the same run
   if (qg < n_lut) {
     const int ql = qleaves[qg];
-    if (ql >= pleaves[0] && ql <= pleaves[P - 1]) {
-      lo = warp_bound_i32(pleaves, P, ql, false);
-      hi = warp_bound_i32(pleaves, P, ql, true);
-    }
+    if (ql >= pleaves[0] && ql <= pleaves[P - 1])
+      warp_run_i32(pleaves, P, ql, &lo, &hi);
   }
   if (lo >= hi) {  // block-uniform: no row of the wave shares the leaf
     for (int j = threadIdx.x; j < k; j += blockDim.x) {

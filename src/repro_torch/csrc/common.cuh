@@ -1,10 +1,12 @@
 // Device functions shared by the l2topk (K1), fusedscan (K2), l2nn (K3),
 // adcscan (K4) and fusedadc (K5) kernels. K1 and K2 compute the partial
-// distance and insert candidates through the SAME functions, and K4 and K5
-// the ADC distance; K4 merges candidates in batches (warp_merge_offer),
-// which builds the lists K5's one-at-a-time insertion (warp_offer) builds.
-// So the wave-sweep and the fused search paths agree bit for bit, dense
-// and codes alike.
+// distance in the SAME order of fp32 operations (one fmaf chain for
+// ||p||^2 and one for q.p, over c = 0..d-1, then __fsub_rn(pn, 2 * dot)),
+// K2 through the tile functions below and K1 one point row per lane; K4
+// and K5 share the ADC distance. K1 and K4 merge candidates in batches
+// (warp_merge_offer), which builds the lists K2's and K5's one-at-a-time
+// insertion (warp_offer) builds. So the wave-sweep and the fused search
+// paths agree bit for bit, dense and codes alike.
 //
 // Arithmetic contract (the plain versions in kernels/*/ref.py):
 //   partial[q, p] = ||p||^2 - 2 * (q . p)     fp32, FMA chains over d
@@ -37,8 +39,8 @@
 
 namespace rt {
 
-constexpr int TQ = 64;          // query (or x) rows per block
-constexpr int TP = 64;          // point (or centroid) rows per staged tile
+constexpr int TQ = 64;          // query rows per block (K2's tiles)
+constexpr int TP = 64;          // point rows per staged tile (K2)
 constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
 constexpr int QPITCH = TQ;      // row pitch of the transposed query tile
 constexpr int PPITCH = TP + 4;  // row pitch of the transposed point tile
@@ -177,7 +179,7 @@ __device__ __forceinline__ void warp_offer(float* rd, int* ri, int k, float dv,
   }
 }
 
-// Shared-memory layout of the search scan (K1 partial pass and K2).
+// Shared-memory layout of K2's search scan.
 struct ScanSmem {
   float* qs;    // [d][QPITCH]  query tile, transposed
   float* ps;    // [d][PPITCH]  point tile, transposed
@@ -323,26 +325,80 @@ __device__ __forceinline__ long long upper_bound_i32(const int* a, long long n,
   return lo;
 }
 
-// The same two searches with the whole warp: each round reads 32 samples
-// of the remaining range at once, so P = 4096 takes 3 rounds of loads, not
-// 12 dependent ones. `upper` counts entries <= v (upper bound), else < v.
-// All 32 lanes call, with the same arguments; all get the result.
-__device__ inline long long warp_bound_i32(const int* a, long long n, int v,
-                                           bool upper) {
-  const int lane = threadIdx.x & 31;
-  long long lo = 0, hi = n;  // a[< lo] before v's bound, a[>= hi] after it
-  while (hi - lo > 32) {
-    const long long step = (hi - lo + 31) / 32;
-    const long long i = lo + lane * step;
-    const bool before = i < hi && (upper ? a[i] <= v : a[i] < v);
-    const int c = __popc(__ballot_sync(FULL, before));  // a prefix of lanes
-    if (c == 0) return lo;
-    hi = min(hi, lo + c * step);
-    lo += (c - 1) * step + 1;
+// One round of a warp-wide bound search on the bound's range [*lo, *hi):
+// the 32 lanes have sampled it every `step` entries, `before` is the
+// lane's vote (its sample lies before the bound: a prefix of the lanes
+// votes so, the array being sorted); narrows the range to one step, or to
+// the bound itself (*lo == *hi).
+__device__ __forceinline__ void warp_bound_narrow(bool before, long long step,
+                                                  long long* lo,
+                                                  long long* hi) {
+  const int c = __popc(__ballot_sync(FULL, before));  // a prefix of lanes
+  if (c == 0) {
+    *hi = *lo;
+  } else {
+    *hi = min(*hi, *lo + c * step);
+    *lo += (c - 1) * step + 1;
   }
-  const long long i = lo + lane;
-  const bool before = i < hi && (upper ? a[i] <= v : a[i] < v);
-  return lo + __popc(__ballot_sync(FULL, before));
+}
+
+// v's run [*lo, *hi) in the ascending a[0, n), with the whole warp: each
+// round reads 32 samples of the remaining range at once, so P = 4096 takes
+// 3 rounds of loads, not 12 dependent ones, and the lower bound's and the
+// upper bound's rounds are interleaved, so that their loads are in flight
+// together. All 32 lanes call, with the same arguments.
+__device__ inline void warp_run_i32(const int* a, long long n, int v,
+                                    long long* lo, long long* hi) {
+  const int lane = threadIdx.x & 31;
+  long long llo = 0, lhi = n, ulo = 0, uhi = n;  // the two bounds' ranges
+  while (lhi - llo > 32 || uhi - ulo > 32) {
+    const bool lw = lhi - llo > 32, uw = uhi - ulo > 32;
+    const long long ls = (lhi - llo + 31) / 32, us = (uhi - ulo + 31) / 32;
+    const long long li = llo + lane * ls, ui = ulo + lane * us;
+    const bool lb = lw && li < lhi && a[li] < v;
+    const bool ub = uw && ui < uhi && a[ui] <= v;
+    if (lw) warp_bound_narrow(lb, ls, &llo, &lhi);  // warp-uniform branches
+    if (uw) warp_bound_narrow(ub, us, &ulo, &uhi);
+  }
+  const long long li = llo + lane, ui = ulo + lane;
+  const bool lb = li < lhi && a[li] < v;
+  const bool ub = ui < uhi && a[ui] <= v;
+  *lo = llo + __popc(__ballot_sync(FULL, lb));
+  *hi = ulo + __popc(__ballot_sync(FULL, ub));
+}
+
+// ---- asynchronous copies (cp.async) into shared memory ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory; zeros, and no read, where
+// !valid. src must be a readable address either way.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Sort one (d, row) pair per lane ascending by (d, row) across the warp

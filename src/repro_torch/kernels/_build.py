@@ -36,7 +36,8 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
-    "l2topk_launch": [_VP] * 8 + [_I] * 6 + [_VP],
+    "l2topk_launch": [_VP] * 6 + [_I] * 4 + [_VP],
+    "l2topk_clusters": [_VP],
     "fusedscan_launch": [_VP] * 7 + [_I] * 4 + [_VP],
     "l2nn_launch": [_VP] * 4 + [_I] * 3 + [_VP],
     "adcscan_launch": [_VP] * 8 + [_I] * 6 + [_VP],

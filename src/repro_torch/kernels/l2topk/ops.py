@@ -1,14 +1,18 @@
 """Same-leaf distance + top-k tile wrapper: the plain version for a CPU
 tensor, the K1 CUDA kernel (``csrc/l2topk.cu``) for a CUDA tensor.
 
-The kernel handles ragged tiles itself: point rows past ``P`` carry
-``PAD_TILE_POINT_LEAF`` and query rows past ``Q`` carry
-``PAD_TILE_QUERY_LEAF`` inside the kernel, so padding never matches a real
-leaf, a padded lookup row, or other padding -- and no padded copy of the
-inputs is made.
+On the card the point leaves must be ascending, as every wave of a
+leaf-sorted ``DistributedIndex`` is (``index_from_numpy`` checks arrays
+from outside; ``LEAF_SENTINEL`` padding sorts last): the kernel searches
+each lookup row's leaf run and scans only that run. Query leaves may come
+in any order. Nothing is checked per call (that would cost an O(P) pass).
+The sentinels keep their meaning: a padded lookup row's ``PAD_QUERY_LEAF``
+and a point's ``LEAF_SENTINEL`` never equal a real leaf.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -16,22 +20,8 @@ from repro_torch.device import check_kernel_inputs
 from repro_torch.kernels import _build
 from repro_torch.kernels.l2topk.ref import l2_topk_ref
 
-TILE = 64  # csrc/common.cuh TQ == TP
 MAX_D = 256
-MAX_K = 64
-TARGET_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def split_layout(P: int, Q: int) -> tuple[int, int]:
-    """(n_splits, split_rows): point splits per query tile, so the grid
-    fills the card even when a wave has few query tiles."""
-    want = max(1, min(_cdiv(P, TILE), _cdiv(TARGET_BLOCKS, _cdiv(Q, TILE))))
-    split_rows = _cdiv(_cdiv(P, want), TILE) * TILE
-    return _cdiv(P, split_rows), split_rows
+MAX_K = 64  # csrc/common.cuh DENSE_KCAP
 
 
 def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
@@ -51,20 +41,25 @@ def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
         raise ValueError("l2_topk: mismatched shapes")
     if not 1 <= d <= MAX_D or not 1 <= k <= min(MAX_K, P) or Q < 1:
         raise ValueError(f"l2_topk: unsupported {P=} {Q=} {d=} {k=}")
-    n_splits, split_rows = split_layout(P, Q)
-    dev = points.device
-    part_d = torch.empty((Q, n_splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, n_splits, k), dtype=torch.int32, device=dev)
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=points.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=points.device)
     err = _build.lib().l2topk_launch(
         points.data_ptr(), point_leaves.data_ptr(), queries.data_ptr(),
-        query_leaves.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), P, Q, d, k, n_splits, split_rows,
-        _build.stream_ptr(points))
+        query_leaves.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), P, Q, d,
+        k, _build.stream_ptr(points))
     _build.check(err, "l2topk_launch")
     l2_topk.launches += 1
     return out_d, out_i
 
 
 l2_topk.launches = 0
+
+
+def resident_clusters() -> int:
+    """The thread block clusters (4 blocks, one an SM) the card holds at
+    once, which K1's grid launches: ``cudaOccupancyMaxActiveClusters``,
+    read once on the current device."""
+    n = ctypes.c_int(0)
+    _build.check(_build.lib().l2topk_clusters(ctypes.addressof(n)),
+                 "l2topk_clusters")
+    return n.value

@@ -23,12 +23,13 @@ from repro.kernels.l2nn.ref import l2_nearest_ref as j_l2nn_ref
 from repro.kernels.l2topk.ops import l2_topk as j_l2_topk
 from repro.kernels.l2topk.ref import l2_topk_ref as j_l2topk_ref
 from repro_torch import interop
+from repro_torch.core.sentinels import LEAF_SENTINEL, PAD_QUERY_LEAF
 from repro_torch.kernels import fp32_bound
 from repro_torch.kernels.fusedscan.ops import fused_topk
 from repro_torch.kernels.fusedscan.ref import fused_topk_ref
 from repro_torch.kernels.l2nn.ops import l2_nearest
 from repro_torch.kernels.l2nn.ref import l2_nearest_ref
-from repro_torch.kernels.l2topk.ops import l2_topk, split_layout
+from repro_torch.kernels.l2topk.ops import l2_topk, resident_clusters
 from repro_torch.kernels.l2topk.ref import l2_topk_ref
 
 TOL = 2e-4
@@ -40,9 +41,12 @@ def _vecs(rng, n, d, integer):
     return rng.standard_normal((n, d)).astype(np.float32)
 
 
-def _tile_case(seed, P, Q, d, n_leaves, integer=True, dup=True, sort=False):
+def _tile_case(seed, P, Q, d, n_leaves, integer=True, dup=True, sort=False,
+               sort_points=False):
     """Points/queries with leaves from a small set; duplicated point rows
-    make exact distance ties, so the tie order is exercised."""
+    make exact distance ties, so the tie order is exercised. ``sort``
+    sorts both sides by leaf, ``sort_points`` the points only (the K1
+    kernel's contract: a wave's points ascend, lookup rows in any order)."""
     rng = np.random.default_rng(seed)
     pts = _vecs(rng, P, d, integer)
     if dup and P >= 4:
@@ -52,11 +56,50 @@ def _tile_case(seed, P, Q, d, n_leaves, integer=True, dup=True, sort=False):
     qlf = rng.integers(0, n_leaves, size=Q).astype(np.int32)
     if dup and P >= 4:
         plf[P // 2: P // 2 + P // 4] = plf[: P // 4]
-    if sort:
+    if sort or sort_points:
         order = np.argsort(plf, kind="stable")
         pts, plf = pts[order], plf[order]
+    if sort:
         qo = np.argsort(qlf, kind="stable")
         qrs, qlf = qrs[qo], qlf[qo]
+    return pts, plf, qrs, qlf
+
+
+def _wave_case(kind, seed=0, P=4096, Q=1024, d=128):
+    """A wave shaped like the main path's (``P`` leaf-sorted index rows,
+    a ``Q``-row lookup slab in random order, quantized SIFT-range rows):
+
+    * ``sentinel_tail``: about 16 leaf runs, the last quarter of the rows
+      ``LEAF_SENTINEL`` routing padding;
+    * ``padded_lookup``: the same runs, a third of the lookup rows
+      ``PAD_QUERY_LEAF``;
+    * ``long_run``: one leaf's run of 1,500 rows among short ones;
+    * ``one_run``: a single leaf fills the wave;
+    * ``sentinel_wave``: every row ``LEAF_SENTINEL`` (no row matches).
+
+    Lookup leaves fall on the wave's leaves, next to them and far from
+    them, so rows of every kind occur; duplicated rows make exact ties.
+    Returns (points, point leaves, queries, query leaves) as numpy arrays.
+    """
+    rng = np.random.default_rng(seed)
+    base = 1000 + 37 * seed
+    if kind == "long_run":
+        runs = [300, 1500] + [200] * 11 + [P - 300 - 1500 - 2200]
+    elif kind == "one_run":
+        runs = [P]
+    else:
+        runs = list(rng.multinomial(P - 16, np.full(16, 1 / 16)) + 1)
+    plf = np.repeat(base + 2 * np.arange(len(runs)), runs).astype(np.int32)
+    if kind == "sentinel_tail":
+        plf[-P // 4:] = LEAF_SENTINEL
+    elif kind == "sentinel_wave":
+        plf[:] = LEAF_SENTINEL
+    pts = rng.integers(0, 256, size=(P, d)).astype(np.float32)
+    pts[P // 2: P // 2 + 64] = pts[P // 2 - 64: P // 2]  # exact ties
+    qlf = rng.choice(base + np.arange(-5, 2 * len(runs) + 5), size=Q).astype(np.int32)
+    if kind == "padded_lookup":
+        qlf[rng.random(Q) < 1 / 3] = PAD_QUERY_LEAF
+    qrs = rng.integers(0, 256, size=(Q, d)).astype(np.float32)
     return pts, plf, qrs, qlf
 
 
@@ -282,11 +325,42 @@ def test_fp32_bound_catches_tf32_rounding(kernel):
     assert _bound_ratio(kernel, args, _PLAIN[kernel], rounded) > 1.0
 
 
-@pytest.mark.parametrize("P,Q", [(4096, 1024), (100, 10), (64, 3000), (1, 1)])
-def test_split_layout_covers_points(P, Q):
-    n_splits, split_rows = split_layout(P, Q)
-    assert split_rows % 64 == 0
-    assert (n_splits - 1) * split_rows < P <= n_splits * split_rows
+@pytest.mark.parametrize("kind,k", [("sentinel_tail", 20), ("padded_lookup", 20),
+                                    ("long_run", 64), ("sentinel_wave", 20)])
+def test_l2topk_plain_matches_jax_ref_on_waves(kind, k):
+    # wave-shaped tiles (the K1 kernel's contract: sorted points, lookup
+    # rows in any order, sentinels on both sides), bit for bit
+    pts, plf, qrs, qlf = _wave_case(kind, seed=3)
+    jd, ji = j_l2topk_ref(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(qrs),
+                          jnp.asarray(qlf), k)
+    td, ti = l2_topk(*_t(pts, plf, qrs, qlf), k=k)
+    _assert_table(jd, ji, td, ti, exact=True)
+    found = np.isfinite(td.numpy()[:, 0])
+    if kind == "sentinel_wave":
+        assert not found.any()
+    else:
+        assert found.any() and not found.all()
+
+
+@pytest.mark.parametrize("dup", ["halves", "neighbours"])
+def test_l2nn_plain_matches_jax_ref_at_build_wave(dup):
+    # build_index's wave shape (4,096 rows x 256 centroids, d = 128) with
+    # duplicate centroids, so that ties fall across the kernel's two
+    # centroid halves or between neighbouring centroids
+    rng = np.random.default_rng(17)
+    x = rng.integers(0, 256, size=(4096, 128)).astype(np.float32)
+    cen = rng.integers(0, 256, size=(256, 128)).astype(np.float32)
+    if dup == "halves":
+        cen[128:] = cen[:128]
+    else:
+        cen[1::2] = cen[::2]
+    x[:256] = cen  # rows on a centroid: every one of them is a tie
+    ji, jd = j_l2nn_ref(jnp.asarray(x), jnp.asarray(cen))
+    ti, td = l2_nearest(*_t(x, cen))
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    first = ti.numpy()[:256]  # each row's first equal centroid
+    assert (first < 128).all() if dup == "halves" else (first % 2 == 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -299,10 +373,12 @@ def test_split_layout_covers_points(P, Q):
 @pytest.mark.parametrize(
     "P,Q,d,k,n_leaves",
     [(4096, 1024, 128, 20, 16), (1000, 77, 32, 64, 3), (70, 130, 8, 1, 2),
-     (517, 300, 200, 33, 7), (64, 64, 128, 20, 1)],
+     (517, 300, 200, 33, 7), (64, 64, 128, 20, 1),
+     (300, 50, 13, 10, 3)],  # d % 4 != 0: 4-byte copies
 )
 def test_cuda_l2topk_matches_plain(cuda, P, Q, d, k, n_leaves, integer):
-    args = _tile_case(P * 3 + Q, P, Q, d, n_leaves, integer)
+    # leaf-sorted points (as every wave is), lookup rows in random order
+    args = _tile_case(P * 3 + Q, P, Q, d, n_leaves, integer, sort_points=True)
     rd, ri = l2_topk_ref(*_t(*args, device=cuda), k=k)
     n0 = l2_topk.launches
     kd, ki = l2_topk(*_t(*args, device=cuda), k=k)
@@ -310,6 +386,28 @@ def test_cuda_l2topk_matches_plain(cuda, P, Q, d, k, n_leaves, integer):
     assert l2_topk.launches == n0 + 1
     _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
                   id_frac=1.0 if integer else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,k", [("one_run", 64), ("sentinel_wave", 20),
+                                    ("padded_lookup", 20), ("long_run", 64),
+                                    ("sentinel_tail", 20)])
+def test_cuda_l2topk_wave_shapes(cuda, kind, k):
+    # one run filling the wave (every matching lookup row scans all 4,096
+    # rows), a wave of routing padding, padded lookup rows
+    args = _t(*_wave_case(kind, seed=5), device=cuda)
+    rd, ri = l2_topk_ref(*args, k=k)
+    kd, ki = l2_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(rd, kd) and torch.equal(ri, ki)
+
+
+@pytest.mark.cuda
+def test_cuda_l2topk_grid_is_resident(cuda):
+    # K1's grid is as many clusters of 4 blocks (one an SM) as the card
+    # holds at once: never more than a quarter of its SMs
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 1 <= resident_clusters() <= sms // 4
 
 
 @pytest.mark.cuda
@@ -364,6 +462,25 @@ def test_cuda_l2nn_matches_plain(cuda, n, c, d, integer):
         same = (ri == ki).float().mean().item()
         assert same > 0.999
         torch.testing.assert_close(rdist, kdist, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup", ["halves", "neighbours"])
+def test_cuda_l2nn_build_wave_ties(cuda, dup):
+    # build_index's wave shape; duplicate centroids put exact ties across
+    # the kernel's two centroid halves (128 each) or between neighbours
+    rng = np.random.default_rng(19)
+    x = rng.integers(0, 256, size=(4096, 128)).astype(np.float32)
+    cen = rng.integers(0, 256, size=(256, 128)).astype(np.float32)
+    if dup == "halves":
+        cen[128:] = cen[:128]
+    else:
+        cen[1::2] = cen[::2]
+    x[:256] = cen
+    ri, rdist = l2_nearest_ref(*_t(x, cen, device=cuda))
+    ki, kdist = l2_nearest(*_t(x, cen, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(ri, ki) and torch.equal(rdist, kdist)
 
 
 @pytest.mark.cuda
