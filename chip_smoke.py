@@ -125,6 +125,10 @@ K1_WAVES = 64  # distinct waves the l2topk kernel is timed over
 N_SAMPLE = 256  # lookup rows the fusedscan output is checked on
 CHUNK_POINTS = 2**20  # point rows per chunk of the sampled plain version
 N_REAL_WAVES = 8  # l2topk waves of the real-valued check
+# csrc/fusedscan.cu: rows of a group tile, runs split across a cluster past
+F_G, F_LONG = 8, 4096
+# the P7 phase: a k and a rerank depth past the KCAP kernels' lists (64, 128)
+P7_K, P7_RERANK = 100, 256
 SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
              fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
              k1_waves=K1_WAVES, n_sample=N_SAMPLE)
@@ -217,6 +221,18 @@ def real_check(name, kernel_ratio, tf32_ratio):
                              f"the fp32 bound ({tf32_ratio} x), so the check "
                              f"cannot tell TF32 from fp32")
     return kernel_ratio, tf32_ratio
+
+
+def bitwise(kernel_out, plain_out, what):
+    """Max |distance| difference of a kernel's (dists, ids) against its
+    plain version's; raises unless the two are bitwise equal."""
+    (da, ia), (db, ib) = kernel_out, plain_out
+    fin = torch.isfinite(db)
+    err = float((da[fin] - db[fin]).abs().max()) if fin.any() else 0.0
+    if not (torch.equal(da, db) and torch.equal(ia, ib)):
+        raise AssertionError(f"{what}: kernel differs from its plain version "
+                             f"(max |d| {err})")
+    return err
 
 
 def chunked_plain(rt, points, leaves, q, qleaves, k):
@@ -318,20 +334,11 @@ def check_main_path(rt, run, sizes, seed):
         raise AssertionError(f"l2topk launched {run['k1_wave_launches']} "
                              f"times for {n_waves} waves")
 
-    # in-leaf top-1 against a brute-force scan of the query's leaf
     g = torch.Generator().manual_seed(seed)
     pick = torch.randperm(sizes["n_queries"], generator=g)[:N_CHECK].to(queries.device)
     q = queries[pick]
     qleaf = rt.tree_assign(tree, q).long()
-    offs = index.offsets[0].long()
-    exact = 0
-    for j in range(N_CHECK):
-        lo, hi = int(offs[qleaf[j]]), int(offs[qleaf[j] + 1])
-        d2 = ((index.vecs[lo:hi] - q[j]) ** 2).sum(1)
-        best = lo + int(torch.argmin(d2))  # first minimum = lowest shard row
-        exact += int(index.ids[best]) == int(a.ids[pick[j], 0])
-    if exact != N_CHECK:
-        raise AssertionError(f"in-leaf top-1 exact for {exact}/{N_CHECK}")
+    exact = in_leaf_top1(index, q, qleaf, a.ids[pick, 0])
 
     # recall@1 against the exact nearest neighbour over the whole corpus
     nv = int(index.n_valid[0])
@@ -351,6 +358,21 @@ def check_main_path(rt, run, sizes, seed):
     log(f"in-leaf top-1 exact {exact}/{N_CHECK}; recall@1 vs exact full-corpus "
         f"NN: probes=1 {recall['pallas']}, probes=2 {recall['fused_p2']}")
     return recall
+
+
+def in_leaf_top1(index, q, qleaf, top1):
+    """Raise unless each query's top-1 id equals a brute-force scan of its
+    leaf (first minimum = lowest shard row); returns the count."""
+    offs = index.offsets[0].long()
+    exact = 0
+    for j in range(q.shape[0]):
+        lo, hi = int(offs[qleaf[j]]), int(offs[qleaf[j] + 1])
+        d2 = ((index.vecs[lo:hi] - q[j]) ** 2).sum(1)
+        best = lo + int(torch.argmin(d2))
+        exact += int(index.ids[best]) == int(top1[j])
+    if exact != q.shape[0]:
+        raise AssertionError(f"in-leaf top-1 exact for {exact}/{q.shape[0]}")
+    return exact
 
 
 def run_codes_path(rt, run, sizes):
@@ -525,17 +547,6 @@ def kernel_checks(rt, run, sizes, seed):
             f"real-valued error {real[0]} x the fp32 bound (TF32 plain "
             f"{real[1]} x){'; ' + json.dumps(extra) if extra else ''}")
 
-    def equal(kernel_out, plain_out, what):
-        """Max |distance| difference of a kernel's (dists, ids) against its
-        plain version's; raises unless the two are bitwise equal."""
-        (da, ia), (db, ib) = kernel_out, plain_out
-        fin = torch.isfinite(db)
-        err = float((da[fin] - db[fin]).abs().max()) if fin.any() else 0.0
-        if not (torch.equal(da, db) and torch.equal(ia, ib)):
-            raise AssertionError(f"{what}: kernel differs from its plain version "
-                                 f"(max |d| {err})")
-        return err
-
     lk = rt.build_lookup(tree, queries, probes=1)  # sorted by leaf
     waves, k3_waves = dense_waves(run, sizes, lk)
     times = dense_kernel_times(rt, run, sizes, waves, k3_waves)
@@ -547,7 +558,7 @@ def kernel_checks(rt, run, sizes, seed):
     # holds and the slab rows whose leaf some point holds
     need = sum(int(torch.isin(w[1], w[3]).sum()) for w in waves)
     matched = sum(int(torch.isin(w[3], w[1]).sum()) for w in waves)
-    err = max(equal(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), "l2topk")
+    err = max(bitwise(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), "l2topk")
               for w in waves)
     ratios = []
     for p, plf, q, qlf in waves[:N_REAL_WAVES]:
@@ -589,17 +600,9 @@ def kernel_checks(rt, run, sizes, seed):
     # padded probes=1 lookup. Each output row depends on its own lookup row
     # only, so the plain version (which forms a (P, rows) matrix) is run on
     # sampled lookup rows, over the whole shard in point chunks ---
-    n = queries.shape[0]
-    fplan = rt.make_plan(rows=index.rows, n_leaves=index.n_leaves, n_queries=n,
-                         n_shards=1, k=k, probes=1, impl="fused", block_rows=B,
-                         q_cap=sizes["q_cap"])
-    flk = rt.pad_lookup(lk, rt.lookup_q_total(fplan, n))
-    full = (index.vecs, index.leaves, index.ids, flk.vecs, flk.leaves)
+    flk, full = fused_inputs(rt, run, sizes, lk)
     kd, ki = rt.fused_topk(*full, k=k)
-    real_rows = torch.nonzero(flk.leaves >= 0)[:, 0]
-    gs = torch.Generator().manual_seed(seed + 3)
-    pick = real_rows[torch.randperm(real_rows.numel(), generator=gs)[:sizes["n_sample"]]
-                     .to(dev)].sort().values
+    pick = sample_rows(flk, sizes["n_sample"], seed + 3)
     sq, sl = flk.vecs[pick], flk.leaves[pick]
 
     def plain_sample(q, qlf):
@@ -609,18 +612,13 @@ def kernel_checks(rt, run, sizes, seed):
     want = plain_sample(sq, sl)
     if not torch.isfinite(want[0][:, 0]).all():
         raise AssertionError("fusedscan: a sampled lookup row has no same-leaf point")
-    err = equal((kd[pick], ki[pick]), want, "fusedscan")
-    kern = time_ms(lambda *a: rt.fused_topk(*a, k=k), [full] * 5, warmup=1)
+    err = bitwise((kd[pick], ki[pick]), want, "fusedscan")
+    kern = fused_time(rt, full, k)
     plain = time_ms(plain_sample, [(sq, sl)], warmup=1)
-    nl = index.n_leaves
-    pl = index.leaves[(index.leaves >= 0) & (index.leaves < nl)].long()
-    hp = torch.bincount(pl, minlength=nl)
-    hq = torch.bincount(flk.leaves[flk.leaves >= 0].long(), minlength=nl)
-    need = int(hp[hq > 0].sum())  # points whose leaf some lookup row holds
-    pairs = int((hp * hq).sum())
-    Q = flk.vecs.shape[0]
-    bnd = bound(need * (d * 4 + 8) + Q * (d * 4 + 4) + Q * k * 8,
-                pairs * 2 * d + need * 2 * d)
+    need, pairs, Q = fused_need(index, flk)
+    bnd = fused_bound(need, pairs, Q, d, k)
+    groups = group_structure(index, flk)
+    log(f"fusedscan group structure: {json.dumps(groups)}")
     del kd, ki, want
     # real-valued: the same call on rows off the integer grid, shard rows
     # as ids so that the result names rows
@@ -642,13 +640,13 @@ def kernel_checks(rt, run, sizes, seed):
     record("fusedscan", "src/repro_torch/csrc/fusedscan.cu",
            "src/repro/kernels/fusedscan/kernel.py:206", run["launches"]["fusedscan"],
            err, real, kern, plain, bnd, None, rows=Q, plain_rows=pick.numel(),
-           points_needed=need, pairs=pairs)
+           points_needed=need, pairs=pairs, **groups, **run["fused_trace"])
 
     # --- K3 l2nn: tree level 0 against the build_tree sample's shape ---
     n = sizes["sample_rows"]
     x = index.vecs[:n]
     c = tree.levels[0]
-    err = equal(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1], "l2nn")
+    err = bitwise(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1], "l2nn")
     xr, cr = jitter(x, g), jitter(c, g)
     kr = rt.nearest_error_ratio(*rt.l2_nearest(xr, cr), xr, cr)
     with tf32_matmuls():
@@ -661,14 +659,85 @@ def kernel_checks(rt, run, sizes, seed):
     C = c.shape[0]
     bnd = bound(n * d * 4 + C * d * 4 + n * 8, n * C * 2 * d + (n + C) * 2 * d)
     del x, c
-    wave = l2nn_wave_shape(rt, k3_waves, times["k3_wave"], equal)
+    wave = l2nn_wave_shape(rt, k3_waves, times["k3_wave"])
     enc = encode_check(rt, run, g)
     record("l2nn", "src/repro_torch/csrc/l2nn.cu",
            "src/repro/kernels/l2nn/kernel.py:60", run["launches"]["l2nn"],
            err, real, kern, plain, bnd, lib,
            codes_path_launches=run["codes_launches"]["l2nn"], **wave, **enc)
-    adc_checks(rt, run, sizes, seed, record, equal)
+    adc_checks(rt, run, sizes, seed, record)
     return out
+
+
+def fused_inputs(rt, run, sizes, lk):
+    """The main path's fused call: the probes = 1 lookup ``lk`` padded as
+    the fused plan pads it, and K2's arguments (the whole shard against
+    it). Returns (padded lookup, arguments)."""
+    index, n = run["index"], run["queries"].shape[0]
+    fplan = rt.make_plan(rows=index.rows, n_leaves=index.n_leaves, n_queries=n,
+                         n_shards=1, k=sizes["k"], probes=1, impl="fused",
+                         block_rows=sizes["block_rows"], q_cap=sizes["q_cap"])
+    flk = rt.pad_lookup(lk, rt.lookup_q_total(fplan, n))
+    return flk, (index.vecs, index.leaves, index.ids, flk.vecs, flk.leaves)
+
+
+def sample_rows(flk, n, seed):
+    """``n`` lookup rows of ``flk`` that are not padding, ascending, drawn
+    from ``seed``."""
+    real_rows = torch.nonzero(flk.leaves >= 0)[:, 0]
+    g = torch.Generator().manual_seed(seed)
+    pick = torch.randperm(real_rows.numel(), generator=g)[:n]
+    return real_rows[pick.to(real_rows.device)].sort().values
+
+
+def fused_time(rt, full, k):
+    """K2's (device ms, wall ms) a call on the main path's call."""
+    return time_ms(lambda *a: rt.fused_topk(*a, k=k), [full] * 5, warmup=1)
+
+
+def fused_need(index, flk):
+    """(points whose leaf some lookup row holds, same-leaf pairs, lookup
+    rows) of a whole-shard dense call."""
+    nl = index.n_leaves
+    pl = index.leaves[(index.leaves >= 0) & (index.leaves < nl)].long()
+    hp = torch.bincount(pl, minlength=nl)
+    hq = torch.bincount(flk.leaves[flk.leaves >= 0].long(), minlength=nl)
+    return int(hp[hq > 0].sum()), int((hp * hq).sum()), flk.vecs.shape[0]
+
+
+def fused_bound(need, pairs, Q, d, k):
+    """Each needed row (and its leaf and id), each lookup row and the
+    (Q, k) output once; the same-leaf pairs' fp32 operations."""
+    return bound(need * (d * 4 + 8) + Q * (d * 4 + 4) + Q * k * 8,
+                 pairs * 2 * d + need * 2 * d)
+
+
+def group_structure(index, flk):
+    """K2's work at this call (csrc/fusedscan.cu): the lookup's leaf groups
+    (maximal runs of consecutive rows with one leaf that the shard holds),
+    cut into group tiles of at most F_G rows; each tile reads its leaf's
+    run once and evaluates its rows against it. Runs over F_LONG rows go
+    to the cluster kernel."""
+    nl = index.n_leaves
+    pl = index.leaves[(index.leaves >= 0) & (index.leaves < nl)].long()
+    hp = torch.bincount(pl, minlength=nl).cpu().numpy()
+    ql = flk.leaves.cpu().numpy()
+    starts = np.flatnonzero(np.r_[True, ql[1:] != ql[:-1]])
+    size = np.diff(np.r_[starts, ql.size])
+    leaf = ql[starts]
+    run = np.where((leaf >= 0) & (leaf < nl), hp[np.clip(leaf, 0, nl - 1)], 0)
+    real = run > 0
+    size, leaf, run = size[real], leaf[real], run[real]
+    tiles = -(-size // F_G)
+    reads = tiles * run
+    long_ = run > F_LONG
+    return dict(groups=int(size.size), distinct_leaves=int(np.unique(leaf).size),
+                group_tiles=int(tiles.sum()), largest_group=int(size.max()),
+                longest_run=int(run.max()),
+                pairs_evaluated=int((size * run).sum()),
+                rows_read=int(reads.sum()), long_tiles=int(tiles[long_].sum()),
+                long_rows_read=int(reads[long_].sum()),
+                long_pairs=int((size * run)[long_].sum()))
 
 
 def dense_waves(run, sizes, lk):
@@ -717,14 +786,14 @@ def dense_kernel_times(rt, run, sizes, k1_waves, k3_waves):
                 k3_level0=time_ms(rt.l2_nearest, [level0] * 10))
 
 
-def l2nn_wave_shape(rt, waves, kern, equal):
+def l2nn_wave_shape(rt, waves, kern):
     """K3 at the shape most of its main-path launches have: build_index's
     tree assignment calls it once a wave of ``block_rows`` rows against
     the 256 level-0 centroids. The distinct mid-corpus ``waves``, each held
     against the plain version (bit for bit: integer data); the kernel's
     times ``kern`` beside the plain version's, the library's and the
     bound of one wave. Returns the numbers for the kernels line."""
-    err = max(equal(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1],
+    err = max(bitwise(rt.l2_nearest(x, c)[::-1], rt.l2_nearest_ref(x, c)[::-1],
                     "l2nn wave") for x, c in waves)
     plain = time_ms(lambda x, c: rt.l2_nearest_ref(x, c), waves)
     lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), waves)
@@ -782,53 +851,37 @@ def encode_check(rt, run, g):
     return out
 
 
-def adc_checks(rt, run, sizes, seed, record, equal):
+def adc_checks(rt, run, sizes, seed, record):
     """K4 on 64 waves of the codes sweep and K5 on the codes path's own
     call, each against its plain version on the same real-valued LUTs."""
-    index, tree, queries, c = run["index"], run["tree"], run["queries"], run["codes"]
-    dev, B, pq, codes = index.vecs.device, sizes["block_rows"], c["pq"], c["codes"]
+    index, c = run["index"], run["codes"]
+    dev, B, qc = index.vecs.device, sizes["block_rows"], sizes["q_cap"]
+    pq = c["pq"]
     r = c["results"]["pallas"]["plan"].rerank
     m, C = pq.m, pq.n_centers
-    n = queries.shape[0]
-    lk = rt.build_lookup(tree, queries, probes=1)
-    flk = rt.pad_lookup(lk, rt.lookup_q_total(c["results"]["fused"]["plan"], n))
+    ci = codes_inputs(rt, run, sizes)
+    flk, lut, live, waves, slabs = (ci[f] for f in ("flk", "lut", "live", "waves",
+                                                    "slabs"))
     Q = flk.vecs.shape[0]
-    lut = rt.build_adc_lut(flk.vecs, torch.as_tensor(pq.codebooks, device=dev),
-                           q_total=Q, m=m, n_centers=C).view(Q, m, C)
-    live = rt.live_leaves(index.leaves, index.ids)
 
     # --- K4 adcscan: real waves of the codes sweep, called as the sweep
     # calls it (the wave's sorted leaves and ids, the whole LUT table, the
     # slab start on the device); the plain version and the yardstick get
     # the slab's rows and the masked leaves ---
-    mid = int(index.n_valid[0]) // 2 // B * B
-    qc = sizes["q_cap"]
-    waves, slabs, need, pairs = [], [], 0, 0
-    for i in range(sizes["k1_waves"]):
-        s = mid + i * B
-        plf = live[s:s + B]
-        start = int(flk.offsets[int(index.leaves[s])].clamp(0, Q - qc))
-        qlf = flk.leaves[start:start + qc]
-        waves.append((codes[s:s + B], index.leaves[s:s + B], index.ids[s:s + B],
-                      torch.tensor([start], device=dev)))
-        slabs.append((codes[s:s + B], plf, lut[start:start + qc], qlf))
-        need += int(torch.isin(qlf, plf).sum())  # LUTs the wave needs
-        pairs += int(rt.count_pairs(plf, qlf))
-
     def k4(cd, plf, ids, start, qleaves=flk.leaves):
         return rt.adc_topk(cd, plf, lut, qleaves, k=r, point_ids=ids,
                            q_start=start, q_rows=qc)
 
-    err = max(equal(k4(*w), rt.adc_topk_ref(*sw, r), "adcscan")
+    err = max(bitwise(k4(*w), rt.adc_topk_ref(*sw, r), "adcscan")
               for w, sw in zip(waves, slabs))
     # a wave with tombstones (every 5th id dead; they keep their leaf)
     cd, plf, ids, start = waves[0]
     dead = ids.clone()
     dead[::5] = -1
-    err = max(err, equal(k4(cd, plf, dead, start),
+    err = max(err, bitwise(k4(cd, plf, dead, start),
                          rt.adc_topk_ref(cd, rt.live_leaves(plf, dead),
                                          *slabs[0][2:], r), "adcscan tombstones"))
-    kern = time_ms(k4, waves)
+    kern = k4_time(rt, ci, r)
     # the floor: the same waves with every lookup leaf past the index's
     # leaves, so that no block finds a run (launch, leaf test, empty lists)
     past = torch.where(flk.leaves >= 0, flk.leaves + index.n_leaves, flk.leaves)
@@ -843,56 +896,304 @@ def adc_checks(rt, run, sizes, seed, record, equal):
         return torch.topk(d2, r, dim=1, largest=False)
 
     lib = time_ms(lib_adc, slabs)
+    bnd = k4_bound(ci, B, qc, m, C, r)
     nw = len(waves)
-    byt = nw * (B * (m + 4) + qc * 4 + qc * r * 8) + need * m * C * 4
-    bnd = bound(byt / nw, pairs * m / nw)
     record("adcscan", "src/repro_torch/csrc/adcscan.cu",
            "src/repro/kernels/adcscan/kernel.py:101", run["codes_launches"]["adcscan"],
-           err, None, kern, plain, bnd, lib, luts_needed_per_wave=need / nw,
+           err, None, kern, plain, bnd, lib, luts_needed_per_wave=ci["need"] / nw,
            floor_ms=floor[0], tombstone_wave_checked=True)
-    del waves, slabs
 
     # --- K5 fusedadc: the codes path's call, the whole shard's codes
     # against the padded probes=1 lookup's LUTs; the plain version on
     # sampled lookup rows, over the shard in point chunks ---
-    full = (codes, index.leaves, index.ids, lut, flk.leaves)
+    full = ci["full"]
     kd, ki = rt.fused_adc_topk(*full, k=r)
-    real_rows = torch.nonzero(flk.leaves >= 0)[:, 0]
-    gs = torch.Generator().manual_seed(seed + 4)
-    pick = real_rows[torch.randperm(real_rows.numel(), generator=gs)[:sizes["n_sample"]]
-                     .to(dev)].sort().values
+    pick = sample_rows(flk, sizes["n_sample"], seed + 4)
     sq, sl = lut[pick], flk.leaves[pick]
 
     def plain_sample(lt, qlf):
-        best_d = torch.full((lt.shape[0], r), torch.inf, device=dev)
-        best_r = torch.full((lt.shape[0], r), -1, dtype=torch.int32, device=dev)
-        for s in range(0, codes.shape[0], CHUNK_POINTS):
-            e = s + CHUNK_POINTS
-            d, rr = rt.adc_topk_ref(codes[s:e], live[s:e], lt, qlf, r)
-            best_d, best_r = rt.fold_topk(best_d, best_r, d,
-                                          torch.where(rr >= 0, rr + s, -1))
-        return rt.map_ids(best_d, best_r, index.ids)
+        return adc_plain_sample(rt, run, live, lt, qlf, r)
 
     want = plain_sample(sq, sl)
     if not torch.isfinite(want[0][:, 0]).all():
         raise AssertionError("fusedadc: a sampled lookup row has no same-leaf row")
-    err = equal((kd[pick], ki[pick]), want, "fusedadc")
-    kern = time_ms(lambda *a: rt.fused_adc_topk(*a, k=r), [full] * 5, warmup=1)
+    err = bitwise((kd[pick], ki[pick]), want, "fusedadc")
+    kern = k5_time(rt, ci, r)
     plain = time_ms(plain_sample, [(sq, sl)], warmup=1)
-    nl = index.n_leaves
-    ok = (live >= 0) & (live < nl)
-    hp = torch.bincount(live[ok].long(), minlength=nl)
-    hq = torch.bincount(flk.leaves[flk.leaves >= 0].long(), minlength=nl)
-    rows_needed = int(hp[hq > 0].sum())  # live rows whose leaf a lookup row holds
-    luts = int(hq[hp > 0].sum())  # lookup rows whose leaf holds a live row
-    kpairs = int((hp * hq).sum())
-    bnd = bound(rows_needed * (m + 8) + luts * m * C * 4 + Q * 4 + Q * r * 8,
-                kpairs * m)
+    bnd, need = k5_bound(ci, index, m, C, r)
+    runs = k5_runs(index, flk)
+    log(f"fusedadc runs: {json.dumps(runs)}")
     # no single PyTorch call fits: the (P, Q) distance matrix is 4 TB
     record("fusedadc", "src/repro_torch/csrc/fusedadc.cu",
            "src/repro/kernels/fusedscan/kernel.py:223", run["codes_launches"]["fusedadc"],
            err, None, kern, plain, bnd, None, rows=Q, plain_rows=pick.numel(),
-           rows_needed=rows_needed, luts_needed=luts, pairs=kpairs)
+           **need, **runs, **run["fused_codes_trace"])
+
+
+def codes_inputs(rt, run, sizes):
+    """The codes path's kernel inputs at the main path's shapes: the padded
+    probes = 1 lookup ``flk`` and its LUTs from the trained codebooks, the
+    live-masked leaves, K5's arguments (``full``: the whole shard's codes
+    against every LUT), and ``k1_waves`` mid-shard waves of the codes sweep
+    as the sweep calls K4 (``waves``: the wave's codes, sorted leaves and
+    ids, the slab start on the device) and as the plain version takes them
+    (``slabs``: the slab's LUTs and the masked leaves), with the LUTs and
+    same-leaf pairs the waves need."""
+    index, tree, queries, c = run["index"], run["tree"], run["queries"], run["codes"]
+    dev, B, qc = index.vecs.device, sizes["block_rows"], sizes["q_cap"]
+    pq, codes = c["pq"], c["codes"]
+    m, C, n = pq.m, pq.n_centers, queries.shape[0]
+    lk = rt.build_lookup(tree, queries, probes=1)
+    flk = rt.pad_lookup(lk, rt.lookup_q_total(c["results"]["fused"]["plan"], n))
+    Q = flk.vecs.shape[0]
+    lut = rt.build_adc_lut(flk.vecs, torch.as_tensor(pq.codebooks, device=dev),
+                           q_total=Q, m=m, n_centers=C).view(Q, m, C)
+    live = rt.live_leaves(index.leaves, index.ids)
+    mid = int(index.n_valid[0]) // 2 // B * B
+    waves, slabs, need, pairs = [], [], 0, 0
+    for i in range(sizes["k1_waves"]):
+        s = mid + i * B
+        plf = live[s:s + B]
+        start = int(flk.offsets[int(index.leaves[s])].clamp(0, Q - qc))
+        qlf = flk.leaves[start:start + qc]
+        waves.append((codes[s:s + B], index.leaves[s:s + B], index.ids[s:s + B],
+                      torch.tensor([start], device=dev)))
+        slabs.append((codes[s:s + B], plf, lut[start:start + qc], qlf))
+        need += int(torch.isin(qlf, plf).sum())  # LUTs the wave needs
+        pairs += int(rt.count_pairs(plf, qlf))
+    return dict(flk=flk, lut=lut, live=live, waves=waves, slabs=slabs, need=need,
+                pairs=pairs, full=(codes, index.leaves, index.ids, lut, flk.leaves),
+                q_cap=qc)
+
+
+def k4_time(rt, ci, r):
+    """K4's (device ms, wall ms) a real wave of the codes sweep at rerank
+    depth ``r``, called as the sweep calls it."""
+    lut, qlf, qc = ci["lut"], ci["flk"].leaves, ci["q_cap"]
+    return time_ms(lambda cd, plf, ids, start: rt.adc_topk(
+        cd, plf, lut, qlf, k=r, point_ids=ids, q_start=start, q_rows=qc),
+        ci["waves"])
+
+
+def k4_bound(ci, B, qc, m, C, r):
+    """A wave's codes, leaves and ids, the LUTs its slab rows need, the
+    slab's leaves and the (q_cap, r) output; m adds a same-leaf pair."""
+    nw = len(ci["waves"])
+    byt = nw * (B * (m + 4) + qc * 4 + qc * r * 8) + ci["need"] * m * C * 4
+    return bound(byt / nw, ci["pairs"] * m / nw)
+
+
+def k5_time(rt, ci, r):
+    """K5's (device ms, wall ms) on the codes path's fused call."""
+    return time_ms(lambda *a: rt.fused_adc_topk(*a, k=r), [ci["full"]] * 5,
+                   warmup=1)
+
+
+def k5_bound(ci, index, m, C, r):
+    """(bound, counts): the live rows whose leaf a lookup row holds (codes,
+    leaf, id), the LUTs of the lookup rows whose leaf holds a live row,
+    the lookup leaves and the (Q, r) output; m adds a same-leaf pair."""
+    nl, live, flk = index.n_leaves, ci["live"], ci["flk"]
+    Q = flk.vecs.shape[0]
+    ok = (live >= 0) & (live < nl)
+    hp = torch.bincount(live[ok].long(), minlength=nl)
+    hq = torch.bincount(flk.leaves[flk.leaves >= 0].long(), minlength=nl)
+    rows_needed, luts = int(hp[hq > 0].sum()), int(hq[hp > 0].sum())
+    kpairs = int((hp * hq).sum())
+    bnd = bound(rows_needed * (m + 8) + luts * m * C * 4 + Q * 4 + Q * r * 8,
+                kpairs * m)
+    return bnd, dict(rows_needed=rows_needed, luts_needed=luts, pairs=kpairs)
+
+
+def k5_runs(index, flk):
+    """K5's runs at this call (K4's kernel over the shard: one block of 8
+    warps a lookup row, 32 rows a warp a step): the lookup rows whose leaf
+    holds rows, their mean and longest run, and the longest run's steps
+    a warp."""
+    nl = index.n_leaves
+    pl = index.leaves[(index.leaves >= 0) & (index.leaves < nl)].long()
+    hp = torch.bincount(pl, minlength=nl)
+    ql = flk.leaves[(flk.leaves >= 0) & (flk.leaves < nl)].long()
+    run = hp[ql]
+    run = run[run > 0]
+    longest = int(run.max())
+    return dict(lookup_rows_with_a_run=int(run.numel()),
+                mean_run=float(run.float().mean()), longest_run=longest,
+                longest_run_steps_per_warp=-(-longest // (8 * 32)))
+
+
+def adc_plain_sample(rt, run, live, lt, qlf, r):
+    """The fused ADC plain version for the LUT rows ``lt`` over the whole
+    shard, in point chunks folded by (distance, shard row), ids mapped."""
+    index, codes = run["index"], run["codes"]["codes"]
+    dev = lt.device
+    best_d = torch.full((lt.shape[0], r), torch.inf, device=dev)
+    best_r = torch.full((lt.shape[0], r), -1, dtype=torch.int32, device=dev)
+    for s in range(0, codes.shape[0], CHUNK_POINTS):
+        e = s + CHUNK_POINTS
+        d, rr = rt.adc_topk_ref(codes[s:e], live[s:e], lt, qlf, r)
+        best_d, best_r = rt.fold_topk(best_d, best_r, d,
+                                      torch.where(rr >= 0, rr + s, -1))
+    return rt.map_ids(best_d, best_r, index.ids)
+
+
+def p7_phase(rt, run, sizes, seed, kernels):
+    """Every k the plan accepts, on the card (ROADMAP P7): ``batch_search``
+    at k = P7_K and a codes search at rerank P7_RERANK, past the KCAP
+    kernels' lists, so that every call goes to the wide kernels. Checks the
+    sweep and the fused scan bit-identical, their launches, the k = 20
+    results as a prefix, in-leaf top-1 exactness, and the wide kernels
+    against their plain versions (real waves, sampled lookup rows of the
+    fused calls); puts their times on the K1, K2, K4 and K5 rows."""
+    index, tree, queries = run["index"], run["tree"], run["queries"]
+    dev, B, qc, d = index.vecs.device, sizes["block_rows"], sizes["q_cap"], DIM
+    rows = {row["name"]: row for row in kernels}
+    n, k, n_waves = queries.shape[0], P7_K, index.rows // B
+
+    # --- dense: batch_search at k = P7_K, both paths ---
+    res, wall = {}, {}
+    rt.reset_counts()
+    for impl in ("pallas", "fused"):
+        t0 = sync_now()
+        res[impl] = rt.batch_search(index, tree, queries, k, q_cap=qc, block_rows=B,
+                                    impl=impl, device=dev)
+        wall[impl] = sync_now() - t0
+    launches = rt.counts()
+    a, b = res["pallas"], res["fused"]
+    for name, r in res.items():
+        if int(r.q_cap_overflow) != 0 or r.ids.shape != (n, k):
+            raise AssertionError(f"p7 {name}: overflow {int(r.q_cap_overflow)}, "
+                                 f"shape {tuple(r.ids.shape)}")
+    if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            and torch.equal(a.pairs, b.pairs)):
+        raise AssertionError(f"p7: the sweep and the fused scan differ at k = {k}")
+    want = {"l2topk": n_waves, "l2topk.wide": n_waves, "fusedscan": 1,
+            "fusedscan.wide": 1}
+    if any(launches[key] != v for key, v in want.items()):
+        raise AssertionError(f"p7: launches {json.dumps(launches)}, expected "
+                             f"{json.dumps(want)}")
+    k20 = run["results"]["pallas"]
+    if not (torch.equal(a.ids[:, :sizes["k"]], k20.ids)
+            and torch.equal(a.dists[:, :sizes["k"]], k20.dists)):
+        raise AssertionError(f"p7: the k = {sizes['k']} results are not the first "
+                             f"columns of the k = {k} results")
+    pick, _, _, qleaf = run["nn"]
+    exact = in_leaf_top1(index, queries[pick], qleaf, a.ids[pick, 0])
+
+    # the wide kernels at the shapes the two paths gave them
+    lk = rt.build_lookup(tree, queries, probes=1)
+    waves, _ = dense_waves(run, sizes, lk)
+    err = max(bitwise(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), "l2topk wide")
+              for w in waves)
+    kern = time_ms(lambda *w: rt.l2_topk(*w, k=k), waves)
+    plain = time_ms(lambda *w: rt.l2_topk_ref(*w, k), waves)
+    need = sum(int(torch.isin(w[1], w[3]).sum()) for w in waves)
+    matched = sum(int(torch.isin(w[3], w[1]).sum()) for w in waves)
+    pairs = sum(int(rt.count_pairs(w[1], w[3])) for w in waves)
+    nw = len(waves)
+    bnd = bound(((need + matched) * d * 4 + nw * ((B + qc) * 4 + qc * k * 8)) / nw,
+                (pairs + need) * 2 * d / nw)
+    rows["l2topk"].update(wide_k=k, wide_ms=kern[0], wide_plain_ms=plain[0],
+                          wide_bound_ms=bnd[0], wide_bound_by=bnd[1],
+                          wide_launches=launches["l2topk.wide"],
+                          wide_max_abs_err=err, wide_search_wall_s=wall["pallas"])
+    flk, full = fused_inputs(rt, run, sizes, lk)
+    kd, ki = rt.fused_topk(*full, k=k)
+    fpick = sample_rows(flk, sizes["n_sample"], seed + 5)
+    sq, sl = flk.vecs[fpick], flk.leaves[fpick]
+
+    def plain_sample(q, qlf):
+        return rt.map_ids(*chunked_plain(rt, index.vecs, index.leaves, q, qlf, k),
+                          index.ids)
+
+    err = bitwise((kd[fpick], ki[fpick]), plain_sample(sq, sl), "fusedscan wide")
+    del kd, ki
+    kern = fused_time(rt, full, k)
+    plain = time_ms(plain_sample, [(sq, sl)], warmup=1)
+    need, pairs, Q = fused_need(index, flk)
+    bnd = fused_bound(need, pairs, Q, d, k)
+    rows["fusedscan"].update(wide_k=k, wide_ms=kern[0], wide_plain_ms=plain[0],
+                             wide_plain_rows=fpick.numel(), wide_bound_ms=bnd[0],
+                             wide_bound_by=bnd[1],
+                             wide_launches=launches["fusedscan.wide"],
+                             wide_max_abs_err=err, wide_search_wall_s=wall["fused"])
+    log(f"p7 dense: batch_search k = {k} pallas {wall['pallas']} s, fused "
+        f"{wall['fused']} s, bit-identical; the k = {sizes['k']} results their "
+        f"prefix; in-leaf top-1 exact {exact}/{pick.numel()}; launches "
+        f"{json.dumps(launches)}; l2topk wide {rows['l2topk']['wide_ms']} ms a wave, "
+        f"fusedscan wide {kern[0]} ms")
+    del res, a, b
+
+    # --- codes: a search at rerank P7_RERANK, both paths ---
+    c, r = run["codes"], P7_RERANK
+    pq = c["pq"]
+    cand, wall = {}, {}
+    rt.reset_counts()
+    for impl in ("pallas", "fused"):
+        t0 = sync_now()
+        lookup = rt.build_lookup(tree, queries, probes=1)
+        plan = rt.make_plan(
+            rows=index.rows, n_leaves=index.n_leaves, n_queries=n, n_shards=1,
+            k=sizes["k"], probes=1, layout="scan_codes", impl=impl, q_cap=qc,
+            block_rows=B, code_m=pq.m, code_bits=pq.bits, rerank=r)
+        cand[impl] = rt.search_with_lookup(index, lookup, plan, n_queries=n,
+                                           codes=c["codes"], codebooks=pq.codebooks)
+        wall[impl] = sync_now() - t0
+    launches = rt.counts()
+    a, b = cand["pallas"], cand["fused"]
+    if int(a.q_cap_overflow) != 0 or a.ids.shape != (n, r):
+        raise AssertionError(f"p7 codes: overflow {int(a.q_cap_overflow)}, shape "
+                             f"{tuple(a.ids.shape)}")
+    if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            and torch.equal(a.pairs, b.pairs)):
+        raise AssertionError(f"p7: adcscan and fusedadc paths differ at rerank {r}")
+    want = {"adcscan": n_waves, "adcscan.wide": n_waves, "fusedadc": 1,
+            "fusedadc.wide": 1}
+    if any(launches[key] != v for key, v in want.items()):
+        raise AssertionError(f"p7 codes: launches {json.dumps(launches)}, expected "
+                             f"{json.dumps(want)}")
+    c128 = c["results"]["pallas"]["cand"]
+    w128 = c128.ids.shape[1]
+    if not (torch.equal(a.ids[:, :w128], c128.ids)
+            and torch.equal(a.dists[:, :w128], c128.dists)):
+        raise AssertionError(f"p7 codes: the rerank {w128} candidates are not the "
+                             f"first columns of the rerank {r} candidates")
+    del cand, a, b
+    ci = codes_inputs(rt, run, sizes)
+    m, C = pq.m, pq.n_centers
+    lut, qlf = ci["lut"], ci["flk"].leaves
+    err = max(bitwise(rt.adc_topk(cd, plf, lut, qlf, k=r, point_ids=ids,
+                                q_start=start, q_rows=qc),
+                    rt.adc_topk_ref(*sw, r), "adcscan wide")
+              for (cd, plf, ids, start), sw in zip(ci["waves"], ci["slabs"]))
+    kern = k4_time(rt, ci, r)
+    plain = time_ms(lambda *w: rt.adc_topk_ref(*w, r), ci["slabs"])
+    bnd = k4_bound(ci, B, qc, m, C, r)
+    rows["adcscan"].update(wide_k=r, wide_ms=kern[0], wide_plain_ms=plain[0],
+                           wide_bound_ms=bnd[0], wide_bound_by=bnd[1],
+                           wide_launches=launches["adcscan.wide"],
+                           wide_max_abs_err=err, wide_search_wall_s=wall["pallas"])
+    kd, ki = rt.fused_adc_topk(*ci["full"], k=r)
+    fpick = sample_rows(ci["flk"], sizes["n_sample"], seed + 6)
+    sq, sl = lut[fpick], qlf[fpick]
+
+    def plain_adc(lt, ql):
+        return adc_plain_sample(rt, run, ci["live"], lt, ql, r)
+
+    err = bitwise((kd[fpick], ki[fpick]), plain_adc(sq, sl), "fusedadc wide")
+    del kd, ki
+    kern = k5_time(rt, ci, r)
+    plain = time_ms(plain_adc, [(sq, sl)], warmup=1)
+    bnd, _ = k5_bound(ci, index, m, C, r)
+    rows["fusedadc"].update(wide_k=r, wide_ms=kern[0], wide_plain_ms=plain[0],
+                            wide_plain_rows=fpick.numel(), wide_bound_ms=bnd[0],
+                            wide_bound_by=bnd[1],
+                            wide_launches=launches["fusedadc.wide"],
+                            wide_max_abs_err=err, wide_search_wall_s=wall["fused"])
+    log(f"p7 codes: rerank {r} pallas {wall['pallas']} s, fused {wall['fused']} s, "
+        f"bit-identical; the rerank {w128} candidates their prefix; launches "
+        f"{json.dumps(launches)}; adcscan wide {rows['adcscan']['wide_ms']} ms a "
+        f"wave, fusedadc wide {kern[0]} ms")
 
 
 def trace_sweep(rt, run, sizes):
@@ -925,24 +1226,37 @@ def trace_searches(rt, run, sizes):
         sweep_trace_ms=sum(ms for ms, _ in k1.values()), sweep_trace_launches=n,
         sweep_busy_s=busy, sweep_wall_s=run["times"]["pallas"])
 
-    def dense(impl):
-        rt.batch_search(index, tree, queries, sizes["k"], q_cap=sizes["q_cap"],
-                        block_rows=sizes["block_rows"], impl=impl,
-                        device=index.device)
+    def dense(impl, probes):
+        rt.batch_search(index, tree, queries, sizes["k"], probes=probes,
+                        q_cap=sizes["q_cap"], block_rows=sizes["block_rows"],
+                        impl=impl, device=index.device)
 
-    def scan_codes(impl):
-        r = codes["results"][impl]
-        lookup = rt.build_lookup(tree, queries, probes=1)
+    def scan_codes(impl, probes):
+        r = codes["results"][impl if probes == 1 else "fused_p2"]
+        lookup = rt.build_lookup(tree, queries, probes=probes)
         rt.search_with_lookup(index, lookup, r["plan"],
                               n_queries=queries.shape[0], codes=codes["codes"],
                               codebooks=codes["pq"].codebooks)
 
-    for name, search, impl, wall in (
-            ("fused", dense, "fused", run["times"]["fused"]),
-            ("codes pallas", scan_codes, "pallas", codes["times"]["pallas"]),
-            ("codes fused", scan_codes, "fused", codes["times"]["fused"])):
-        ev, busy = device_trace(lambda: search(impl))
+    for name, search, impl, probes, wall, key, kernel in (
+            ("fused", dense, "fused", 1, run["times"]["fused"], "fused_trace",
+             "fusedscan"),
+            ("fused p2", dense, "fused", 2, run["times"]["fused_p2"], "fused_trace_p2",
+             "fusedscan"),
+            ("codes pallas", scan_codes, "pallas", 1, codes["times"]["pallas"], None,
+             None),
+            ("codes fused", scan_codes, "fused", 1, codes["times"]["fused"],
+             "fused_codes_trace", "adcscan"),
+            ("codes fused p2", scan_codes, "fused", 2, codes["times"]["fused_p2"],
+             "fused_codes_trace_p2", "adcscan")):
+        ev, busy = device_trace(lambda: search(impl, probes))
         log_trace(name, ev, busy, wall, 5)
+        if key:  # the fused kernel's device ms in the trace, busy s, wall s
+            ms = sum(e.self_device_time_total for e in ev if kernel in e.key) / 1e3
+            tag = "p2_" if probes == 2 else ""
+            run.setdefault(key.replace("_p2", ""), {}).update({
+                f"trace_{tag}kernel_ms": ms, f"trace_{tag}busy_s": busy,
+                f"trace_{tag}wall_s": wall})
 
 
 def device_trace(fn):
@@ -1324,12 +1638,17 @@ class Port:
     def reset_counts(self):
         for fn in self.wrappers.values():
             fn.launches = 0
+            fn.wide_launches = 0
         fa = self.flash_attention.variant_launches
         for name in fa:
             fa[name] = 0
 
     def counts(self):
+        """Launches by wrapper; ``<name>.wide``: those of them that went
+        to the wide kernel (k past the KCAP kernels' lists)."""
         out = {name: fn.launches for name, fn in self.wrappers.items()}
+        for name in ("l2topk", "fusedscan", "adcscan", "fusedadc"):
+            out[f"{name}.wide"] = getattr(self.wrappers[name], "wide_launches", 0)
         for name, n in self.flash_attention.variant_launches.items():
             out[f"flashattn.{name}"] = n
         return out
@@ -1384,6 +1703,7 @@ def main(argv=None) -> int:
     check_codes_path(rt, run, sizes)
     trace_searches(rt, run, sizes)
     kernels = kernel_checks(rt, run, sizes, args.seed)
+    p7_phase(rt, run, sizes, args.seed, kernels)
 
     tree, build_wall = run["tree"], run["times"]["build_index"]
     del run  # the search phases' tensors (the dense phase peaks at 41 GiB)

@@ -124,7 +124,9 @@ def _point_major_budgets(
 def default_rerank(k: int, rows: int) -> int:
     """Default exact-rerank depth for the codes layout: generous relative
     to ``k`` (8x, floored at 64) so recall survives the lossy ADC scan,
-    capped at 128 (the kernels' list capacity) and at the corpus itself."""
+    capped at 128 (the reference's cap: the K4/K5 lists' capacity; a
+    larger depth, as k > 128 gives, runs on the wide kernel) and at the
+    corpus itself."""
     return max(k, min(rows, max(8 * k, 64), 128))
 
 

@@ -1,12 +1,16 @@
 // Device functions shared by the l2topk (K1), fusedscan (K2), l2nn (K3),
-// adcscan (K4) and fusedadc (K5) kernels. K1 and K2 compute the partial
-// distance in the SAME order of fp32 operations (one fmaf chain for
-// ||p||^2 and one for q.p, over c = 0..d-1, then __fsub_rn(pn, 2 * dot)),
-// K2 through the tile functions below and K1 one point row per lane; K4
-// and K5 share the ADC distance. K1 and K4 merge candidates in batches
-// (warp_merge_offer), which builds the lists K2's and K5's one-at-a-time
-// insertion (warp_offer) builds. So the wave-sweep and the fused search
-// paths agree bit for bit, dense and codes alike.
+// adcscan (K4, and K5, which is K4's kernel over the whole shard) and
+// widetopk kernels. K1 and K2 compute the partial distance in the SAME
+// order of fp32 operations (one fmaf chain for ||p||^2 and one for q.p,
+// over c = 0..d-1, then __fsub_rn(pn, 2 * dot)), one point row per lane
+// staged through shared memory (load_chunk); the wide kernels
+// (widetopk.cu) keep that order too, and the ADC kernels share adc_dist.
+// Every list update merges a batch of candidates at once by rank
+// (warp_merge_offer; the wide kernels at block width); K2 and K5 first
+// gather the candidates that beat the k-th entry in a buffer of 32 and
+// merge it when it fills (warp_buffered_offer, K5's block buffer). So the
+// wave-sweep and the fused search paths agree bit for bit, dense and codes
+// alike, at every k.
 //
 // Arithmetic contract (the plain versions in kernels/*/ref.py):
 //   partial[q, p] = ||p||^2 - 2 * (q . p)     fp32, FMA chains over d
@@ -27,10 +31,11 @@
 // ties to the lower row, ascending -- what jax.lax.top_k on negated
 // values gives. Rows are unique, so that order is total and the result
 // does not depend on the order candidates arrive in. The list capacity
-// KCAP (a multiple of 32, k <= KCAP) is a template parameter: each lane
-// keeps KCAP / 32 registers while it shifts the list, so the dense kernels
-// stay at 64 and only the codes kernels, whose k is the rerank depth,
-// take 128.
+// KCAP (a multiple of 32, k <= KCAP) of the register-shifted lists is a
+// template parameter: each lane keeps KCAP / 32 registers while it shifts
+// a list, so the dense kernels stay at 64 and the codes kernels, whose k
+// is the rerank depth, at 128. A larger k (any k up to the rows scanned)
+// goes to the wide kernels, whose lists live in shared or device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,290 +44,14 @@
 
 namespace rt {
 
-constexpr int TQ = 64;          // query rows per block (K2's tiles)
-constexpr int TP = 64;          // point rows per staged tile (K2)
-constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
-constexpr int QPITCH = TQ;      // row pitch of the transposed query tile
-constexpr int PPITCH = TP + 4;  // row pitch of the transposed point tile
-constexpr int DPITCH = TP + 1;  // row pitch of the distance tile
+constexpr int THREADS = 256;    // K1, K3, K4: 8 warps
 constexpr int MAX_D = 256;
-constexpr int DENSE_KCAP = 64;  // k of K1 and K2 (kernels/l2topk/ops.py)
-constexpr int ADC_KCAP = 128;   // k of K4 and K5: the rerank depth
+constexpr int DENSE_KCAP = 64;  // largest k of K1 and K2 (kernels/l2topk/ops.py)
+constexpr int ADC_KCAP = 128;   // largest k of K4 and K5: the rerank depth
 constexpr unsigned FULL = 0xffffffffu;
-
-// Same values as core/sentinels.py.
-constexpr int PAD_TILE_POINT_LEAF = -9;
-constexpr int PAD_TILE_QUERY_LEAF = -8;
 
 __device__ __forceinline__ bool lex_less(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
-}
-
-// Copy rows [row0, row0 + nvalid) of a row-major (., d) matrix into a
-// transposed shared tile dst[c * pitch + r]; rows past nvalid are zero.
-__device__ __forceinline__ void stage_rows_t(float* __restrict__ dst,
-                                             const float* __restrict__ src,
-                                             long long row0, int nvalid,
-                                             int d, int pitch, int trows) {
-  for (int idx = threadIdx.x; idx < trows * d; idx += THREADS) {
-    int r = idx / d, c = idx - r * d;
-    float v = r < nvalid ? src[(row0 + r) * (long long)d + c] : 0.f;
-    dst[c * pitch + r] = v;
-  }
-}
-
-// Sequential fp32 squared norm of column r of a transposed tile.
-__device__ __forceinline__ float col_sq_norm(const float* __restrict__ t,
-                                             int r, int d, int pitch) {
-  float acc = 0.f;
-  for (int c = 0; c < d; ++c) {
-    float v = t[c * pitch + r];
-    acc = fmaf(v, v, acc);
-  }
-  return acc;
-}
-
-// 4 x 4 dot products per thread between the query tile qs[d][QPITCH] and
-// the point tile ps[d][PPITCH]: acc[i][j] = q[ty*4+i] . p[tx*4+j].
-__device__ __forceinline__ void tile_dots(const float* __restrict__ qs,
-                                          const float* __restrict__ ps, int d,
-                                          float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < d; ++c) {
-    float4 a = *reinterpret_cast<const float4*>(qs + c * QPITCH + ty * 4);
-    float4 b = *reinterpret_cast<const float4*>(ps + c * PPITCH + tx * 4);
-    float av[4] = {a.x, a.y, a.z, a.w};
-    float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Write the masked partial-distance tile dt[q][p] = pn[p] - 2 q.p where the
-// pair is allowed, +inf elsewhere. 2*x is exact in fp32, so this rounds
-// once, as the plain version's `pn - 2.0 * dots` does.
-template <typename Allow>
-__device__ __forceinline__ void write_tile(float* __restrict__ dt,
-                                           const float* __restrict__ pn,
-                                           const float acc[4][4],
-                                           Allow allow) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int q = ty * 4 + i, p = tx * 4 + j;
-      float v = __fsub_rn(pn[p], 2.0f * acc[i][j]);
-      dt[q * DPITCH + p] = allow(q, p) ? v : CUDART_INF_F;
-    }
-}
-
-// Insert (cd, ci) into the ascending list rd/ri of k <= KCAP entries; the
-// caller has checked that it beats the last entry. All 32 lanes of the
-// warp call.
-template <int KCAP>
-__device__ __forceinline__ void warp_insert(float* rd, int* ri, int k,
-                                            float cd, int ci) {
-  const int lane = threadIdx.x & 31;
-  int pos = 0;
-  for (int base = 0; base < k; base += 32) {
-    int p = base + lane;
-    bool lt = p < k && lex_less(rd[p], ri[p], cd, ci);
-    pos += __popc(__ballot_sync(FULL, lt));
-  }
-  float od[KCAP / 32];
-  int oi[KCAP / 32];
-#pragma unroll
-  for (int t = 0; t < KCAP / 32; ++t) {
-    int p = t * 32 + lane;
-    if (p < k && p > pos) {
-      od[t] = rd[p - 1];
-      oi[t] = ri[p - 1];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < KCAP / 32; ++t) {
-    int p = t * 32 + lane;
-    if (p < k && p > pos) {
-      rd[p] = od[t];
-      ri[p] = oi[t];
-    } else if (p == pos) {
-      rd[p] = cd;
-      ri[p] = ci;
-    }
-  }
-  __syncwarp();
-}
-
-// Each lane offers one candidate (dv, row) when ok; the warp inserts every
-// candidate that beats the current k-th entry. Candidates that stop
-// qualifying as the list improves drop out without an insert.
-template <int KCAP>
-__device__ __forceinline__ void warp_offer(float* rd, int* ri, int k, float dv,
-                                           int row, bool ok) {
-  unsigned m = __ballot_sync(FULL, ok && lex_less(dv, row, rd[k - 1], ri[k - 1]));
-  while (m) {
-    int src = __ffs(m) - 1;
-    float cd = __shfl_sync(FULL, dv, src);
-    int ci = __shfl_sync(FULL, row, src);
-    warp_insert<KCAP>(rd, ri, k, cd, ci);
-    m &= ~(1u << src);
-    m &= __ballot_sync(FULL, ok && lex_less(dv, row, rd[k - 1], ri[k - 1]));
-  }
-}
-
-// Shared-memory layout of K2's search scan.
-struct ScanSmem {
-  float* qs;    // [d][QPITCH]  query tile, transposed
-  float* ps;    // [d][PPITCH]  point tile, transposed
-  float* pn;    // [TP]         point squared norms
-  float* dt;    // [TQ][DPITCH] masked partial distances
-  int* qlf;     // [TQ]
-  int* plf;     // [TP]
-  float* rd;    // [TQ][k]      running distances, ascending
-  int* ri;      // [TQ][k]      running rows
-  int* ranges;  // [4]          q leaf min/max, p leaf min/max (or row hull)
-};
-
-__host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
-  return sizeof(float) * ((size_t)d * QPITCH + (size_t)d * PPITCH + TP +
-                          (size_t)TQ * DPITCH) +
-         sizeof(int) * (TQ + TP) + (sizeof(float) + sizeof(int)) * TQ * k +
-         sizeof(int) * 4;
-}
-
-__device__ inline ScanSmem scan_smem(void* base, int d, int k) {
-  ScanSmem s;
-  char* p = reinterpret_cast<char*>(base);
-  s.qs = reinterpret_cast<float*>(p);
-  p += sizeof(float) * d * QPITCH;
-  s.ps = reinterpret_cast<float*>(p);
-  p += sizeof(float) * d * PPITCH;
-  s.pn = reinterpret_cast<float*>(p);
-  p += sizeof(float) * TP;
-  s.dt = reinterpret_cast<float*>(p);
-  p += sizeof(float) * TQ * DPITCH;
-  s.qlf = reinterpret_cast<int*>(p);
-  p += sizeof(int) * TQ;
-  s.plf = reinterpret_cast<int*>(p);
-  p += sizeof(int) * TP;
-  s.rd = reinterpret_cast<float*>(p);
-  p += sizeof(float) * TQ * k;
-  s.ri = reinterpret_cast<int*>(p);
-  p += sizeof(int) * TQ * k;
-  s.ranges = reinterpret_cast<int*>(p);
-  return s;
-}
-
-// Stage the block's query tile and leaves, reset the running lists, and
-// record the tile's [min, max] query leaf over its valid rows.
-__device__ inline void scan_begin(const ScanSmem& s, const float* queries,
-                                  const int* qleaves, long long q0, int nq,
-                                  int d, int k) {
-  stage_rows_t(s.qs, queries, q0, nq, d, QPITCH, TQ);
-  if (threadIdx.x == 0) {
-    s.ranges[0] = INT32_MAX;
-    s.ranges[1] = INT32_MIN;
-  }
-  for (int t = threadIdx.x; t < TQ * k; t += THREADS) {
-    s.rd[t] = CUDART_INF_F;
-    s.ri[t] = -1;
-  }
-  __syncthreads();
-  if (threadIdx.x < TQ) {
-    int t = threadIdx.x;
-    int lf = t < nq ? qleaves[q0 + t] : PAD_TILE_QUERY_LEAF;
-    s.qlf[t] = lf;
-    if (t < nq) {
-      atomicMin(&s.ranges[0], lf);
-      atomicMax(&s.ranges[1], lf);
-    }
-  }
-  __syncthreads();
-}
-
-// Scan point rows [p_begin, p_end) against the staged query tile, folding
-// every same-leaf pair into the running lists. A point tile whose valid
-// leaf range is disjoint from the query tile's cannot hold a match and is
-// skipped (the pl.when(overlap) test of the TPU fused kernel).
-__device__ inline void scan_points(const ScanSmem& s, const float* points,
-                                   const int* pleaves, long long p_begin,
-                                   long long p_end, int nq, int d, int k) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (long long pt = p_begin; pt < p_end; pt += TP) {
-    const int np = (int)min((long long)TP, p_end - pt);
-    __syncthreads();  // every thread has read the previous tile's ranges
-    if (threadIdx.x == 0) {
-      s.ranges[2] = INT32_MAX;
-      s.ranges[3] = INT32_MIN;
-    }
-    __syncthreads();
-    if (threadIdx.x < TP) {
-      int t = threadIdx.x;
-      int lf = t < np ? pleaves[pt + t] : PAD_TILE_POINT_LEAF;
-      s.plf[t] = lf;
-      if (t < np) {
-        atomicMin(&s.ranges[2], lf);
-        atomicMax(&s.ranges[3], lf);
-      }
-    }
-    __syncthreads();
-    if (s.ranges[2] > s.ranges[1] || s.ranges[0] > s.ranges[3]) continue;
-    stage_rows_t(s.ps, points, pt, np, d, PPITCH, TP);
-    __syncthreads();
-    if (threadIdx.x < TP) s.pn[threadIdx.x] = col_sq_norm(s.ps, threadIdx.x, d, PPITCH);
-    float acc[4][4];
-    tile_dots(s.qs, s.ps, d, acc);
-    __syncthreads();
-    write_tile(s.dt, s.pn, acc, [&](int q, int p) {
-      return q < nq && p < np && s.qlf[q] == s.plf[p];
-    });
-    __syncthreads();
-    // 8 warps x 8 queries: each warp folds its queries' 64 candidates
-    for (int qq = 0; qq < TQ / 8; ++qq) {
-      int q = warp * (TQ / 8) + qq;
-      if (q >= nq) break;
-      float* rd = s.rd + q * k;
-      int* ri = s.ri + q * k;
-#pragma unroll
-      for (int half = 0; half < TP / 32; ++half) {
-        int p = half * 32 + lane;
-        float dv = s.dt[q * DPITCH + p];
-        warp_offer<DENSE_KCAP>(rd, ri, k, dv, (int)(pt + p),
-                               p < np && dv < CUDART_INF_F);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// First / one-past-last index of v in the ascending array a[0, n).
-__device__ __forceinline__ long long lower_bound_i32(const int* a, long long n,
-                                                     int v) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ long long upper_bound_i32(const int* a, long long n,
-                                                     int v) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (a[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 // One round of a warp-wide bound search on the bound's range [*lo, *hi):
@@ -401,6 +130,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Stage a chunk of 32 point rows from row0 into buf (row pitch PITCH
+// floats), columns col0 .. col0 + CK - 1, with the calling warp: rows past
+// hi and columns past d land as zeros, which add exact zeros to the fmaf
+// chains. VEC: 16-byte copies (d % 4 == 0 and 16-byte aligned rows).
+template <bool VEC, int CK, int PITCH>
+__device__ __forceinline__ void load_chunk(float* buf,
+                                           const float* __restrict__ points,
+                                           long long row0, long long hi,
+                                           int col0, int d) {
+  const int lane = threadIdx.x & 31;
+  constexpr int F4 = CK / 4;  // 16-byte pieces of a chunk row
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < F4; ++i) {
+      const int f = lane + 32 * i, r = f / F4, c = (f % F4) * 4;
+      const long long row = row0 + r;
+      const bool ok = row < hi && col0 + c < d;
+      cp_async16(buf + r * PITCH + c, ok ? points + row * d + col0 + c : points,
+                 ok);
+    }
+  } else {
+    for (int r = 0; r < 32; ++r)
+      for (int c = lane; c < CK; c += 32) {
+        const long long row = row0 + r;
+        const bool ok = row < hi && col0 + c < d;
+        cp_async4(buf + r * PITCH + c, ok ? points + row * d + col0 + c : points,
+                  ok);
+      }
+  }
+}
+
 // Sort one (d, row) pair per lane ascending by (d, row) across the warp
 // (bitonic network over shuffles).
 __device__ __forceinline__ void warp_sort32(float& d, int& r) {
@@ -421,13 +181,13 @@ __device__ __forceinline__ void warp_sort32(float& d, int& r) {
   }
 }
 
-// warp_offer's result in one step for up to 32 candidates: the candidates
-// that beat the k-th entry are sorted across the warp and merged into the
-// ascending list rd/ri of k <= KCAP entries, each entry and candidate
-// moving straight to its rank in the union (keys (distance, row) are
-// unique), truncated to k. The list equals the one warp_offer builds; the
-// critical path is a sort and two searches instead of one insertion a
-// candidate. All 32 lanes of the warp call.
+// Offer up to 32 candidates, one a lane where ok: those that beat the
+// k-th entry are sorted across the warp and merged into the ascending list
+// rd/ri of k <= KCAP entries, each entry and candidate moving straight to
+// its rank in the union (keys (distance, row) are unique), truncated to k.
+// The list equals the one that inserting the candidates one at a time
+// would build; the critical path is a sort and two searches instead of one
+// insertion a candidate. All 32 lanes of the warp call.
 template <int KCAP>
 __device__ inline void warp_merge_offer(float* rd, int* ri, int k, float dv,
                                         int row, bool ok) {
@@ -481,44 +241,74 @@ __device__ inline void warp_merge_offer(float* rd, int* ri, int k, float dv,
   __syncwarp();
 }
 
-// ---- ADC (K4, K5): a query row's LUT in shared memory; K5 gives each
-// query row one warp (the per-warp layout below), K4 one block ----
-
-// Shared-memory bytes of one warp of an ADC kernel: the query's m * C LUT,
-// then its running list of k distances and k rows.
-__host__ __device__ inline size_t adc_warp_smem_bytes(int lut_n, int k) {
-  return sizeof(float) * ((size_t)lut_n + k) + sizeof(int) * (size_t)k;
+// Offer one candidate a lane where ok, as warp_merge_offer does, through
+// the warp's buffer bd/bi of up to 32 candidates (*nb of them, the same in
+// every lane): a candidate that beats the k-th entry waits in the buffer,
+// which is merged only when it would overflow (and by warp_flush at the
+// end), so that a merge takes many candidates, not the few of one step.
+// The list and the buffer together hold what the k smallest offered need;
+// after warp_flush the list is the one warp_merge_offer builds.
+template <int KCAP>
+__device__ inline void warp_buffered_offer(float* rd, int* ri, int k,
+                                           float* bd, int* bi, int* nb,
+                                           float dv, int row, bool ok) {
+  const int lane = threadIdx.x & 31;
+  ok = ok && lex_less(dv, row, rd[k - 1], ri[k - 1]);
+  unsigned m = __ballot_sync(FULL, ok);
+  if (!m) return;
+  int n = *nb;
+  if (n + __popc(m) > 32) {
+    warp_merge_offer<KCAP>(rd, ri, k, lane < n ? bd[lane] : CUDART_INF_F,
+                           lane < n ? bi[lane] : -1, lane < n);
+    n = 0;
+    ok = ok && lex_less(dv, row, rd[k - 1], ri[k - 1]);
+    m = __ballot_sync(FULL, ok);
+  }
+  if (ok) {
+    const int at = n + __popc(m & ((1u << lane) - 1));
+    bd[at] = dv;
+    bi[at] = row;
+  }
+  __syncwarp();
+  if (lane == 0) *nb = n + __popc(m);
+  __syncwarp();
 }
 
-// Warps per block of an ADC kernel: at most THREADS / 32, as many as one
-// block's shared memory holds; 0 when not even one warp fits.
-inline int adc_warps_per_block(int lut_n, int k) {
-  const size_t per_warp = adc_warp_smem_bytes(lut_n, k);
-  const size_t fit = (size_t)(227 * 1024 - 64) / per_warp;  // H100 opt-in
-  return fit < (size_t)(THREADS / 32) ? (int)fit : THREADS / 32;
+// Merge the warp's buffered candidates into its list and empty the buffer.
+template <int KCAP>
+__device__ inline void warp_flush(float* rd, int* ri, int k, float* bd,
+                                  int* bi, int* nb) {
+  const int lane = threadIdx.x & 31;
+  const int n = *nb;
+  if (n)
+    warp_merge_offer<KCAP>(rd, ri, k, lane < n ? bd[lane] : CUDART_INF_F,
+                           lane < n ? bi[lane] : -1, lane < n);
+  __syncwarp();
+  if (lane == 0) *nb = 0;
+  __syncwarp();
 }
 
-// The calling warp's LUT and list in its block's dynamic shared memory.
-__device__ inline void adc_warp_smem(void* base, int lut_n, int k,
-                                     float** lut, float** rd, int** ri) {
-  char* p = reinterpret_cast<char*>(base) +
-            (threadIdx.x >> 5) * adc_warp_smem_bytes(lut_n, k);
-  *lut = reinterpret_cast<float*>(p);
-  *rd = *lut + lut_n;
-  *ri = reinterpret_cast<int*>(*rd + k);
+// Fold the sorted list (sd, si) of k entries into the warp's sorted list
+// rd/ri of k <= KCAP entries, 32 entries a step.
+template <int KCAP>
+__device__ inline void warp_merge_list(float* rd, int* ri, const float* sd,
+                                       const int* si, int k) {
+  const int lane = threadIdx.x & 31;
+  for (int c = 0; c < k; c += 32) {
+    const int j = c + lane;
+    const float dv = j < k ? sd[j] : CUDART_INF_F;
+    warp_merge_offer<KCAP>(rd, ri, k, dv, j < k ? si[j] : -1,
+                           dv < CUDART_INF_F);
+  }
 }
+
+// ---- ADC (K4, K5): a query row's LUT and lists in shared memory ----
 
 __device__ inline void adc_reset_list(float* rd, int* ri, int k) {
   for (int j = threadIdx.x & 31; j < k; j += 32) {
     rd[j] = CUDART_INF_F;
     ri[j] = -1;
   }
-  __syncwarp();
-}
-
-__device__ inline void adc_stage_lut(float* dst, const float* __restrict__ src,
-                                     int lut_n) {
-  for (int j = threadIdx.x & 31; j < lut_n; j += 32) dst[j] = src[j];
   __syncwarp();
 }
 
@@ -530,22 +320,6 @@ __device__ __forceinline__ float adc_dist(const float* lut,
   float acc = 0.f;
   for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, lut[j * C + code[j]]);
   return acc;
-}
-
-// One warp offers every code row p in [r0, r1) with ok(p) to its sorted
-// list of k <= ADC_KCAP, 32 rows at a time, lane i taking row base + i.
-template <typename Ok>
-__device__ inline void adc_scan_rows(float* rd, int* ri, int k,
-                                     const float* lut,
-                                     const uint8_t* __restrict__ codes, int m,
-                                     int C, long long r0, long long r1, Ok ok) {
-  const int lane = threadIdx.x & 31;
-  for (long long base = r0; base < r1; base += 32) {
-    const long long p = base + lane;
-    const bool in = p < r1 && ok(p);
-    const float dv = in ? adc_dist(lut, codes + p * m, m, C) : CUDART_INF_F;
-    warp_offer<ADC_KCAP>(rd, ri, k, dv, (int)p, in);
-  }
 }
 
 // Write a warp's list: distances, and rows through map(row) (-1 where the

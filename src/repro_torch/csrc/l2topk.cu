@@ -40,14 +40,16 @@
 // 16-byte copies, one chunk in flight), with a row pitch of 68 floats, so
 // that lane i reading row i as float4 is free of bank conflicts; lane i
 // then carries its row's ||p||^2 and q.p fmaf chains in order c = 0..d-1
-// across the chunks, one pair of chains a row, as K2's tile functions do
-// (bit for bit the same distances). Chunk memory does not grow with d, so
-// d up to 256 needs no other layout. Each warp merges a step's 32
-// candidates into its sorted (distance, row) list at once
-// (warp_merge_offer); a block's 8 lists merge in a tree, and block 0 of
+// across the chunks, one pair of chains a row, as K2 (fusedscan.cu) and
+// the wide kernel (widetopk.cu) do (bit for bit the same distances). Chunk
+// memory does not grow with d, so d up to 256 needs no other layout. Each
+// warp merges a step's 32 candidates into its sorted (distance, row) list
+// at once (warp_merge_offer); a block's 8 lists merge in a tree, and block 0 of
 // the cluster folds the other 3 blocks' lists through distributed shared
 // memory. Keys are unique, so the result is the plain version's whatever
-// the split. One launch a wave; no merge kernel, no scratch.
+// the split. One launch a wave; no merge kernel, no scratch. k <= 64 (the
+// lists' register capacity); kernels/l2topk/ops.py sends a larger k to the
+// wide kernel.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -74,36 +76,6 @@ inline size_t k1_smem_bytes(int d, int k) {
          sizeof(int) * (2 * THREADS + K1_WARPS);
 }
 
-// Stage a chunk of the warp's share of the run: 32 rows from row0,
-// columns col0 .. col0 + K1_CK - 1. Rows past hi and columns past d land
-// as zeros.
-template <bool VEC>
-__device__ __forceinline__ void k1_load_chunk(float* buf,
-                                              const float* __restrict__ points,
-                                              long long row0, long long hi,
-                                              int col0, int d) {
-  const int lane = threadIdx.x & 31;
-  constexpr int F4 = K1_CK / 4;  // 16-byte pieces of a chunk row
-  if (VEC) {
-#pragma unroll
-    for (int i = 0; i < F4; ++i) {
-      const int f = lane + 32 * i, r = f / F4, c = (f % F4) * 4;
-      const long long row = row0 + r;
-      const bool ok = row < hi && col0 + c < d;
-      cp_async16(buf + r * K1_PITCH + c,
-                 ok ? points + row * d + col0 + c : points, ok);
-    }
-  } else {
-    for (int r = 0; r < 32; ++r)
-      for (int c = lane; c < K1_CK; c += 32) {
-        const long long row = row0 + r;
-        const bool ok = row < hi && col0 + c < d;
-        cp_async4(buf + r * K1_PITCH + c,
-                  ok ? points + row * d + col0 + c : points, ok);
-      }
-  }
-}
-
 // One warp's scan of its share of the run [lo, hi) into its list rd/ri:
 // the row groups of 32 starting at lo + gw * 32, every stride rows (gw is
 // the warp's index in its cluster). Chunk c is row group c / nslice,
@@ -122,8 +94,8 @@ __device__ inline void k1_scan_run(float* ring, const float* qs,
   auto load = [&](int c) {
     const long long row0 = first + (long long)(c / nslice) * stride;
     const int col0 = (c % nslice) * K1_CK;
-    k1_load_chunk<VEC>(ring + (c % K1_NBUF) * K1_CHUNK, points, row0, hi,
-                       col0, d);
+    load_chunk<VEC, K1_CK, K1_PITCH>(ring + (c % K1_NBUF) * K1_CHUNK, points,
+                                     row0, hi, col0, d);
   };
 #pragma unroll
   for (int c = 0; c < K1_NBUF - 1; ++c) {
@@ -168,18 +140,6 @@ __device__ inline void k1_write_empty(float* od, int* oi, int k, int t,
   for (int j = t; j < k; j += stride) {
     od[j] = CUDART_INF_F;
     oi[j] = -1;
-  }
-}
-
-// Fold the sorted list (sd, si) of k entries into the warp's list rd/ri.
-__device__ inline void k1_merge_list(float* rd, int* ri, const float* sd,
-                                     const int* si, int k) {
-  const int lane = threadIdx.x & 31;
-  for (int c = 0; c < k; c += 32) {
-    const int t = c + lane;
-    const float dv = t < k ? sd[t] : CUDART_INF_F;
-    warp_merge_offer<DENSE_KCAP>(rd, ri, k, dv, t < k ? si[t] : -1,
-                                 dv < CUDART_INF_F);
   }
 }
 
@@ -256,14 +216,14 @@ l2topk_kernel(const float* __restrict__ points,
       for (int s = 1; s < K1_WARPS; s <<= 1) {
         __syncthreads();  // warp + s finished its list
         if ((warp & (2 * s - 1)) == 0 && warp + s < K1_WARPS)
-          k1_merge_list(rd, ri, lists_d + (warp + s) * k,
-                        lists_i + (warp + s) * k, k);
+          warp_merge_list<DENSE_KCAP>(rd, ri, lists_d + (warp + s) * k,
+                                      lists_i + (warp + s) * k, k);
       }
       cluster.sync();  // every block's list (its warp 0's) is final
       if (rank == 0 && warp == 0) {
         for (int r = 1; r < K1_CLUSTER; ++r)
-          k1_merge_list(rd, ri, cluster.map_shared_rank(lists_d, r),
-                        cluster.map_shared_rank(lists_i, r), k);
+          warp_merge_list<DENSE_KCAP>(rd, ri, cluster.map_shared_rank(lists_d, r),
+                                      cluster.map_shared_rank(lists_i, r), k);
         adc_emit(rd, ri, k, od, oi, [](int r) { return r; });
       }
       cluster.sync();  // rank 0 has read every list; lists and query free

@@ -38,10 +38,12 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "l2topk_launch": [_VP] * 6 + [_I] * 4 + [_VP],
     "l2topk_clusters": [_VP],
-    "fusedscan_launch": [_VP] * 7 + [_I] * 4 + [_VP],
+    "fusedscan_launch": [_VP] * 8 + [_I] * 4 + [_VP],
     "l2nn_launch": [_VP] * 4 + [_I] * 3 + [_VP],
     "adcscan_launch": [_VP] * 8 + [_I] * 6 + [_VP],
     "fusedadc_launch": [_VP] * 7 + [_I] * 5 + [_VP],
+    "l2topk_wide_launch": [_VP] * 9 + [_I] * 4 + [_VP],
+    "adctopk_wide_launch": [_VP] * 11 + [_I] * 6 + [_VP],
     "flashattn_launch": [_VP] * 4 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
     "flashattn_tc_launch": [_VP] * 4 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
 }
@@ -128,6 +130,11 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def ptr(t: torch.Tensor | None) -> int:
+    """``t``'s device address for ctypes, 0 (a null pointer) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def stream_ptr(t: torch.Tensor) -> int:

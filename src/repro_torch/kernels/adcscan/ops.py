@@ -1,5 +1,6 @@
 """Same-leaf ADC top-k tile wrapper: the plain version for a CPU tensor,
-the K4 CUDA kernel (``csrc/adcscan.cu``) for a CUDA tensor.
+the K4 CUDA kernel (``csrc/adcscan.cu``) for a CUDA tensor at ``k <= 128``,
+the wide kernel (``csrc/widetopk.cu``) past that, up to the wave's rows.
 
 The kernel takes a wave's point leaves in ascending order, as the
 leaf-sorted shard holds them, with the wave's ids: one block per lookup
@@ -21,10 +22,22 @@ from repro_torch.core.sentinels import PAD_TILE_POINT_LEAF
 from repro_torch.device import check_kernel_inputs
 from repro_torch.kernels import _build
 from repro_torch.kernels.adcscan.ref import adc_topk_ref
+from repro_torch.kernels.l2topk.ops import WIDE_SMEM_K, wide_scratch
 
-MAX_K = 128  # csrc/common.cuh ADC_KCAP: the largest rerank depth
-# one warp's LUT and list must fit a block's shared memory (csrc/common.cuh)
+MAX_K = 128  # csrc/common.cuh ADC_KCAP: the K4/K5 lists' capacity
+# the LUT and the lists must fit a block's shared memory (csrc/adcscan.cu,
+# csrc/widetopk.cu)
 MAX_SMEM = 227 * 1024 - 64
+WIDE_STATIC_SMEM = 4096  # csrc/widetopk.cu: the batch's sort arrays
+
+
+def _smem_bytes(m: int, C: int, k: int) -> int:
+    """Shared memory a block of the kernel that serves ``k`` needs: the
+    LUT and one warp's list (K4), or the LUT, the batch's arrays and the
+    two list buffers where they fit (the wide kernel)."""
+    if k <= MAX_K:
+        return 4 * (m * C + 2 * k)
+    return 4 * m * C + WIDE_STATIC_SMEM + (16 * k if k <= WIDE_SMEM_K else 0)
 
 
 def check_adc_shapes(name: str, codes, point_leaves, lut, query_leaves, k,
@@ -35,10 +48,32 @@ def check_adc_shapes(name: str, codes, point_leaves, lut, query_leaves, k,
     if (lm != m or point_leaves.shape != (P,) or query_leaves.shape != (Q,)
             or (point_ids is not None and point_ids.shape != (P,))):
         raise ValueError(f"{name}: mismatched shapes")
-    if m < 1 or C < 1 or Q < 1 or not 1 <= k <= min(MAX_K, P):
+    if m < 1 or C < 1 or Q < 1 or not 1 <= k <= P or P >= 2**31:
         raise ValueError(f"{name}: unsupported {P=} {Q=} {m=} {C=} {k=}")
-    if 4 * (m * C + 2 * k) > MAX_SMEM:
+    if _smem_bytes(m, C, k) > MAX_SMEM:
         raise ValueError(f"{name}: a {m} x {C} LUT does not fit shared memory")
+
+
+def wide_adc(codes, point_leaves, skip_ids, map_ids, lut, query_leaves, k,
+             q_start=None, q_rows=None):
+    """Launch the ADC wide kernel: (dists (Q, k), rows or ids (Q, k)).
+    Rows whose ``skip_ids`` is < 0 never match; rows leave through
+    ``map_ids`` where it is given. Output row q is LUT row
+    ``q_start + q`` (``q_rows`` of them) or q."""
+    P, m = codes.shape
+    n_lut, _, C = lut.shape
+    Q = n_lut if q_start is None else q_rows
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=codes.device)
+    scratch = wide_scratch(Q, k, codes.device) or (None, None)
+    err = _build.lib().adctopk_wide_launch(
+        codes.data_ptr(), point_leaves.data_ptr(), _build.ptr(skip_ids),
+        _build.ptr(map_ids), lut.data_ptr(), query_leaves.data_ptr(),
+        _build.ptr(q_start), out_d.data_ptr(), out_i.data_ptr(),
+        *map(_build.ptr, scratch), P, Q, n_lut, m, C, k,
+        _build.stream_ptr(codes))
+    _build.check(err, "adctopk_wide_launch")
+    return out_d, out_i
 
 
 def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
@@ -79,20 +114,25 @@ def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
         dtypes=(torch.uint8, torch.int32, torch.float32, torch.int32, torch.int32))
     check_adc_shapes("adc_topk", codes, point_leaves, lut, query_leaves, k,
                      point_ids)
-    P, m = codes.shape
-    n_lut, _, C = lut.shape
-    Q = n_lut if q_start is None else q_rows
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=codes.device)
-    err = _build.lib().adcscan_launch(
-        codes.data_ptr(), point_leaves.data_ptr(),
-        0 if point_ids is None else point_ids.data_ptr(), lut.data_ptr(),
-        query_leaves.data_ptr(), 0 if q_start is None else q_start.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), P, Q, n_lut, m, C, k,
-        _build.stream_ptr(codes))
-    _build.check(err, "adcscan_launch")
+    if k > MAX_K:
+        out = wide_adc(codes, point_leaves, point_ids, None, lut, query_leaves,
+                       k, q_start, q_rows)
+        adc_topk.wide_launches += 1
+    else:
+        P, m = codes.shape
+        n_lut, _, C = lut.shape
+        Q = n_lut if q_start is None else q_rows
+        out = (torch.empty((Q, k), dtype=torch.float32, device=codes.device),
+               torch.empty((Q, k), dtype=torch.int32, device=codes.device))
+        err = _build.lib().adcscan_launch(
+            codes.data_ptr(), point_leaves.data_ptr(), _build.ptr(point_ids),
+            lut.data_ptr(), query_leaves.data_ptr(), _build.ptr(q_start),
+            out[0].data_ptr(), out[1].data_ptr(), P, Q, n_lut, m, C, k,
+            _build.stream_ptr(codes))
+        _build.check(err, "adcscan_launch")
     adc_topk.launches += 1
-    return out_d, out_i
+    return out
 
 
-adc_topk.launches = 0
+adc_topk.launches = 0  # every launch: K4's and the wide kernel's
+adc_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)

@@ -1,6 +1,8 @@
 """Whole-shard fused scan wrappers: the plain versions for a CPU tensor,
 the CUDA kernels for a CUDA tensor -- K2 (``csrc/fusedscan.cu``) for dense
-rows, K5 (``csrc/fusedadc.cu``) for PQ code rows.
+rows at ``k <= 64``, K5 (``csrc/fusedadc.cu``: K4's kernel over the whole
+shard) for PQ code rows at ``k <= 128``, and the wide kernel
+(``csrc/widetopk.cu``) for a larger ``k``, up to the shard's rows.
 
 Unlike the per-tile kernel this returns *global descriptor ids* (mapped
 through ``point_ids``, -1 where no match or tombstoned), because the whole
@@ -13,9 +15,10 @@ import torch
 
 from repro_torch.device import check_kernel_inputs
 from repro_torch.kernels import _build
-from repro_torch.kernels.adcscan.ops import check_adc_shapes
+from repro_torch.kernels.adcscan.ops import MAX_K as ADC_MAX_K
+from repro_torch.kernels.adcscan.ops import check_adc_shapes, wide_adc
 from repro_torch.kernels.fusedscan.ref import fused_adc_topk_ref, fused_topk_ref
-from repro_torch.kernels.l2topk.ops import MAX_D, MAX_K
+from repro_torch.kernels.l2topk.ops import MAX_D, MAX_K, wide_dense
 
 
 def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
@@ -24,7 +27,7 @@ def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
     """(dists (Q,k), ids (Q,k)) whole-shard fused k-NN; see ref.py.
 
     On the card the point leaves must be sorted ascending (a cluster-sorted
-    shard): the kernel binary-searches each lookup row's leaf run. A
+    shard): the kernel searches each leaf group's run. A
     ``DistributedIndex`` is, by construction (``build_index`` sorts,
     ``index_from_numpy`` checks), so nothing is checked here: that would
     cost an O(P) pass and a host round trip on every call.
@@ -43,20 +46,29 @@ def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
     if (queries.shape[1] != d or point_leaves.shape != (P,)
             or point_ids.shape != (P,) or query_leaves.shape != (Q,)):
         raise ValueError("fused_topk: mismatched shapes")
-    if not 1 <= d <= MAX_D or not 1 <= k <= min(MAX_K, P) or Q < 1:
+    if not 1 <= d <= MAX_D or not 1 <= k <= P or Q < 1 or P >= 2**31:
         raise ValueError(f"fused_topk: unsupported {P=} {Q=} {d=} {k=}")
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=points.device)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=points.device)
-    err = _build.lib().fusedscan_launch(
-        points.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
-        queries.data_ptr(), query_leaves.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), P, Q, d, k, _build.stream_ptr(points))
-    _build.check(err, "fusedscan_launch")
+    if k > MAX_K:
+        out = wide_dense(points, point_leaves, point_ids, queries,
+                         query_leaves, k)
+        fused_topk.wide_launches += 1
+    else:
+        out = (torch.empty((Q, k), dtype=torch.float32, device=points.device),
+               torch.empty((Q, k), dtype=torch.int32, device=points.device))
+        # the long tiles' list: a counter (padded to 16 bytes), 4 ints a tile
+        scratch = torch.empty(4 + 4 * Q, dtype=torch.int32, device=points.device)
+        err = _build.lib().fusedscan_launch(
+            points.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
+            queries.data_ptr(), query_leaves.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), scratch.data_ptr(), P, Q, d, k,
+            _build.stream_ptr(points))
+        _build.check(err, "fusedscan_launch")
     fused_topk.launches += 1
-    return out_d, out_i
+    return out
 
 
-fused_topk.launches = 0
+fused_topk.launches = 0  # every launch: K2's and the wide kernel's
+fused_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
 
 
 def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
@@ -66,7 +78,7 @@ def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
 
     ``codes`` (P, m) uint8 and ``lut`` (Q, m, C) float32. Rows with id < 0
     (tombstones) never match. On the card the point leaves must be sorted
-    ascending, as for :func:`fused_topk`: the K5 kernel binary-searches
+    ascending, as for :func:`fused_topk`: the K5 kernel (K4's) searches
     each lookup row's leaf run, and skips the tombstones inside it, which
     keep their leaf so that the order holds.
     """
@@ -81,17 +93,23 @@ def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
                 torch.int32))
     check_adc_shapes("fused_adc_topk", codes, point_leaves, lut, query_leaves,
                      k, point_ids)
-    P, m = codes.shape
-    Q, _, C = lut.shape
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=codes.device)
-    err = _build.lib().fusedadc_launch(
-        codes.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
-        lut.data_ptr(), query_leaves.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), P, Q, m, C, k, _build.stream_ptr(codes))
-    _build.check(err, "fusedadc_launch")
+    if k > ADC_MAX_K:
+        out = wide_adc(codes, point_leaves, point_ids, point_ids, lut,
+                       query_leaves, k)
+        fused_adc_topk.wide_launches += 1
+    else:
+        P, m = codes.shape
+        Q, _, C = lut.shape
+        out = (torch.empty((Q, k), dtype=torch.float32, device=codes.device),
+               torch.empty((Q, k), dtype=torch.int32, device=codes.device))
+        err = _build.lib().fusedadc_launch(
+            codes.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
+            lut.data_ptr(), query_leaves.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), P, Q, m, C, k, _build.stream_ptr(codes))
+        _build.check(err, "fusedadc_launch")
     fused_adc_topk.launches += 1
-    return out_d, out_i
+    return out
 
 
-fused_adc_topk.launches = 0
+fused_adc_topk.launches = 0  # every launch: K5's and the wide kernel's
+fused_adc_topk.wide_launches = 0  # the wide kernel's (k > ADC_MAX_K)

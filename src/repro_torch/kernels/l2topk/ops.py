@@ -1,5 +1,7 @@
 """Same-leaf distance + top-k tile wrapper: the plain version for a CPU
-tensor, the K1 CUDA kernel (``csrc/l2topk.cu``) for a CUDA tensor.
+tensor, the K1 CUDA kernel (``csrc/l2topk.cu``) for a CUDA tensor at
+``k <= 64``, the wide kernel (``csrc/widetopk.cu``) past that, up to the
+wave's rows (the reference serves any ``k <= block_rows``).
 
 On the card the point leaves must be ascending, as every wave of a
 leaf-sorted ``DistributedIndex`` is (``index_from_numpy`` checks arrays
@@ -21,7 +23,35 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.l2topk.ref import l2_topk_ref
 
 MAX_D = 256
-MAX_K = 64  # csrc/common.cuh DENSE_KCAP
+MAX_K = 64  # csrc/common.cuh DENSE_KCAP: the K1/K2 lists' capacity
+WIDE_SMEM_K = 4096  # csrc/widetopk.cu W_SMEM_K: past it the lists need scratch
+
+
+def wide_scratch(rows: int, k: int, device) -> tuple:
+    """The wide kernels' (rows, k) scratch lists, or None where the lists
+    fit shared memory. Freeing them after the launch is safe: the caching
+    allocator hands their memory only to later work on the same stream."""
+    if k <= WIDE_SMEM_K:
+        return None
+    return (torch.empty((rows, k), dtype=torch.float32, device=device),
+            torch.empty((rows, k), dtype=torch.int32, device=device))
+
+
+def wide_dense(points, point_leaves, map_ids, queries, query_leaves, k):
+    """Launch the dense wide kernel: (dists (Q, k), rows or ids (Q, k)),
+    rows mapped through ``map_ids`` where it is given (K2's rule)."""
+    P, d = points.shape
+    Q = queries.shape[0]
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=points.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=points.device)
+    scratch = wide_scratch(Q, k, points.device) or (None, None)
+    err = _build.lib().l2topk_wide_launch(
+        points.data_ptr(), point_leaves.data_ptr(), _build.ptr(map_ids),
+        queries.data_ptr(), query_leaves.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), *map(_build.ptr, scratch), P, Q, d, k,
+        _build.stream_ptr(points))
+    _build.check(err, "l2topk_wide_launch")
+    return out_d, out_i
 
 
 def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
@@ -39,20 +69,25 @@ def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
     if (queries.shape[1] != d or point_leaves.shape != (P,)
             or query_leaves.shape != (Q,)):
         raise ValueError("l2_topk: mismatched shapes")
-    if not 1 <= d <= MAX_D or not 1 <= k <= min(MAX_K, P) or Q < 1:
+    if not 1 <= d <= MAX_D or not 1 <= k <= P or Q < 1:
         raise ValueError(f"l2_topk: unsupported {P=} {Q=} {d=} {k=}")
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=points.device)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=points.device)
-    err = _build.lib().l2topk_launch(
-        points.data_ptr(), point_leaves.data_ptr(), queries.data_ptr(),
-        query_leaves.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), P, Q, d,
-        k, _build.stream_ptr(points))
-    _build.check(err, "l2topk_launch")
+    if k > MAX_K:
+        out = wide_dense(points, point_leaves, None, queries, query_leaves, k)
+        l2_topk.wide_launches += 1
+    else:
+        out = (torch.empty((Q, k), dtype=torch.float32, device=points.device),
+               torch.empty((Q, k), dtype=torch.int32, device=points.device))
+        err = _build.lib().l2topk_launch(
+            points.data_ptr(), point_leaves.data_ptr(), queries.data_ptr(),
+            query_leaves.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), P,
+            Q, d, k, _build.stream_ptr(points))
+        _build.check(err, "l2topk_launch")
     l2_topk.launches += 1
-    return out_d, out_i
+    return out
 
 
-l2_topk.launches = 0
+l2_topk.launches = 0  # every launch: K1's and the wide kernel's
+l2_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
 
 
 def resident_clusters() -> int:

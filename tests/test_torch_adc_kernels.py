@@ -108,6 +108,26 @@ def test_fused_adc_plain_matches_jax_ref(P, Q, m, C, n_leaves, k, integer):
     assert (ti.numpy()[np.isfinite(td.numpy())] >= 0).all()
 
 
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("k", [129, 512])
+def test_adc_plain_versions_match_jax_refs_at_wide_k(k, integer):
+    # rerank depths past the K4/K5 lists' capacity (128), as default_rerank
+    # gives for k > 128 (ROADMAP P7)
+    codes, plf, pid, lut, qlf = _adc_case(k, 1500, 40, 8, 16, 2,
+                                          integer=integer, sort=True,
+                                          tombstone_frac=0.2)
+    jd, ji = j_adc_ref(jnp.asarray(codes), jnp.asarray(plf), jnp.asarray(lut),
+                       jnp.asarray(qlf), k)
+    _assert_equal(jd, ji, *adc_topk(*_t(codes, plf, lut, qlf), k=k))
+    masked = np.where(pid >= 0, plf, PAD_TILE_POINT_LEAF).astype(np.int32)
+    jd, ji = j_fused_adc_ref(jnp.asarray(codes), jnp.asarray(masked),
+                             jnp.asarray(pid), jnp.asarray(lut),
+                             jnp.asarray(qlf), k)
+    td, ti = fused_adc_topk(*_t(codes, plf, pid, lut, qlf), k=k)
+    _assert_equal(jd, ji, td, ti)
+    assert np.isfinite(td.numpy()[:, k - 1]).any()
+
+
 def test_adc_plain_versions_on_a_tile_with_no_same_leaf_pair():
     codes, plf, pid, lut, qlf = _adc_case(4, 64, 20, 8, 16, 3, integer=True,
                                           sort=True, disjoint=True)
@@ -205,7 +225,7 @@ _CUDA_SHAPES = [(4096, 1024, 8, 256, 40), (1000, 77, 8, 256, 3),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("k", [1, 20, 128, 129, 512])
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("P,Q,m,C,n_leaves", _CUDA_SHAPES)
 def test_cuda_adcscan_matches_plain(cuda, P, Q, m, C, n_leaves, integer, k):
@@ -223,7 +243,7 @@ def test_cuda_adcscan_matches_plain(cuda, P, Q, m, C, n_leaves, integer, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("k", [1, 20, 128, 129, 512])
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("P,Q,m,C,n_leaves", _CUDA_SHAPES)
 def test_cuda_fused_adc_matches_plain(cuda, P, Q, m, C, n_leaves, integer, k):
@@ -242,7 +262,7 @@ def test_cuda_fused_adc_matches_plain(cuda, P, Q, m, C, n_leaves, integer, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("k", [1, 20, 128, 129, 512])
 @pytest.mark.parametrize("start", [0, 1500, 1976])
 def test_cuda_adcscan_slab_matches_plain(cuda, start, k):
     # the wave sweep's call: the whole LUT table, the slab start on the card
@@ -260,7 +280,7 @@ def test_cuda_adcscan_slab_matches_plain(cuda, start, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("k", [1, 20, 128, 129, 512])
 @pytest.mark.parametrize("integer", [True, False])
 def test_cuda_adcscan_wave_with_tombstones(cuda, integer, k):
     # a sorted wave with tombstones (which keep their leaf): K4 against the
@@ -298,7 +318,10 @@ def test_cuda_adc_kernels_refuse_what_they_do_not_take(cuda):
                                           sort=True)
     args = _t(codes, plf, lut, qlf, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
-        adc_topk(*args, k=129)  # past the list capacity of 128
+        adc_topk(*args, k=257)  # past the wave's 256 rows
+    with pytest.raises(ValueError, match="unsupported"):
+        fused_adc_topk(args[0], args[1], torch.as_tensor(pid, device=cuda),
+                       args[2], args[3], k=257)
     with pytest.raises(TypeError):
         adc_topk(args[0].int(), *args[1:], k=4)  # codes are read as uint8
     big = torch.zeros((16, 64, 1024), device=cuda)  # a 256 KiB LUT
@@ -306,3 +329,25 @@ def test_cuda_adc_kernels_refuse_what_they_do_not_take(cuda):
         fused_adc_topk(torch.zeros((256, 64), dtype=torch.uint8, device=cuda),
                        args[1], torch.as_tensor(pid, device=cuda), big,
                        args[3], k=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 128, 129, 512])
+def test_cuda_fused_adc_is_k4_over_the_whole_shard(cuda, k):
+    # K5 is K4's kernel over the whole shard with the ids mapped at emit:
+    # bit for bit K4's rows through the ids, with tombstones, at every k
+    # (runs of about 3,300 rows, longer than a wave)
+    codes, plf, pid, lut, qlf = _adc_case(k, 2**16, 1000, 8, 256, 20,
+                                          integer=False, sort=True,
+                                          tombstone_frac=0.1)
+    args = _t(codes, plf, lut, qlf, device=cuda)
+    ids = torch.as_tensor(pid, device=cuda)
+    kd, ki = adc_topk(*args, k=k, point_ids=ids)
+    fd, fi = fused_adc_topk(args[0], args[1], ids, args[2], args[3], k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(fd, kd)
+    assert torch.equal(fi, torch.where(ki >= 0, ids[ki.clamp(min=0).long()], -1))
+    rd, ri = fused_adc_topk_ref(*_t(codes, plf, pid, lut, qlf, device=cuda), k=k)
+    assert torch.equal(fd, rd) and torch.equal(fi, ri)
+    assert torch.isfinite(fd[:, -1]).any() and (fi >= 0).all() == bool(
+        torch.isfinite(fd).all())

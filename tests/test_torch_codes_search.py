@@ -89,8 +89,8 @@ def trained_codes(world):
 _REF = {}
 
 
-def _reference(world, cb, codes, *, probes, q_cap, dead, tag):
-    key = (tag, probes, q_cap, dead)
+def _reference(world, cb, codes, *, probes, q_cap, dead, tag, rerank=None):
+    key = (tag, probes, q_cap, dead, rerank)
     if key not in _REF:
         ji = world["indexes"][dead]
         n_q = world["q"].shape[0]
@@ -100,14 +100,14 @@ def _reference(world, cb, codes, *, probes, q_cap, dead, tag):
                        n_shards=1, k=K, probes=probes, layout="scan_codes",
                        impl="xla", q_cap=q_cap, dim=32, code_m=cb.shape[0],
                        code_bits=int(cb.shape[1] - 1).bit_length(),
-                       model="heuristic")
+                       model="heuristic", rerank=rerank)
         res = jsearch.search_with_lookup(ji, lk, p, _mesh(), n_queries=n_q,
                                          codes=codes, codebooks=cb)
         _REF[key] = p, res
     return _REF[key]
 
 
-def _port(world, cb, codes, *, probes, q_cap, dead, impl):
+def _port(world, cb, codes, *, probes, q_cap, dead, impl, rerank=None):
     ti = _port_index(world["indexes"][dead])
     n_q = world["q"].shape[0]
     lk = tlookup.build_lookup(world["tt"], torch.as_tensor(world["q"]),
@@ -115,7 +115,7 @@ def _port(world, cb, codes, *, probes, q_cap, dead, impl):
     p = tplan.plan(rows=ti.rows, n_leaves=ti.n_leaves, n_queries=n_q,
                    n_shards=1, k=K, probes=probes, layout="scan_codes",
                    impl=impl, q_cap=q_cap, code_m=cb.shape[0],
-                   code_bits=int(cb.shape[1] - 1).bit_length())
+                   code_bits=int(cb.shape[1] - 1).bit_length(), rerank=rerank)
     res = search_with_lookup(ti, lk, p, n_queries=n_q,
                              codes=interop.codes_from_numpy(codes, "cpu"),
                              codebooks=cb)
@@ -182,6 +182,23 @@ def test_scan_codes_matches_reference_integer_codebooks(world, integer_codes,
         assert not dead_ids & set(tr.ids.numpy().ravel().tolist())
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas", "fused"])
+def test_scan_codes_matches_reference_at_rerank_256(world, integer_codes, impl):
+    # a rerank depth past the K4/K5 lists' capacity (128), as
+    # default_rerank gives for k > 128 (ROADMAP P7), with tombstones
+    cb, codes = integer_codes
+    jp, jr = _reference(world, cb, codes, probes=1, q_cap=256, dead=True,
+                        tag="int", rerank=256)
+    ti, tp, tr = _port(world, cb, codes, probes=1, q_cap=256, dead=True,
+                       impl=impl, rerank=256)
+    _assert_same_plan(jp, tp)
+    assert tp.rerank == 256 and tr.ids.shape == (world["q"].shape[0], 256)
+    _assert_same(jr, tr)
+    (wi, wd), (gi, gd) = _rerank_both(world, jr, tr, ti, True)
+    np.testing.assert_array_equal(wi, gi.numpy())
+    np.testing.assert_array_equal(wd, gd.numpy())
+
+
 @pytest.mark.parametrize("dead", [False, True])
 @pytest.mark.parametrize("probes", [1, 2])
 def test_starved_q_cap_counts_the_same_overflow(world, integer_codes, probes,
@@ -240,3 +257,33 @@ def test_scan_codes_plan_needs_codes(world):
 @pytest.mark.parametrize("k,rows", [(1, 10**6), (20, 10**6), (20, 50), (200, 10**6)])
 def test_default_rerank_matches_reference(k, rows):
     assert tplan.default_rerank(k, rows) == jplan.default_rerank(k, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rerank", [64, 256])
+def test_cuda_scan_codes_sweep_and_fused_agree(world, integer_codes, rerank):
+    # on the card the wave sweep (K4, or the wide kernel past 128) and the
+    # fused scan (K5, or the wide kernel) are bit-identical, and equal to
+    # the CPU path, with tombstones
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cb, codes = integer_codes
+    ti, p, want = _port(world, cb, codes, probes=1, q_cap=256, dead=True,
+                        impl="fused", rerank=rerank)
+    dev = torch.device("cuda")
+    tic = interop.index_from_numpy(
+        **{f: getattr(ti, f).numpy() for f in
+           ("vecs", "ids", "leaves", "offsets", "n_valid", "overflow")},
+        n_leaves=ti.n_leaves, device=dev)
+    tree_c = interop.tree_from_numpy([lvl.numpy() for lvl in world["tt"].levels],
+                                     device=dev)
+    lk = tlookup.build_lookup(tree_c, torch.as_tensor(world["q"], device=dev))
+    got = [search_with_lookup(tic, lk, dataclasses.replace(p, impl=impl),
+                              n_queries=world["q"].shape[0],
+                              codes=interop.codes_from_numpy(codes, dev),
+                              codebooks=cb)
+           for impl in ("pallas", "fused")]
+    torch.cuda.synchronize()
+    for f in ("ids", "dists", "pairs"):
+        assert torch.equal(getattr(got[0], f), getattr(got[1], f)), f
+        assert torch.equal(getattr(want, f), getattr(got[0], f).cpu()), f

@@ -150,6 +150,19 @@ def test_l2topk_plain_matches_jax_ref(P, Q, d, k, n_leaves, integer):
     _assert_table(jd, ji, td, ti, exact=integer)
 
 
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("k", [65, 128, 256])
+def test_l2topk_plain_matches_jax_ref_at_wide_k(k, integer):
+    # past the K1 kernel's list capacity (64), up to the wave's rows: the
+    # reference serves any k <= block_rows (ROADMAP P7)
+    pts, plf, qrs, qlf = _tile_case(k, 600, 50, 16, 2, integer, sort_points=True)
+    jd, ji = j_l2topk_ref(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(qrs),
+                          jnp.asarray(qlf), k)
+    td, ti = l2_topk(*_t(pts, plf, qrs, qlf), k=k)
+    _assert_table(jd, ji, td, ti, exact=integer)
+    assert np.isfinite(td.numpy()[:, k - 1]).any()
+
+
 @pytest.mark.parametrize("P,Q,d,k", [(200, 100, 16, 6), (128, 256, 8, 4)])
 def test_l2topk_plain_matches_pallas_interpret(P, Q, d, k):
     # the Pallas kernel contracts [-2q|1].[p|‖p‖²] and keeps an unordered
@@ -187,6 +200,17 @@ def test_fused_plain_matches_jax_ref(P, Q, d, k, n_leaves, integer):
     td, ti = fused_topk(*_t(pts, plf, pid, qrs, qlf), k=k)
     _assert_table(jd, ji, td, ti, exact=integer)
     assert (ti.numpy() == -1).any()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("k", [65, 128, 256])
+def test_fused_plain_matches_jax_ref_at_wide_k(k, integer):
+    pts, plf, pid, qrs, qlf = _fused_case(k + 1, 700, 60, 16, 2, integer)
+    jd, ji = j_fused_ref(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(pid),
+                         jnp.asarray(qrs), jnp.asarray(qlf), k)
+    td, ti = fused_topk(*_t(pts, plf, pid, qrs, qlf), k=k)
+    _assert_table(jd, ji, td, ti, exact=integer)
+    assert (ti.numpy() == -1).any()  # tombstones kept in the lists
 
 
 @pytest.mark.parametrize("P,Q,d,k", [(256, 128, 16, 5), (300, 90, 8, 12)])
@@ -496,3 +520,113 @@ def test_cuda_kernels_hold_the_fp32_bound(cuda, kernel):
         assert _bound_ratio(kernel, args, _PLAIN[kernel]) > 1.0
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
+
+
+# ---------------------------------------------------------------------------
+# every k the plan accepts (ROADMAP P7): past 64 the wide kernel, on the card
+# ---------------------------------------------------------------------------
+
+_WIDE_DENSE = [(4096, 128, 65, 3), (4096, 128, 128, 3), (4096, 128, 256, 3),
+               (4096, 128, 1000, 3), (300, 13, 100, 2),  # d % 4 != 0
+               (9000, 16, 5000, 1)]  # past 4096: the lists in device memory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("P,d,k,n_leaves", _WIDE_DENSE)
+def test_cuda_wide_l2topk_matches_plain(cuda, P, d, k, n_leaves, integer):
+    args = _t(*_tile_case(P + k, P, 300, d, n_leaves, integer, sort_points=True),
+              device=cuda)
+    rd, ri = l2_topk_ref(*args, k=k)
+    n0, w0 = l2_topk.launches, l2_topk.wide_launches
+    kd, ki = l2_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert (l2_topk.launches, l2_topk.wide_launches) == (n0 + 1, w0 + 1)
+    _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
+                  id_frac=1.0 if integer else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("P,d,k,n_leaves", _WIDE_DENSE)
+def test_cuda_wide_fused_matches_plain(cuda, P, d, k, n_leaves, integer):
+    # real-valued rows sum in another order than the plain version's
+    # matmul, so near-tied rows may swap places; without tombstones a swap
+    # moves no -1 (test_cuda_l2topk_and_fused_agree_at_every_k holds the
+    # real-valued tombstoned call bit for bit against the sweep kernel)
+    args = _t(*_fused_case(P + k, P, 300, d, n_leaves, integer,
+                           tombstone_frac=0.2 if integer else 0.0), device=cuda)
+    rd, ri = fused_topk_ref(*args, k=k)
+    n0, w0 = fused_topk.launches, fused_topk.wide_launches
+    kd, ki = fused_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert (fused_topk.launches, fused_topk.wide_launches) == (n0 + 1, w0 + 1)
+    _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
+                  id_frac=1.0 if integer else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("k", [20, 64, 65, 128, 256, 1000])
+def test_cuda_l2topk_and_fused_agree_at_every_k(cuda, k, integer):
+    # the fused scan's ids are the sweep kernel's rows through the ids, bit
+    # for bit (one order of fp32 operations), on the KCAP kernels and the
+    # wide ones alike, with tombstones
+    pts, plf, pid, qrs, qlf = _fused_case(k, 4096, 500, 128, 3, integer)
+    args = _t(pts, plf, qrs, qlf, device=cuda)
+    ids = torch.as_tensor(pid, device=cuda)
+    kd, ki = l2_topk(*args, k=k)
+    fd, fi = fused_topk(args[0], args[1], ids, args[2], args[3], k=k)
+    torch.cuda.synchronize()
+    mapped = torch.where(ki >= 0, ids[ki.clamp(min=0).long()], -1)
+    assert torch.equal(fi, mapped)
+    assert torch.equal(fd, torch.where(mapped >= 0, kd, torch.inf))
+
+
+def _k2_case(seed, d=128, shuffle=False):
+    """A shard and lookup that take every branch of the K2 kernel: a group
+    of 40 lookup rows (more than a 16-row group tile), runs longer than the
+    cluster split's threshold (4,096 rows; one of 4,097), a lookup leaf the
+    shard does not hold (inside its leaf range) and one past it, padded
+    lookup rows, tombstones in every run, duplicated rows (exact ties).
+    ``shuffle``: the lookup rows in random order (groups fall apart)."""
+    rng = np.random.default_rng(seed)
+    runs = {0: 6000, 2: 500, 4: 37, 5: 1, 7: 3000, 9: 4097}
+    plf = np.repeat(list(runs), list(runs.values())).astype(np.int32)
+    P = plf.size
+    pts = rng.integers(0, 256, size=(P, d)).astype(np.float32)
+    pts[6100:6150] = pts[6000:6050]
+    pid = rng.permutation(10 * P)[:P].astype(np.int32)
+    pid[(rng.random(P) < 0.1) & (plf != 5)] = -1  # leaf 5's one row lives
+    per_leaf = {0: 20, 2: 40, 3: 5, 4: 3, 5: 2, 7: 1, 9: 17, 11: 4}
+    qlf = np.repeat(list(per_leaf), list(per_leaf.values())).astype(np.int32)
+    qlf = np.concatenate([qlf, np.full(6, PAD_QUERY_LEAF, np.int32)])
+    if shuffle:
+        qlf = rng.permutation(qlf)
+    qrs = rng.integers(0, 256, size=(qlf.size, d)).astype(np.float32)
+    return pts, plf, pid, qrs, qlf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 64, 100])
+@pytest.mark.parametrize("d,shuffle", [(128, False), (128, True), (13, False)])
+def test_cuda_fused_group_tiles(cuda, d, shuffle, k):
+    args = _t(*_k2_case(k + d, d, shuffle), device=cuda)
+    rd, ri = fused_topk_ref(*args, k=k)
+    kd, ki = fused_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    qlf = args[4]
+    none = (qlf == 3) | (qlf == 11) | (qlf == PAD_QUERY_LEAF)
+    assert torch.isinf(kd[none]).all() and (ki[none] == -1).all()
+    # a kept tombstone is emitted as -1 / inf, wherever it ranks
+    assert (ki[~none] >= 0).any(1).float().mean() > 0.9
+
+
+@pytest.mark.cuda
+def test_cuda_fused_refuses_k_past_the_shard(cuda):
+    args = _t(*_fused_case(4, 100, 20, 8, 4, True), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        fused_topk(*args, k=101)
+    with pytest.raises(ValueError, match="unsupported"):
+        l2_topk(args[0], args[1], args[3], args[4], k=101)

@@ -58,12 +58,12 @@ def world():
 _REF = {}
 
 
-def _reference(world, probes, q_cap, block_rows=None):
-    key = (probes, q_cap, block_rows)
+def _reference(world, probes, q_cap, block_rows=None, k=K):
+    key = (probes, q_cap, block_rows, k)
     if key not in _REF:
         _, q, jt, ji, _, _ = world
         _REF[key] = jsearch.batch_search(
-            ji, jt, jnp.asarray(q), k=K, mesh=_mesh(), probes=probes,
+            ji, jt, jnp.asarray(q), k=k, mesh=_mesh(), probes=probes,
             q_cap=q_cap, block_rows=block_rows, impl="xla")
     return _REF[key]
 
@@ -96,6 +96,19 @@ def test_batch_search_matches_reference(world, probes, impl):
     tr = batch_search(ti, tt, q, K, probes=probes, q_cap=256, impl=impl,
                       device="cpu")
     assert int(tr.q_cap_overflow) == 0
+    _assert_same(jr, tr)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "fused"])
+@pytest.mark.parametrize("probes", [1, 2])
+def test_batch_search_matches_reference_at_wide_k(world, probes, impl):
+    # k = 100, past the dense kernels' list capacity (64): the reference
+    # serves any k <= block_rows (ROADMAP P7)
+    _, q, _, _, tt, ti = world
+    jr = _reference(world, probes, 256, k=100)
+    tr = batch_search(ti, tt, q, 100, probes=probes, q_cap=256, impl=impl,
+                      device="cpu")
+    assert tr.ids.shape == (q.shape[0], 100)
     _assert_same(jr, tr)
 
 
@@ -278,6 +291,26 @@ def test_cuda_search_matches_cpu(world, cuda, probes, impl):
         assert torch.equal(getattr(ref, f), getattr(got, f).cpu()), f
     launched = (l2_topk.launches - before[0], fused_topk.launches - before[1])
     assert launched[0 if impl == "pallas" else 1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [65, 128, 256, 1000])
+@pytest.mark.parametrize("probes", [1, 2])
+def test_cuda_sweep_and_fused_agree_at_wide_k(world, cuda, probes, k):
+    # every k the plan accepts runs on the card (the wide kernels past 64),
+    # the wave sweep and the fused scan bit-identical and equal to the CPU
+    x, q, _, _, tt, _ = world
+    ref = batch_search(build_index(x, tt, device="cpu"), tt, q, k,
+                       probes=probes, q_cap=256, impl="fused", device="cpu")
+    tree_c = interop.tree_from_numpy([lvl.numpy() for lvl in tt.levels],
+                                     device=cuda)
+    index_c = build_index(x, tree_c, device=cuda)
+    a, b = (batch_search(index_c, tree_c, q, k, probes=probes, q_cap=256,
+                         impl=impl, device=cuda) for impl in ("pallas", "fused"))
+    torch.cuda.synchronize()
+    for f in ("ids", "dists", "pairs"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(getattr(ref, f), getattr(a, f).cpu()), f
 
 
 def test_make_executor_rejects_several_shards():
