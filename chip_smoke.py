@@ -63,7 +63,42 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      without products, so both are held bit for bit on real values. Prints the
      kernel's, the plain version's and one PyTorch yardstick's time, and
      the roofline bound of the same work;
-  5. LM serving path, after the search phases' tensors are dropped: gemma3-4b
+  5. index lifecycle (``Index``), after the P7 phase: a disk probe (1 GiB
+     through ``np.save`` + fsync, ``np.load``, crc32) sets how many rows
+     the phase takes (the main path's 2^24, halved while the script's
+     projected time passes 15 minutes, never below 2^22) and a free-space
+     check (2.5 x the segments' bytes) guards the directory, which lies in
+     this checkout's git-ignored ``build/`` and is removed at the end.
+     ``Index.create`` (bf16 wire, as the main path) then 4 ``append``s of
+     2^22 of the main path's rows in id order (each segment 2^23 index
+     rows, about 4.06 GiB of float32 vectors, ids and leaves), ``commit``;
+     the handle is dropped and the main path's index freed. Checks: (1)
+     ``Index.open`` on the card (every file crc-checked), point-major at
+     ``impl="pallas"`` and ``"fused"`` bit-identical to the main path's
+     one-shot results at probes 1, and at probes 2 the distances
+     bit-identical with ids differing only inside exact distance ties
+     (counted); (2) ``layout="query_routed"`` (K1 on query tiles, each
+     tile's point slab read in place from its device-side start)
+     bit-identical to (1), overflow 0, traced; (3) the default
+     ``idx.search(q, k=20)`` (layout and model "auto") equal to the plan
+     it picks, run explicitly; (4) ``delete`` of 1 % of the ids (from
+     ``--seed``, rounded up to a 2048-id grid so that the compacted rows
+     stay on the wave grid), ``commit``, reopen: both dense impls return
+     no deleted id and equal a one-shot ``build_index`` + ``batch_search``
+     of the live rows; K1 and K2 on 64 waves holding dead rows and K2 on
+     a segment's call held against their plain versions bit for bit after
+     the scan's id mapping; (5) ``compact()`` leaves one segment whose ids,
+     leaves, offsets and vectors equal that rebuild's, search results
+     unchanged, and ``gc`` leaves only its files; (6) ``enable_codes()``
+     (m 8, bits 8): ``scan_codes`` candidates bit-identical between
+     fusedadc and adcscan, and the reranked distances the exact distances
+     of their ids read through ``read_rows`` on the card. Every kernel of
+     the path (l2topk, fusedscan, l2nn, adcscan, fusedadc) must have been
+     launched. Prints each step's wall time, the bytes on disk, the write
+     and read rates, peak device memory, and K1's query-tile row (64 real
+     tiles against the plain version on the slab's copy, timed with it, a
+     library top-k and the bound of the tiles' same-leaf pairs);
+  6. LM serving path, after the search phases' tensors are dropped: gemma3-4b
      at full width and depth (34 layers, bf16 weights drawn on the card from
      ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
      with ``attn_impl="chunked"`` (flashattn in every layer), then 32 greedy
@@ -102,9 +137,11 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -129,9 +166,25 @@ N_REAL_WAVES = 8  # l2topk waves of the real-valued check
 F_G, F_LONG = 8, 4096
 # the P7 phase: a k and a rerank depth past the KCAP kernels' lists (64, 128)
 P7_K, P7_RERANK = 100, 256
+# the lifecycle phase: the index grown on disk in LC_APPENDS appends of the
+# main path's rows (halved while the projected time runs past the budget,
+# never below LC_MIN_ROWS in all), in a directory of this checkout's
+# git-ignored build/, which the phase removes
+LC_APPENDS = 4
+LC_MIN_ROWS = 2**22
+LC_DIR = Path(__file__).resolve().parent / "build" / "lifecycle_index"
+LC_FREE_FACTOR = 2.5  # free disk needed, over the segments' bytes
+LC_PROBE_BYTES = 2**30  # the disk probe's array
+LC_SCRIPT_BUDGET_S = 15 * 60  # the script's projected wall past which to cut
+LC_COMPUTE_S = 150.0  # the phase's time off the disk, at full size
+LM_PHASE_S = 120.0  # the script's time after the phase
+N_DEAD_WAVES = 64  # K1 waves held on dense tombstones
+N_TILES = 64  # K1 query tiles held and timed
+LC_KERNELS = ("l2topk", "fusedscan", "l2nn", "adcscan", "fusedadc")
 SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
              fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
-             k1_waves=K1_WAVES, n_sample=N_SAMPLE)
+             k1_waves=K1_WAVES, n_sample=N_SAMPLE, lc_appends=LC_APPENDS,
+             n_leaves=FANOUTS[0] * FANOUTS[1])
 # PQ codes at the JAX package's defaults (Index.enable_codes)
 PQ = dict(m=8, bits=8, sample=65_536, iters=16, seed=0)
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -1196,6 +1249,528 @@ def p7_phase(rt, run, sizes, seed, kernels):
         f"wave, fusedadc wide {kern[0]} ms")
 
 
+def lc_segment_bytes(sizes, append_rows):
+    """Bytes on disk of the phase's segments: each append of ``append_rows``
+    rows is an index of twice as many rows (the routing padding), float32
+    vectors plus int32 ids and leaves, and its CSR offsets."""
+    rows = 2 * append_rows
+    per = rows * (DIM * 4 + 8) + (sizes["n_leaves"] + 1) * 4
+    return sizes["lc_appends"] * per
+
+
+def disk_probe(directory: Path, nbytes: int) -> dict:
+    """One ``nbytes`` array through ``np.save`` + fsync, ``np.load`` and
+    crc32 in the phase's directory: (write, read, crc32) bytes/s."""
+    a = np.random.default_rng(0).integers(0, 2**31 - 1, size=nbytes // 4,
+                                          dtype=np.int32)
+    p = directory / "probe.npy"
+    t0 = time.perf_counter()
+    np.save(p, a)
+    fd = os.open(p, os.O_RDONLY)
+    os.fsync(fd)
+    os.close(fd)
+    t1 = time.perf_counter()
+    b = np.load(p)
+    t2 = time.perf_counter()
+    zlib.crc32(b.view(np.uint8))
+    t3 = time.perf_counter()
+    p.unlink()
+    return dict(write=nbytes / (t1 - t0), read=nbytes / (t2 - t1),
+                crc32=nbytes / (t3 - t2))
+
+
+def lc_plan_rows(sizes, directory, t_start):
+    """The rows each append takes: the sift100m index split in
+    ``lc_appends``, halved (not below ``LC_MIN_ROWS`` in all) while the
+    phase's projected time -- its disk traffic at the probe's rates plus
+    its compute -- would take the script past ``LC_SCRIPT_BUDGET_S``.
+    Returns (rows an append, probe rates, projected s, cut note)."""
+    rates = disk_probe(directory, LC_PROBE_BYTES)
+    rows = sizes["index_rows"] // sizes["lc_appends"]
+    cut = None
+
+    def projected(r):
+        seg = lc_segment_bytes(sizes, r)
+        # two full writes (appends, compaction), two full reads (open,
+        # reopen) and a crc32 of each, plus compute and the LM phase
+        io = 2 * seg / rates["write"] + 2 * seg / rates["read"] + 4 * seg / rates["crc32"]
+        return io + LC_COMPUTE_S * r / (sizes["index_rows"] // sizes["lc_appends"])
+
+    elapsed = time.perf_counter() - t_start
+    while (elapsed + projected(rows) + LM_PHASE_S > LC_SCRIPT_BUDGET_S
+           and rows * sizes["lc_appends"] // 2 >= LC_MIN_ROWS):
+        cut = (f"halved to {rows // 2} rows an append: {elapsed:.0f} s elapsed + "
+               f"{projected(rows):.0f} s projected at write "
+               f"{rates['write'] / 2**30:.2f} GiB/s, read "
+               f"{rates['read'] / 2**30:.2f} GiB/s, crc32 "
+               f"{rates['crc32'] / 2**30:.2f} GiB/s")
+        rows //= 2
+    return rows, rates, projected(rows), cut
+
+
+def dir_bytes(directory) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(directory) for f in fs)
+
+
+def span_s(tracer, name) -> float:
+    return sum(s.dur_ms for s in tracer.spans if s.name == name) / 1e3
+
+
+def tie_only_differences(a, b, k):
+    """Raise unless (ids, dists) tables ``a`` and ``b`` have bit-identical
+    distances and differ in ids only inside exact distance ties: sorted
+    by (distance, id) within each row, the ids agree wherever the distance
+    is below the row's k-th (whose tie group the top-k may cut). Returns
+    how many ids differ in place."""
+    if not torch.equal(a.dists, b.dists):
+        raise AssertionError("distances differ")
+    ia, ib, d = a.ids.cpu().numpy(), b.ids.cpu().numpy(), a.dists.cpu().numpy()
+    oa = np.lexsort((ia, d), axis=1)
+    ob = np.lexsort((ib, d), axis=1)
+    sa, sb = np.take_along_axis(ia, oa, 1), np.take_along_axis(ib, ob, 1)
+    ds = np.take_along_axis(d, oa, 1)
+    inner = ds < d[:, k - 1:k]
+    if not np.array_equal(sa[inner], sb[inner]):
+        raise AssertionError("ids differ outside exact distance ties")
+    return int((ia != ib).sum())
+
+
+def same_result(a, b, what):
+    if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)):
+        raise AssertionError(f"{what}: ids or distances differ")
+
+
+def lc_search(idx, run, sizes, **kw):
+    """One timed ``Index.search`` of the main path's queries."""
+    t0 = sync_now()
+    res = idx.search(run["queries"], k=sizes["k"], **kw)
+    return res, sync_now() - t0
+
+
+def dead_row_checks(rt, idx, run, sizes, seed):
+    """K1 and K2 on a segment with dense tombstones (rows whose vector is
+    ``TOMBSTONE_VEC`` and whose id is -1, keeping their leaf): both on 64
+    waves holding dead rows, each against its query slab, and K2 on the
+    segment's whole-shard call (held on sampled lookup rows), against
+    their plain versions bit for bit after the scan's id mapping (a dead or
+    absent row reads -1 / inf; the dead rows' own distances, about 1e32,
+    are no part of any result). Returns the numbers for the kernels line."""
+    seg, view = idx.segments[0], idx.segment_views()[0]
+    B, qc, k = sizes["block_rows"], sizes["q_cap"], sizes["k"]
+    dead = (view.ids < 0) & (seg.index.ids >= 0)
+    per_wave = dead[: view.rows // B * B].reshape(-1, B).sum(1)
+    with_dead = torch.nonzero(per_wave > 0)[:, 0]
+    if with_dead.numel() < N_DEAD_WAVES:
+        raise AssertionError(f"only {with_dead.numel()} waves hold dead rows")
+    mid = with_dead.numel() // 2
+    picks = with_dead[mid:mid + N_DEAD_WAVES].tolist()
+    lk = rt.build_lookup(run["tree"], run["queries"], probes=1)
+
+    def mapped(out, pid):
+        d, r = out
+        i = torch.where(r >= 0, pid[r.clamp(min=0).long()], -1)
+        return torch.where(i >= 0, d, torch.inf), i
+
+    err, err_k2, short = 0.0, 0.0, 0
+    for w in picks:
+        s = w * B
+        pv, plf, pid = view.vecs[s:s + B], view.leaves[s:s + B], view.ids[s:s + B]
+        start = int(lk.offsets[int(plf[0])].clamp(0, lk.n_queries - qc))
+        qv, qlf = lk.vecs[start:start + qc], lk.leaves[start:start + qc]
+        kern = mapped(rt.l2_topk(pv, plf, qv, qlf, k=k), pid)
+        plain = mapped(rt.l2_topk_ref(pv, plf, qv, qlf, k), pid)
+        err = max(err, bitwise(kern, plain, "l2topk on dead rows"))
+        err_k2 = max(err_k2, bitwise(rt.fused_topk(pv, plf, pid, qv, qlf, k=k),
+                                     plain, "fusedscan on a wave's dead rows"))
+        # matched lookup rows with dead rows and fewer than k live rows of
+        # their leaf in the wave: their tails are the -1 / inf slots
+        live = torch.bincount(plf[pid >= 0].clamp(0, view.n_leaves - 1).long(),
+                              minlength=view.n_leaves)
+        dl = torch.bincount(plf[dead[s:s + B]].long(), minlength=view.n_leaves)
+        ql = qlf.clamp(0, view.n_leaves - 1).long()
+        short += int(((qlf >= 0) & (dl[ql] > 0) & (live[ql] < k)).sum())
+    flk, _ = fused_inputs(rt, dict(index=view, queries=run["queries"]), sizes, lk)
+    kd, ki = rt.fused_topk(view.vecs, view.leaves, view.ids, flk.vecs,
+                           flk.leaves, k=k)
+    pick = sample_rows(flk, sizes["n_sample"], seed + 7)
+    want = rt.map_ids(*chunked_plain(rt, view.vecs, view.leaves, flk.vecs[pick],
+                                     flk.leaves[pick], k), view.ids)
+    err2 = bitwise((kd[pick], ki[pick]), want, "fusedscan on dead rows")
+    tail = int((~torch.isfinite(kd[pick])).sum())
+    log(f"dead rows: l2topk and fusedscan on {len(picks)} waves with "
+        f"{int(per_wave[picks].sum())} dead rows, {short} matched lookup rows with "
+        f"fewer than {k} live rows of their leaf, bit-identical (max_abs_err "
+        f"{err}, {err_k2}); fusedscan on the "
+        f"segment's call ({int(dead.sum())} dead rows), {pick.numel()} sampled rows "
+        f"bit-identical with {tail} -1 / inf tail slots (max_abs_err {err2})")
+    return dict(dead_row_waves=len(picks), dead_row_short_rows=short,
+                dead_row_max_abs_err=err), dict(
+                    dead_row_waves=len(picks), dead_row_wave_max_abs_err=err_k2,
+                    dead_row_rows=int(dead.sum()), dead_row_sample=pick.numel(),
+                    dead_row_tail_slots=tail, dead_row_max_abs_err=err2)
+
+
+def query_tile_entry(rt, idx, queries, launches, sizes):
+    """K1 at the query-routed executor's shape: ``N_TILES`` real query
+    tiles of the first segment (``q_tile`` routed lookup rows against the
+    ``p_cap``-row point slab at the tile's first leaf, read in place
+    through the slab's device-side start) against the plain version on the
+    slab's copy, bit for bit; timed with the plain version and a library
+    top-k on the same tiles; the bound counts what the tiles' same-leaf
+    pairs need. Returns the kernels line's row."""
+    seg = idx.segments[0].index
+    n, k, d = queries.shape[0], sizes["k"], DIM
+    p = rt.make_plan(rows=seg.rows, n_leaves=seg.n_leaves, n_queries=n,
+                     n_shards=1, k=k, layout="query_routed")
+    lk = rt.build_lookup(idx.tree, queries, probes=1)
+    q_total = rt.lookup_q_total(p, n)
+    lk = rt.pad_lookup(lk, q_total)
+    cap = rt.routed_capacity(p, q_total)
+    routed = rt.route.route_by_leaf(lk.vecs, lk.qids, lk.leaves, n_shards=1,
+                                    leaves_per_shard=seg.n_leaves, capacity=cap,
+                                    wire_dtype=p.wire_dtype)
+    qv, _, ql, _, n_valid = rt.route.cluster_sort(routed, leaf_base=0,
+                                                  leaves_per_shard=seg.n_leaves)
+    starts = rt.leaf_slab(seg.offsets[0], ql[::p.q_tile], n_entries=seg.n_leaves,
+                          total_rows=seg.rows, cap=p.p_cap).start
+    n_real = -(-int(n_valid) // p.q_tile)
+    tiles = np.linspace(0, n_real - 1, N_TILES).astype(int)
+    args, copies = [], []
+    for w in tiles:
+        sl = slice(w * p.q_tile, (w + 1) * p.q_tile)
+        s = int(starts[w])
+        args.append((seg.vecs, seg.leaves, qv[sl], ql[sl], starts[w:w + 1]))
+        copies.append((seg.vecs[s:s + p.p_cap], seg.leaves[s:s + p.p_cap],
+                       qv[sl], ql[sl]))
+
+    def kern(pv, pl, q, qlf, start):
+        return rt.l2_topk(pv, pl, q, qlf, k=k, p_start=start, p_rows=p.p_cap)
+
+    err = max(bitwise(kern(*a), rt.l2_topk_ref(*c, k), "l2topk query tile")
+              for a, c in zip(args, copies))
+    t = time_ms(kern, args)
+    plain = time_ms(lambda *c: rt.l2_topk_ref(*c, k), copies)
+
+    def lib_topk(pv, plf, q, qlf):
+        d2 = torch.where(qlf[:, None] == plf[None, :],
+                         torch.addmm((pv * pv).sum(1)[None, :], q, pv.T, alpha=-2.0),
+                         torch.inf)
+        return torch.topk(d2, k, dim=1, largest=False)
+
+    lib = time_ms(lib_topk, copies)
+    need = sum(int(torch.isin(c[1], c[3]).sum()) for c in copies)
+    matched = sum(int(torch.isin(c[3], c[1]).sum()) for c in copies)
+    pairs = sum(int(rt.count_pairs(c[1], c[3])) for c in copies)
+    qt = p.q_tile
+    bnd = bound(((need + matched) * d * 4 + need * 4 + N_TILES * qt * (4 + k * 8))
+                / N_TILES, (pairs + need) * 2 * d / N_TILES)
+    row = dict(name="l2topk.query_tile", route="cuda",
+               source="src/repro_torch/csrc/l2topk.cu",
+               replaces="src/repro/kernels/l2topk/kernel.py:105",
+               launches=launches, max_abs_err=err, ms=t[0], plain_ms=plain[0],
+               bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib[0], wall_ms=t[1],
+               q_tile=qt, p_cap=p.p_cap, tiles_timed=N_TILES, real_tiles=n_real,
+               routed_tiles=cap // qt, pairs_per_tile=pairs / N_TILES,
+               points_needed_per_tile=need / N_TILES)
+    log(f"l2topk query tile: {t[0]} ms a tile back to back ({t[1]} ms wall), "
+        f"{N_TILES} of {n_real} real tiles (of {cap // qt} routed), q_tile {qt}, "
+        f"p_cap {p.p_cap}, slab read in place; plain (slab copy) {plain[0]} ms; "
+        f"library {lib[0]} ms; bound {bnd[0]} ms by {bnd[1]}; launches {launches}; "
+        f"bit-identical to the copying form (max_abs_err {err})")
+    return row
+
+
+def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
+    """The segment lifecycle on the card (``Index``): grow an index on disk
+    from the main path's rows, commit, open, search it four ways, delete,
+    compact, enable codes; each step checked as the docstring's phase 5
+    says. Frees the main path's index once the rows are appended. Adds the
+    K1 query-tile row and the dead-row checks to ``kernels``."""
+    dev, k = run["queries"].device, sizes["k"]
+    queries, tree = run["queries"], run["tree"]
+    n = queries.shape[0]
+    rows_kw = dict(q_cap=sizes["q_cap"], block_rows=sizes["block_rows"])
+    directory = LC_DIR
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    tracer = rt.obs.Tracer()
+    prev_tracer = rt.obs.set_tracer(tracer)
+    torch.cuda.reset_peak_memory_stats()
+    times, rows_of = {}, {r["name"]: r for r in kernels}
+    path = dict.fromkeys(LC_KERNELS, 0)  # launches of the lifecycle path
+
+    def take():
+        """Add the launches since the last reset to the path's count."""
+        for name in path:
+            path[name] += rt.counts()[name]
+        rt.reset_counts()
+
+    rt.reset_counts()
+    try:
+        append_rows, rates, projected, cut = lc_plan_rows(sizes, directory, t_start)
+        total = append_rows * sizes["lc_appends"]
+        need = LC_FREE_FACTOR * lc_segment_bytes(sizes, append_rows)
+        free = shutil.disk_usage(directory).free
+        log(f"lifecycle: disk probe {json.dumps(rates)} B/s; {sizes['lc_appends']} "
+            f"appends of {append_rows} rows ({total} in all"
+            f"{'; ' + cut if cut else ', no cut'}), projected {projected:.0f} s; "
+            f"{free / 2**30:.1f} GiB free, {need / 2**30:.1f} GiB needed")
+        if free < need:
+            raise AssertionError(f"lifecycle: {free / 2**30:.1f} GiB free on the "
+                                 f"disk, {need / 2**30:.1f} GiB needed")
+
+        # --- grow: create, then the main path's rows in id order ---
+        index = run["index"]
+        valid = index.ids >= 0
+        row_of = torch.empty(sizes["index_rows"], dtype=torch.int64, device=dev)
+        row_of[index.ids[valid].long()] = torch.nonzero(valid)[:, 0]
+        idx = rt.Index.create(tree, str(directory), device=dev,
+                              wire_dtype=torch.bfloat16)
+        for c in range(sizes["lc_appends"]):
+            lo, hi = c * append_rows, (c + 1) * append_rows
+            chunk = index.vecs[row_of[lo:hi]]
+            t0 = sync_now()
+            idx.append(chunk, ids=np.arange(lo, hi))
+            times[f"append_{c}"] = sync_now() - t0
+            del chunk
+        del row_of, valid, index
+        t0 = sync_now()
+        version = idx.commit()
+        times["commit"] = sync_now() - t0
+        written = dir_bytes(directory)
+        save_s = span_s(tracer, "index.save")
+        # the main path's index is no longer needed: free it (the codes
+        # phase's row reader holds it too)
+        run.pop("index")
+        run["codes"].pop("reader", None)
+        run["codes"].pop("codes", None)
+        del idx
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- 1. open, and search point-major at both impls ---
+        t0 = sync_now()
+        idx = rt.Index.open(str(directory), device=dev)
+        times["open"] = sync_now() - t0
+        load_s = span_s(tracer, "index.load")
+        if idx.version != version or idx.rows != total:
+            raise AssertionError(f"open: version {idx.version}, rows {idx.rows}")
+        if total == sizes["index_rows"]:
+            ref = run["results"]
+        else:  # a cut: the one-shot reference over the appended rows
+            ref = lc_oneshot(rt, idx, run, sizes, np.arange(total))
+        res = {}
+        for name, impl, probes in (("pallas", "pallas", 1), ("fused", "fused", 1),
+                                   ("fused_p2", "fused", 2)):
+            res[name], times[f"search_{name}"] = lc_search(
+                idx, run, sizes, layout="point_major", impl=impl, probes=probes,
+                **rows_kw)
+            if int(res[name].q_cap_overflow) != 0:
+                raise AssertionError(f"segmented {name}: q_cap overflow")
+        same_result(res["pallas"], ref["pallas"], "segmented pallas vs one-shot")
+        same_result(res["fused"], ref["pallas"], "segmented fused vs one-shot")
+        ties = tie_only_differences(res["fused_p2"], ref["fused_p2"], k)
+        log(f"lifecycle 1: {sizes['lc_appends']} segments opened on the card (every "
+            f"file crc-checked); point-major pallas and fused at probes 1 "
+            f"bit-identical to the one-shot index; at probes 2 the distances "
+            f"bit-identical, {ties} ids differ, each inside an exact distance tie")
+
+        # --- 2. query-routed on the opened index ---
+        take()
+        qr, times["search_query_routed"] = lc_search(
+            idx, run, sizes, layout="query_routed", impl="xla", probes=1)
+        qr_launches = rt.counts()["l2topk"]
+        if int(qr.q_cap_overflow) != 0:
+            raise AssertionError("query-routed: overflow")
+        if dev.type == "cuda" and qr_launches <= 0:
+            raise AssertionError("query-routed: l2topk was not launched")
+        same_result(qr, res["pallas"], "query-routed vs point-major")
+        ev, busy = device_trace(lambda: idx.search(queries, k=k,
+                                                   layout="query_routed"))
+        log_trace("query_routed", ev, busy, times["search_query_routed"], 5)
+        times["query_routed_busy"] = busy
+        log(f"lifecycle 2: query-routed bit-identical to point-major, overflow 0, "
+            f"l2topk launched {qr_launches} times (one a real query tile, each "
+            f"tile's point slab read in place)")
+        take()
+        kernels.append(query_tile_entry(rt, idx, queries, qr_launches, sizes))
+        rt.reset_counts()  # the held and timed launches are not the path's
+
+        # --- 3. the default call: layout "auto", the heuristic model ---
+        plans = [rt.make_plan(rows=s.rows, n_leaves=idx.n_leaves, n_queries=n,
+                              n_shards=1, k=k, layout="auto",
+                              calibration=idx.calibration)
+                 for s in idx.segments]
+        if len(set(plans)) != 1:
+            raise AssertionError(f"segments of one size got plans {plans}")
+        p = plans[0]
+        auto, times["search_auto"] = lc_search(idx, run, sizes)
+        explicit, _ = lc_search(idx, run, sizes, layout=p.layout, impl=p.impl,
+                                block_rows=p.block_rows, q_cap=p.q_cap,
+                                q_tile=p.q_tile, p_cap=p.p_cap)
+        same_result(auto, explicit, "search(layout='auto') vs its plan")
+        log(f"lifecycle 3: idx.search(q, k={k}) planned every segment as "
+            f"{p.layout}/{p.impl} block_rows {p.block_rows} q_cap {p.q_cap} "
+            f"q_tile {p.q_tile} p_cap {p.p_cap} (heuristic: no calibration of "
+            f"this backend), equal to that plan run explicitly; overflow "
+            f"{int(auto.q_cap_overflow)}")
+        del auto, explicit, qr
+
+        # --- 4. delete, commit, reopen; a one-shot rebuild of the live rows
+        # is the reference ---
+        n_dead = -(-total // 100 // 2048) * 2048  # 1 %, on a 2048-id grid
+        dead = np.sort(np.random.default_rng(seed + 17).choice(
+            total, n_dead, replace=False))
+        t0 = sync_now()
+        if idx.delete(dead) != n_dead:
+            raise AssertionError("delete: not every id was tombstoned")
+        idx.commit()
+        times["delete_commit"] = sync_now() - t0
+        del idx
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = sync_now()
+        idx = rt.Index.open(str(directory), device=dev)
+        times["reopen"] = sync_now() - t0
+        live = np.setdiff1d(np.arange(total), dead)
+        rebuilt, rref = lc_oneshot(rt, idx, run, sizes, live, keep=True)
+        dead_t = torch.as_tensor(dead, device=dev)
+        dres = {}
+        for impl in ("pallas", "fused"):
+            dres[impl], times[f"search_deleted_{impl}"] = lc_search(
+                idx, run, sizes, layout="point_major", impl=impl, **rows_kw)
+            if bool(torch.isin(dres[impl].ids, dead_t).any()):
+                raise AssertionError(f"delete: a deleted id came back ({impl})")
+            same_result(dres[impl], rref, f"delete {impl} vs rebuild")
+        take()
+        k1_dead, k2_dead = dead_row_checks(rt, idx, run, sizes, seed)
+        rt.reset_counts()
+        rows_of["l2topk"].update(k1_dead)
+        rows_of["fusedscan"].update(k2_dead)
+        log(f"lifecycle 4: {n_dead} ids deleted (1 % of {total}, rounded up to a "
+            f"2048-id grid so that the compacted rows stay on the wave grid); "
+            f"both dense impls return no deleted id and equal a one-shot "
+            f"build_index + batch_search of the {live.size} live rows")
+
+        # --- 5. compact: the arrays of that rebuild; gc ---
+        ref_small = {f: getattr(rebuilt, f) for f in ("ids", "leaves", "offsets")}
+        ref_vecs = rebuilt.vecs.cpu()  # on the host while the compaction builds
+        del rebuilt
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = sync_now()
+        merged = idx.compact()
+        times["compact"] = sync_now() - t0
+        seg = idx.segments[0].index
+        if idx.n_segments != 1 or seg.rows != ref_vecs.shape[0]:
+            raise AssertionError(f"compact: {idx.n_segments} segments")
+        for f, t in ref_small.items():
+            if not torch.equal(getattr(seg, f), t):
+                raise AssertionError(f"compact: {f} differ from the rebuild's")
+        for s in range(0, seg.rows, 2**22):
+            if not torch.equal(seg.vecs[s:s + 2**22].cpu(), ref_vecs[s:s + 2**22]):
+                raise AssertionError("compact: vecs differ from the rebuild's")
+        del ref_vecs, ref_small
+        after, times["search_compacted"] = lc_search(
+            idx, run, sizes, layout="point_major", impl="fused", **rows_kw)
+        same_result(after, dres["fused"], "compacted vs before compaction")
+        report = idx.gc()
+        seg_dir = directory / "segments"
+        left = sorted(os.listdir(seg_dir))
+        if left != [merged] or len(rt.manifest_versions(str(directory))) != 1:
+            raise AssertionError(f"gc left segments {left}")
+        log(f"lifecycle 5: compact() left one segment ({merged}, {seg.rows} rows) "
+            f"whose ids, leaves, offsets and vecs equal the rebuild's; results "
+            f"unchanged; gc removed {json.dumps({k_: len(v) for k_, v in report.items()})}")
+        del dres, after
+
+        # --- 6. codes: K5 and K4 give the same candidates; the reranked
+        # distances are the exact distances of their ids ---
+        t0 = sync_now()
+        pq = idx.enable_codes()
+        times["enable_codes"] = sync_now() - t0
+        t0 = sync_now()
+        idx.commit()
+        times["codes_commit"] = sync_now() - t0
+        view = idx.segment_views()[0]
+        lookup = rt.build_lookup(tree, queries, probes=1)
+        cand = {}
+        for impl in ("fused", "pallas"):
+            cp = rt.make_plan(rows=view.rows, n_leaves=idx.n_leaves, n_queries=n,
+                              n_shards=1, k=k, layout="scan_codes", impl=impl,
+                              dim=DIM, code_m=pq.m, code_bits=pq.bits, **rows_kw)
+            cand[impl] = rt.search_with_lookup(
+                view, lookup, cp, n_queries=n, codes=idx._codes[idx.segments[0].name],
+                codebooks=pq.codebooks)
+        a, b = cand["fused"], cand["pallas"]
+        if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)):
+            raise AssertionError("codes: fusedadc and adcscan candidates differ")
+        # the search itself (fused): its candidates rerank to these rows
+        r, times["search_codes_fused"] = lc_search(
+            idx, run, sizes, layout="scan_codes", impl="fused", **rows_kw)
+        ok = r.ids >= 0
+        rows = idx.read_rows(r.ids[ok])
+        q = queries[:, None, :].expand(-1, k, -1)[ok]
+        diff = rows - q
+        if not (torch.equal((diff * diff).sum(-1), r.dists[ok])
+                and bool(torch.isinf(r.dists[~ok]).all())):
+            raise AssertionError("codes: reranked distances are not the exact "
+                                 "distances of their ids")
+        log(f"lifecycle 6: enable_codes (m {pq.m}, bits {pq.bits}); scan_codes "
+            f"candidates bit-identical between fusedadc and adcscan "
+            f"(rerank {a.ids.shape[1]}); reranked top-{k} distances equal the "
+            f"exact distances of their ids read through read_rows on the card")
+        del cand, a, b, r, rows, q, diff, lookup, view
+
+        take()
+        missing = [name for name, v in path.items() if v <= 0]
+        if dev.type == "cuda" and missing:
+            raise AssertionError(f"lifecycle path: {missing} never launched "
+                                 f"({json.dumps(path)})")
+        on_disk = dir_bytes(directory)
+        stats = dict(append_rows=append_rows, appends=sizes["lc_appends"],
+                     rows=total, cut=cut, probe=rates, projected_s=projected,
+                     segment_bytes=written, bytes_on_disk_end=on_disk,
+                     save_s=save_s, write_gib_s=written / save_s / 2**30,
+                     load_s=load_s, read_gib_s=written / load_s / 2**30,
+                     deleted=int(n_dead), launches=path,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     times=times)
+        log(f"lifecycle: {json.dumps(stats)}")
+        del idx
+    finally:
+        rt.obs.set_tracer(prev_tracer)
+        shutil.rmtree(directory, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def lc_oneshot(rt, idx, run, sizes, ids, keep=False):
+    """The one-shot reference over the rows of ``ids`` (ascending), read
+    from ``idx`` on the card: ``build_index`` at the index's wire, then
+    ``batch_search`` pallas at probes 1 and fused at probes 2, by name as
+    the main path names them; with ``keep``, (the index, its fused search
+    at probes 1) -- the delete check's reference (fused equals pallas)."""
+    dev = run["queries"].device
+    corpus = idx.read_rows(torch.as_tensor(ids, device=dev))
+    built = rt.build_index(corpus, run["tree"],
+                           ids=torch.as_tensor(ids.astype(np.int32), device=dev),
+                           wire_dtype=idx.wire_dtype, device=dev)
+    del corpus
+    torch.cuda.empty_cache()
+    def search(impl, probes):
+        return rt.batch_search(built, run["tree"], run["queries"], sizes["k"],
+                               probes=probes, q_cap=sizes["q_cap"],
+                               block_rows=sizes["block_rows"], impl=impl,
+                               device=dev)
+
+    if keep:
+        return built, search("fused", 1)
+    return dict(pallas=search("pallas", 1), fused_p2=search("fused", 2))
+
+
 def trace_sweep(rt, run, sizes):
     """Trace one dense sweep (``batch_search`` impl="pallas"), log its top
     device operations against the main-path run's wall time and return
@@ -1571,12 +2146,18 @@ class Port:
     def __init__(self, src=None):
         sys.path.insert(0, str(src or Path(__file__).resolve().parent / "src"))
         import repro_torch
+        from repro_torch import obs
         from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact
         from repro_torch.codes import pq as pq_module
         from repro_torch.configs import lm
-        from repro_torch.core.engine.executors import _build_adc_lut, _live_leaves
+        from repro_torch.core import route
+        from repro_torch.core.engine.executors import (
+            _build_adc_lut,
+            _live_leaves,
+            routed_capacity,
+        )
         from repro_torch.core.engine.plan import plan as make_plan
-        from repro_torch.core.engine.tilescan import count_pairs, fold_topk
+        from repro_torch.core.engine.tilescan import count_pairs, fold_topk, leaf_slab
         from repro_torch.core.lookup import build_lookup
         from repro_torch.core.search import (
             lookup_q_total,
@@ -1585,6 +2166,7 @@ class Port:
         )
         from repro_torch.data import synth
         from repro_torch.data.batches import lm_batch
+        from repro_torch.index.manifest import list_versions
         from repro_torch.kernels import _build, fp32_bound
         from repro_torch.kernels.adcscan.ops import adc_topk
         from repro_torch.kernels.adcscan.ref import adc_topk_ref
@@ -1604,6 +2186,9 @@ class Port:
         self.build_index = repro_torch.build_index
         self.batch_search = repro_torch.batch_search
         self.tree_assign = repro_torch.tree_assign
+        self.Index, self.obs, self.route = repro_torch.Index, obs, route
+        self.leaf_slab, self.routed_capacity = leaf_slab, routed_capacity
+        self.manifest_versions = list_versions
         self.build_lookup = build_lookup
         self.synth = synth
         self.build = _build
@@ -1658,6 +2243,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1704,6 +2290,7 @@ def main(argv=None) -> int:
     trace_searches(rt, run, sizes)
     kernels = kernel_checks(rt, run, sizes, args.seed)
     p7_phase(rt, run, sizes, args.seed, kernels)
+    lifecycle_phase(rt, run, sizes, args.seed, kernels, t_start)
 
     tree, build_wall = run["tree"], run["times"]["build_index"]
     del run  # the search phases' tensors (the dense phase peaks at 41 GiB)

@@ -116,14 +116,31 @@ class ProductQuantizer:
         """
         x = _as_rows(vecs)
         n, dim = x.shape
+        rows = cls.sample_rows(n, dim, m=m, bits=bits, seed=seed, sample=sample)
+        xs = x[torch.as_tensor(rows, device=x.device)].cpu().numpy()
+        return cls.fit(xs, m=m, bits=bits, seed=seed, iters=iters,
+                       trained_rows=n)
+
+    @staticmethod
+    def sample_rows(n: int, dim: int, *, m: int, bits: int, seed: int,
+                    sample: int) -> np.ndarray:
+        """The sorted row positions :meth:`train` fits on, of ``n`` rows of
+        width ``dim`` -- so a caller whose rows are spread over several
+        tensors (an index's segments) can gather just those."""
         if dim % m:
             raise ValueError(f"{m=} must divide {dim=}")
         if not 1 <= bits <= 8:
             raise ValueError(f"{bits=} must be in [1, 8]")
         rng = np.random.default_rng(seed)
         take = min(int(sample), n)
-        rows = np.sort(rng.choice(n, take, replace=False))
-        xs = x[torch.as_tensor(rows, device=x.device)].cpu().numpy()
+        return np.sort(rng.choice(n, take, replace=False))
+
+    @classmethod
+    def fit(cls, xs: np.ndarray, *, m: int, bits: int, seed: int, iters: int,
+            trained_rows: int) -> "ProductQuantizer":
+        """Fit the codebooks on the sampled rows ``xs`` (host, float32) of
+        :meth:`sample_rows`; ``trained_rows`` is the ``n`` they came from."""
+        take, dim = xs.shape
         dsub = dim // m
         cb = np.empty((m, 1 << bits, dsub), np.float32)
         for j in range(m):
@@ -132,7 +149,8 @@ class ProductQuantizer:
                 np.random.default_rng([seed, j]),
             )
         return cls(cb, meta={"seed": int(seed), "sample": int(take),
-                             "iters": int(iters), "trained_rows": int(n)})
+                             "iters": int(iters),
+                             "trained_rows": int(trained_rows)})
 
     # -- encode / decode ----------------------------------------------------
     def encode(self, vecs) -> torch.Tensor:

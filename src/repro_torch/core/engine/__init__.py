@@ -1,4 +1,12 @@
-"""Search engine: plans, the shared tile-scan core, and the executors."""
+"""Search engine: plans, the cost models, the shared tile-scan core, and
+the executors."""
+
+from repro_torch.core.engine.costmodel import (  # noqa: F401
+    CalibrationStore,
+    PlanShapes,
+    backend_name,
+    resolve_model,
+)
 
 from repro_torch.core.engine.executors import (  # noqa: F401
     SearchResult,

@@ -1,4 +1,4 @@
-"""Point-major search executors (paper section 2.4) on one GPU.
+"""Search executors (paper section 2.4) on one GPU.
 
 Point-major: the shard sweeps its cluster-sorted index rows in waves of
 ``block_rows`` against the lookup table; the slab of queries colliding with
@@ -11,6 +11,14 @@ Fused (``plan.impl="fused"``): the whole shard meets the whole lookup
 table in one ``fusedscan.fused_topk`` call (K2 on the card, the plain
 version on the CPU). Both paths return the k smallest by (distance, shard
 row), so their ids and distances agree.
+
+Query-routed (``plan.layout="query_routed"``): the lookup rows go to the
+shard owning their leaf (``route.route_by_leaf``, the exchange the index
+build uses; the identity on one shard) and are cluster-sorted; then each
+tile of ``q_tile`` rows reads the one ``p_cap``-row point slab that starts
+at its first leaf, in place, through ``l2topk.l2_topk`` (K1 with the
+slab's start on the device), and the rows are scattered back to their
+slots. No running table and no cross-shard merge.
 
 Codes (``plan.layout="scan_codes"``): the same two shapes over uint8 PQ
 code rows under the asymmetric distance -- a wave sweep through
@@ -29,9 +37,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import route as route_lib
 from repro_torch.core.distance import sq_norms, topk_lex
 from repro_torch.core.engine import tilescan
-from repro_torch.core.engine.plan import SearchPlan
+from repro_torch.core.engine.plan import SearchPlan, round_up
 from repro_torch.core.lookup import LookupTable
 from repro_torch.core.sentinels import (
     INVALID_ID,
@@ -42,6 +51,7 @@ from repro_torch.core.sentinels import (
 from repro_torch.kernels.adcscan import ops as adc_ops
 from repro_torch.kernels.fusedscan import ops as fused_ops
 from repro_torch.kernels.fusedscan.ref import map_ids
+from repro_torch.kernels.l2topk import ops as l2topk_ops
 
 
 @dataclasses.dataclass
@@ -177,6 +187,97 @@ def _point_major_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
     return _dense_pipeline(plan, shard_fn, q_total=q_total)
 
 
+def routed_capacity(plan: SearchPlan, q_total: int, n_shards: int = 1) -> int:
+    """Routed lookup rows a shard holds: ``query_capacity_factor`` times
+    its share of ``q_total``, on the ``q_tile`` grid (the JAX package's
+    ``q_cap_shard``)."""
+    return round_up(
+        max(plan.q_tile, int(q_total / n_shards * plan.query_capacity_factor)),
+        plan.q_tile)
+
+
+def routed_accounting(offsets, qleaves, starts, *, q_tile: int, p_cap: int,
+                      n_entries: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pairs, overflow) of a query-routed sweep, exact int64, for every
+    tile at once: a lookup row of local leaf ``L`` meets the point rows
+    ``[offsets[L], offsets[L+1])`` inside its tile's slab ``[start, start
+    + p_cap)``, which is what ``count_pairs`` counts on the slab; the
+    overflow is ``slab_overflow`` of each tile's last real leaf."""
+    lv = qleaves.long()
+    ok = (lv >= 0) & (lv < n_entries)
+    lc = lv.clamp(0, n_entries - 1)
+    s = starts.repeat_interleave(q_tile)
+    lo = torch.maximum(offsets[lc].long(), s)
+    hi = torch.minimum(offsets[lc + 1].long(), s + p_cap)
+    pairs = torch.where(ok, (hi - lo).clamp(min=0), 0).sum()
+    last = tilescan.last_valid_leaf(qleaves.reshape(-1, q_tile))
+    overflow = tilescan.slab_overflow(
+        offsets, last, tilescan.Slab(starts, p_cap), n_entries=n_entries).sum()
+    return pairs, overflow
+
+
+def _query_routed_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
+    """Query-routed executor: route the lookup rows to the shard owning
+    their leaf, cluster-sort them, and answer each ``q_tile`` tile from
+    its ``p_cap``-row point slab (K1 reading the slab in place).
+
+    Only the tiles holding real rows are scanned -- one host sync for
+    their count; the others (routing padding, ``LEAF_SENTINEL``) match no
+    point and would add nothing to the ids, distances, pairs or overflow.
+    """
+    q_tile, p_cap, k = plan.q_tile, plan.p_cap, plan.k
+    lps = n_leaves  # one shard owns every leaf
+    q_cap_shard = routed_capacity(plan, q_total)
+    if p_cap > shard_rows:
+        raise ValueError(f"{p_cap=} must be <= {shard_rows=}")
+    if k > p_cap:
+        raise ValueError(f"{k=} must be <= {p_cap=}")
+
+    def pipeline(index, lookup: LookupTable) -> SearchResult:
+        vecs, leaves, ids = index.vecs, index.leaves, index.ids
+        offsets = index.offsets[0]
+        dev = vecs.device
+        routed = route_lib.route_by_leaf(
+            lookup.vecs, lookup.qids, lookup.leaves, n_shards=1,
+            leaves_per_shard=lps, capacity=q_cap_shard,
+            wire_dtype=plan.wire_dtype)
+        qv_all, qids_all, qlf_all, _, n_valid = route_lib.cluster_sort(
+            routed, leaf_base=0, leaves_per_shard=lps)
+        # each tile's point slab starts at its first leaf's run, on the device
+        starts = tilescan.leaf_slab(
+            offsets, qlf_all[::q_tile], n_entries=lps, total_rows=shard_rows,
+            cap=p_cap).start
+        n_real = -(-int(n_valid) // q_tile) * q_tile  # real rows sort first
+        cand_d = torch.empty((n_real, k), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((n_real, k), dtype=torch.int32, device=dev)
+        for w, qs in enumerate(range(0, n_real, q_tile)):
+            start = starts[w:w + 1]
+            qv = qv_all[qs:qs + q_tile]
+            d, sel = l2topk_ops.l2_topk(vecs, leaves, qv, qlf_all[qs:qs + q_tile],
+                                        k=k, p_start=start, p_rows=p_cap)
+            i = torch.where(sel >= 0, ids[(start + sel.clamp(min=0)).long()],
+                            INVALID_ID)
+            # the tile's true squared distances (dead and absent rows: inf)
+            cand_d[qs:qs + q_tile] = (torch.where(i >= 0, d, torch.inf)
+                                      + sq_norms(qv)[:, None])
+            cand_i[qs:qs + q_tile] = i
+        pairs, overflow = routed_accounting(
+            offsets, qlf_all, starts, q_tile=q_tile, p_cap=p_cap, n_entries=lps)
+        # one scatter back to flat slot order (each lookup row was answered
+        # by exactly one tile), then merge each query's probe rows
+        slots = qids_all[:n_real].long()
+        real = slots >= 0
+        out_d = torch.full((q_total, k), torch.inf, device=dev)
+        out_i = torch.full((q_total, k), INVALID_ID, dtype=torch.int32, device=dev)
+        out_d[slots[real]] = cand_d[real]
+        out_i[slots[real]] = cand_i[real]
+        out_d, out_i = tilescan.merge_probe_groups(out_d, out_i, plan.probes)
+        return SearchResult(ids=out_i, dists=out_d, pairs=pairs.float(),
+                            q_cap_overflow=(overflow + routed.overflow).to(torch.int32))
+
+    return pipeline
+
+
 def _point_major_fused_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
     """Fused point-major executor: the whole shard goes through one
     ``fusedscan.fused_topk`` call, with the per-query top-k kept on chip
@@ -302,6 +403,7 @@ def _codes_pipeline(plan, shard_fn, *, q_total):
 
 
 _LAYOUT_BUILDERS = {"point_major": _point_major_fn,
+                    "query_routed": _query_routed_fn,
                     "scan_codes": _scan_codes_fn}
 _FUSED_BUILDERS = {"point_major": _point_major_fused_fn,
                    "scan_codes": _scan_codes_fused_fn}
@@ -328,5 +430,8 @@ def make_executor(plan: SearchPlan, *, n_leaves: int, shard_rows: int,
     if q_total % plan.probes:
         raise ValueError(f"{q_total=} must be a multiple of {plan.probes=}")
     builders = _FUSED_BUILDERS if plan.impl == "fused" else _LAYOUT_BUILDERS
+    if plan.layout not in builders:
+        raise ValueError(f"impl={plan.impl!r} is not supported for layout "
+                         f"{plan.layout!r}")
     return builders[plan.layout](plan, n_leaves=n_leaves,
                                  shard_rows=shard_rows, q_total=q_total)

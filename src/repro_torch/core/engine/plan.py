@@ -1,26 +1,42 @@
-"""Declarative search plans: the point-major and codes layouts.
+"""Declarative search plans + the auto-planning entry point.
 
 A :class:`SearchPlan` is the static description an executor is built from.
-``plan()`` resolves unset budgets from the index and query shapes. The port
-runs the point-major and ``scan_codes`` layouts with a fixed ``impl``: the
-one-candidate branches of the JAX package's ``plan()``, so no cost model is
-involved. The query-routed layout (ROADMAP M7) and
-``impl="auto"``/``layout="auto"`` (the cost model, M10) raise
-``NotImplementedError``.
+``plan()`` resolves an ``"auto"`` layout or impl and any unset budgets from
+the index and query shapes, as the JAX package's ``plan()`` does; *which*
+candidate wins is delegated to the cost models of
+:mod:`repro_torch.core.engine.costmodel` (fitted > observed > heuristic):
+
+  * ``point_major`` -- the shard sweeps its rows in waves of
+    ``block_rows`` against a ``q_cap``-row query slab, carrying a
+    ``(rows, k)`` running-best table;
+  * ``query_routed`` -- lookup rows go to the shard owning their leaf,
+    then each ``q_tile`` query tile reads one ``p_cap`` point slab;
+  * ``scan_codes`` -- the point-major sweep over uint8 PQ codes, keeping
+    ``rerank`` candidates for an exact rerank.
+
+For the same shapes and the same calibration JSON it picks the same plan
+as the JAX package; calibration of another backend is never consulted
+(``costmodel``'s module docstring). The model only picks layouts and
+budgets: results are bit-identical under every model.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
-LAYOUTS = ("point_major", "query_routed", "scan_codes")
+import torch
+
+from repro_torch.core.engine import costmodel as costmodel_lib
+from repro_torch.core.engine.costmodel import (
+    LAYOUTS,
+    CalibrationStore,
+    PlanShapes,
+)
+from repro_torch.device import dtype_name
+
 IMPLS = ("xla", "pallas", "fused", "auto")
-
-_NOT_PORTED = {
-    "query_routed": "the query-routed layout is ROADMAP M7",
-    "auto": "layout='auto' needs the cost model, ROADMAP M10",
-}
 
 
 def round_up(x: int, m: int) -> int:
@@ -45,34 +61,32 @@ def largest_divisor_leq(n: int, cap: int) -> int:
     return best
 
 
-def _check_ported(layout: str, impl: str) -> None:
-    if layout in _NOT_PORTED:
-        raise NotImplementedError(f"layout={layout!r}: {_NOT_PORTED[layout]}")
-    if impl == "auto":
-        raise NotImplementedError(
-            "impl='auto' needs the cost model, ROADMAP M10")
-
-
 @dataclasses.dataclass(frozen=True)
 class SearchPlan:
     """Static description of one search execution (hashable).
 
-    ``impl``: ``"xla"`` and ``"pallas"`` both run the per-wave sweep through
+    ``impl``: ``"xla"`` and ``"pallas"`` both run the per-tile scan through
     ``l2topk.ops.l2_topk`` (``adcscan.ops.adc_topk`` for ``scan_codes``;
     K1/K4 on the card, the plain versions on the CPU); ``"fused"`` runs the
     whole-shard scan (``fusedscan.ops.fused_topk``/``fused_adc_topk``,
-    K2/K5 on the card). ``None`` budgets mean "let ``plan()`` pick"; the
-    executors require them resolved.
+    K2/K5 on the card; not for ``query_routed``); ``"auto"`` lets
+    ``plan()`` price ``"xla"`` against ``"fused"``. ``None`` budgets mean
+    "let ``plan()`` pick"; the executors require them resolved.
     """
 
-    layout: str  # "point_major" | "scan_codes" (others: module docstring)
+    layout: str  # "point_major" | "query_routed" | "scan_codes"
     k: int
     probes: int = 1  # multi-probe width T: leaves visited per query
     impl: str = "xla"
+    wire_dtype: Any = torch.float32  # routed-shuffle payload dtype
     # point-major budgets (scan_codes shares them: its code scan is a
     # point-major wave sweep over uint8 code slabs)
     block_rows: int | None = None  # index rows per wave tile
     q_cap: int | None = None  # query-slab rows per tile
+    # query-routed budgets
+    q_tile: int | None = None  # queries per wave tile
+    p_cap: int | None = None  # point-slab rows per query tile
+    query_capacity_factor: float = 4.0  # routing headroom for hot shards
     # scan_codes (compressed-tier) parameters
     rerank: int | None = None  # ADC survivors fetched for exact rerank
     code_m: int | None = None  # PQ subvectors (code bytes per row)
@@ -83,7 +97,10 @@ class SearchPlan:
             raise ValueError(f"unknown layout {self.layout!r}; want {LAYOUTS}")
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; want {IMPLS}")
-        _check_ported(self.layout, self.impl)
+        if self.impl == "fused" and self.layout == "query_routed":
+            raise ValueError(
+                "impl='fused' is not supported for layout 'query_routed' "
+                "(the fused scan is a point-major sweep)")
         if self.k < 1:
             raise ValueError(f"{self.k=} must be >= 1")
         if self.probes < 1:
@@ -93,13 +110,17 @@ class SearchPlan:
 
     def resolved(self) -> "SearchPlan":
         """Check the budgets this layout needs are set."""
-        need = ("block_rows", "q_cap")
-        if self.layout == "scan_codes":
-            need += ("rerank", "code_m", "code_bits")
+        if self.layout == "query_routed":
+            need = ("q_tile", "p_cap")
+        elif self.layout == "scan_codes":
+            need = ("block_rows", "q_cap", "rerank", "code_m", "code_bits")
+        else:
+            need = ("block_rows", "q_cap")
         for f in need:
             if getattr(self, f) is None:
                 raise ValueError(f"plan field {f!r} unresolved for {self.layout}")
         return self
+
 
 
 def _point_major_budgets(
@@ -147,6 +168,26 @@ def _scan_codes_budgets(
     return dataclasses.replace(p, rerank=rerank)
 
 
+def _query_routed_budgets(
+    p: SearchPlan, *, shard_rows: int, n_leaves: int, q_rows: int,
+    n_shards: int
+) -> SearchPlan:
+    q_tile = p.q_tile or 128
+    p_cap = p.p_cap
+    if p_cap is None:
+        # rows per owned leaf is the global rows per leaf
+        avg_leaf = max(1, shard_rows * n_shards // max(1, n_leaves))
+        # a q_tile of consecutive sorted queries covers about
+        # q_tile / local_rows of the shard's leaf range: when queries are
+        # sparse against the leaves the point span grows (and the cost
+        # model then prefers point-major); 2x headroom for skew
+        local_rows = max(q_tile, q_rows // max(1, n_shards))
+        span = shard_rows * q_tile // local_rows
+        p_cap = min(
+            shard_rows, round_up(max(4096, 16 * avg_leaf, 2 * span), 8))
+    return dataclasses.replace(p, q_tile=q_tile, p_cap=p_cap)
+
+
 def plan(
     *,
     rows: int,
@@ -159,51 +200,123 @@ def plan(
     impl: str = "xla",
     block_rows: int | None = None,
     q_cap: int | None = None,
+    q_tile: int | None = None,
+    p_cap: int | None = None,
+    dim: int = 0,
     rerank: int | None = None,
     code_m: int | None = None,
     code_bits: int | None = None,
+    model: Any = "auto",
+    calibration: CalibrationStore | None = None,
 ) -> SearchPlan:
     """Resolve a full :class:`SearchPlan` from shapes.
 
     Args:
-      rows: padded index rows (``DistributedIndex.rows``).
+      rows: padded index rows (``DistributedIndex.rows``) of the index or
+        segment view the plan will scan.
       n_leaves: vocabulary-tree leaf count.
       n_queries: query rows per batch (pre-probe-expansion).
       n_shards: row shards (1 on one GPU).
       k: neighbours returned per query; ``probes``: multi-probe width.
-      layout: ``"point_major"`` or ``"scan_codes"``; the others raise
-        ``NotImplementedError``.
-      impl: ``"xla"``, ``"pallas"`` or ``"fused"``; ``"auto"`` raises
-        ``NotImplementedError``.
-      block_rows/q_cap: pin a budget instead of deriving it.
+      layout: ``"point_major"`` (the default here, as the port's
+        ``batch_search`` has always run), ``"query_routed"``,
+        ``"scan_codes"`` (needs ``code_m``/``code_bits``), or ``"auto"``
+        (the cost model ranks point-major, query-routed and, with codes,
+        scan_codes candidates).
+      impl: ``"xla"``, ``"pallas"``, ``"fused"``, or ``"auto"`` (the cost
+        model prices ``"xla"`` against ``"fused"`` per candidate layout;
+        query-routed only runs ``"xla"``). Fused candidates take the
+        tuned block size of the calibration store, if it has one of its
+        own backend, unless ``block_rows`` is pinned.
+      block_rows/q_cap/q_tile/p_cap: pin a budget instead of deriving it
+        (the query-routed shuffle's wire dtype and routing headroom keep
+        the reference's defaults, :class:`SearchPlan`'s).
+      dim: descriptor dimension (0 = unknown), for the codes pricing.
       rerank: ADC survivors per query for ``scan_codes`` (default
-        :func:`default_rerank`); code_m/code_bits: the PQ codes' shape,
-        required for ``scan_codes``.
+        :func:`default_rerank`); code_m/code_bits: the PQ codes' shape.
+      model: ``"auto"`` (fitted > observed > heuristic), ``"heuristic"``,
+        ``"observed"``, ``"fitted"``, or a built ``CostModel``.
+      calibration: the :class:`CalibrationStore` the calibrated models
+        read (``Index.calibration``); ``None``: the module default.
 
     Raises:
-      ValueError: ``probes > n_leaves``; an unknown ``layout`` or ``impl``;
-        ``scan_codes`` without ``code_m``/``code_bits``.
+      ValueError: ``probes > n_leaves``; an unknown ``layout``, ``impl``
+        or ``model``; ``scan_codes`` without ``code_m``/``code_bits``;
+        ``query_routed`` when ``n_leaves`` does not divide over the shards.
+
+    Ties go to the point-major ``"xla"`` baseline under every model, and
+    with no calibration every model falls back to the heuristic.
     """
     if probes > n_leaves:
         raise ValueError(f"{probes=} must be <= {n_leaves=}")
-    if layout not in LAYOUTS + ("auto",):
-        raise ValueError(f"unknown layout {layout!r}")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; want {IMPLS}")
-    _check_ported(layout, impl)
     shard_rows = max(1, rows // max(1, n_shards))
     q_rows = max(1, n_queries * probes)  # probe-expanded lookup rows
-    base = dict(k=k, probes=probes, impl=impl, block_rows=block_rows,
-                q_cap=q_cap)
+    base = dict(k=k, probes=probes, block_rows=block_rows, q_cap=q_cap,
+                q_tile=q_tile, p_cap=p_cap)
     shapes = dict(shard_rows=shard_rows, n_leaves=n_leaves, q_rows=q_rows,
                   n_shards=n_shards)
-    if layout == "scan_codes":
-        if code_m is None or code_bits is None:
-            raise ValueError(
-                "layout='scan_codes' needs code_m/code_bits (the shape of "
-                "the index's PQ codes)")
-        return _scan_codes_budgets(
+    store = (calibration if calibration is not None
+             else costmodel_lib.default_calibration())
+
+    def impls_for(lay: str) -> tuple[str, ...]:
+        if impl != "auto":
+            return (impl,)
+        # only the point-major sweeps have a fused variant; the xla
+        # baseline comes first so ties keep it
+        return ("xla", "fused") if lay != "query_routed" else ("xla",)
+
+    def variants(p: SearchPlan) -> list[SearchPlan]:
+        """One resolved candidate per impl; fused candidates take the
+        store's tuned tile config."""
+        out = []
+        for i in impls_for(p.layout):
+            v = dataclasses.replace(p, impl=i)
+            if i == "fused" and block_rows is None:
+                cfg = store.tile_config(p.layout, dim, dtype_name(p.wire_dtype))
+                if cfg:
+                    v = dataclasses.replace(v, block_rows=largest_divisor_leq(
+                        shard_rows, int(cfg["block_rows"])))
+            out.append(v.resolved())
+        return out
+
+    has_codes = code_m is not None and code_bits is not None
+    if layout == "scan_codes" and not has_codes:
+        raise ValueError(
+            "layout='scan_codes' needs code_m/code_bits (the shape of the "
+            "index's PQ codes)")
+    candidates: list[SearchPlan] = []
+    if has_codes:
+        sc = _scan_codes_budgets(
             SearchPlan(layout="scan_codes", rerank=rerank, code_m=code_m,
-                       code_bits=code_bits, **base), **shapes).resolved()
-    return _point_major_budgets(
-        SearchPlan(layout="point_major", **base), **shapes).resolved()
+                       code_bits=code_bits, **base), **shapes)
+        if layout == "scan_codes":
+            candidates = variants(sc)
+    pm = _point_major_budgets(SearchPlan(layout="point_major", **base),
+                              **shapes)
+    if layout == "point_major":
+        candidates = variants(pm)
+    routable = n_leaves % n_shards == 0
+    if layout == "query_routed":
+        if not routable:
+            raise ValueError(f"{n_leaves=} must divide over {n_shards} shards "
+                             "for layout='query_routed'")
+        candidates = variants(_query_routed_budgets(
+            SearchPlan(layout="query_routed", **base), **shapes))
+    elif layout == "auto":
+        # baseline first: every model breaks ties toward point-major xla
+        candidates = variants(pm)
+        if routable and impl != "fused":
+            candidates += variants(_query_routed_budgets(
+                SearchPlan(layout="query_routed", **base), **shapes))
+        if has_codes:
+            candidates += variants(sc)
+    if not candidates:
+        raise ValueError(f"unknown layout {layout!r}")
+    if len(candidates) == 1:
+        return candidates[0]
+    ctx = PlanShapes(rows=rows, n_queries=n_queries, n_shards=n_shards,
+                     n_leaves=n_leaves, dim=dim)
+    return costmodel_lib.resolve_model(model, calibration).choose(
+        tuple(candidates), ctx)

@@ -1,9 +1,10 @@
 """Batch search (paper section 2.4): plan, build the lookup table, pad,
 run the executor, trim.
 
-  * ``batch_search`` -- the entry point (point-major layout, multi-probe
-    ``probes=T``, ``impl`` "xla"/"pallas" for the wave sweep or "fused"
-    for the whole-shard scan);
+  * ``batch_search`` -- the entry point (``layout`` point-major,
+    query-routed or "auto", multi-probe ``probes=T``, ``impl``
+    "xla"/"pallas" for the per-tile scans or "fused" for the whole-shard
+    scan);
   * ``search_with_lookup`` -- one executor run over a *pre-built* lookup
     table; with a ``scan_codes`` plan it scans the index's PQ codes and
     returns ``plan.rerank`` approximate candidates per query for
@@ -26,10 +27,14 @@ from repro_torch.core.tree import VocabTree
 from repro_torch.device import resolve
 
 
-def lookup_q_total(p: SearchPlan, n_queries: int) -> int:
-    """Padded lookup-row count an executor for ``p`` needs: the slab budget
-    covered, and a multiple of ``probes`` for the probe-group merge."""
+def lookup_q_total(p: SearchPlan, n_queries: int, n_shards: int = 1) -> int:
+    """Padded lookup-row count an executor for ``p`` needs: query-routed
+    rows on the ``(q_tile * n_shards)`` routing grid, point-major rows
+    covering the slab budget; a multiple of ``probes`` for the
+    probe-group merge either way."""
     q_rows = n_queries * p.probes
+    if p.layout == "query_routed":
+        return round_up(q_rows, p.q_tile * n_shards * p.probes)
     return round_up(max(q_rows, p.q_cap), p.probes)
 
 
@@ -51,7 +56,7 @@ def search_with_lookup(index: DistributedIndex, lookup: LookupTable,
     """
     n_shards = index.n_shards
     shard_rows = index.rows // n_shards
-    q_total = lookup_q_total(plan, n_queries)
+    q_total = lookup_q_total(plan, n_queries, n_shards)
     fn = make_executor(plan, n_leaves=index.n_leaves, shard_rows=shard_rows,
                        q_total=q_total, n_shards=n_shards)
     padded = pad_lookup(lookup, q_total)
@@ -81,15 +86,20 @@ def batch_search(
     block_rows: int | None = None,
     q_cap: int | None = None,
     impl: str = "xla",
+    p_cap: int | None = None,
     device: str | torch.device | None = "cuda",
 ) -> SearchResult:
     """Plan, build the lookup table, pad, run, trim.
 
     ``index`` and ``tree`` must live on ``device``; ``queries`` (numpy or a
-    tensor) are moved there. ``probes=T`` visits each query's T nearest
-    leaves. ``impl``: ``"xla"``/``"pallas"`` sweep waves through the
-    l2topk kernel, ``"fused"`` scans the whole shard through the fusedscan
-    kernel.
+    tensor) are moved there. ``layout``: ``"point_major"``,
+    ``"query_routed"`` or ``"auto"`` (the cost models of
+    ``core.engine.costmodel`` pick, from the module's default store);
+    ``p_cap`` pins the query-routed point slab.
+    ``probes=T`` visits each query's T nearest leaves. ``impl``:
+    ``"xla"``/``"pallas"`` scan each wave or query tile through the l2topk
+    kernel, ``"fused"`` scans the whole shard through the fusedscan
+    kernel, ``"auto"`` lets the cost model pick.
     """
     dev = resolve(device)
     if index.device != dev or tree.device != dev:
@@ -100,7 +110,7 @@ def batch_search(
     p = make_plan(
         rows=index.rows, n_leaves=index.n_leaves, n_queries=q,
         n_shards=index.n_shards, k=k, probes=probes, layout=layout, impl=impl,
-        block_rows=block_rows, q_cap=q_cap,
+        block_rows=block_rows, q_cap=q_cap, p_cap=p_cap,
     )
     lookup = build_lookup(tree, queries, probes=probes)
     return search_with_lookup(index, lookup, p, n_queries=q)

@@ -50,6 +50,11 @@
 // the split. One launch a wave; no merge kernel, no scratch. k <= 64 (the
 // lists' register capacity); kernels/l2topk/ops.py sends a larger k to the
 // wide kernel.
+//
+// Query tiles (the query-routed executor): p_start, when not null, is a
+// one-element int64 on the device; the kernel then scans the P rows from
+// that row on (a tile's point slab, whose start stays on the device) and
+// reports rows relative to it, as if it were given the slab's copy.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -148,9 +153,15 @@ __global__ void __cluster_dims__(K1_CLUSTER, 1, 1) __launch_bounds__(THREADS)
 l2topk_kernel(const float* __restrict__ points,
               const int* __restrict__ pleaves,
               const float* __restrict__ queries,
-              const int* __restrict__ qleaves, float* out_d, int* out_i, int P,
-              int Q, int d, int k) {
+              const int* __restrict__ qleaves,
+              const long long* __restrict__ p_start, float* out_d, int* out_i,
+              int P, int Q, int d, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (p_start) {  // a slab of the shard: rows are reported relative to it
+    const long long s = *p_start;
+    points += s * d;
+    pleaves += s;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -264,33 +275,36 @@ int k1_clusters(int* out) {
 
 template <bool VEC>
 int k1_launch(const float* points, const int* pleaves, const float* queries,
-              const int* qleaves, float* out_d, int* out_i, int P, int Q,
-              int d, int k, cudaStream_t st) {
+              const int* qleaves, const long long* p_start, float* out_d,
+              int* out_i, int P, int Q, int d, int k, cudaStream_t st) {
   int clusters = 0;
   const int e = k1_clusters<VEC>(&clusters);
   if (e) return e;
   if (Q < clusters) clusters = Q;
   l2topk_kernel<VEC><<<clusters * K1_CLUSTER, THREADS, k1_smem_bytes(d, k), st>>>(
-      points, pleaves, queries, qleaves, out_d, out_i, P, Q, d, k);
+      points, pleaves, queries, qleaves, p_start, out_d, out_i, P, Q, d, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// p_start may be null (rows from 0) or a device int64: the first of the P
+// rows to scan, which stay inside the points the caller holds.
 extern "C" int l2topk_launch(const void* points, const void* pleaves,
                              const void* queries, const void* qleaves,
-                             void* out_d, void* out_i, int P, int Q, int d,
-                             int k, void* stream) {
+                             const void* p_start, void* out_d, void* out_i,
+                             int P, int Q, int d, int k, void* stream) {
   if (P < 1 || Q < 1 || d < 1 || d > MAX_D || k < 1 || k > DENSE_KCAP)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   // 16-byte copies need 16-byte aligned rows
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  const long long* ps = (const long long*)p_start;
   return vec ? k1_launch<true>((const float*)points, (const int*)pleaves,
-                               (const float*)queries, (const int*)qleaves,
+                               (const float*)queries, (const int*)qleaves, ps,
                                (float*)out_d, (int*)out_i, P, Q, d, k, st)
              : k1_launch<false>((const float*)points, (const int*)pleaves,
-                                (const float*)queries, (const int*)qleaves,
+                                (const float*)queries, (const int*)qleaves, ps,
                                 (float*)out_d, (int*)out_i, P, Q, d, k, st);
 }
 

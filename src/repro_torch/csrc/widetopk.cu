@@ -56,6 +56,9 @@ struct DenseRows {
   __device__ const float* stage_src(long long q) const {
     return queries + q * d;
   }
+  __device__ DenseRows from(long long s) const {
+    return DenseRows{points + s * d, queries, d};
+  }
   __device__ float dist(const float* qs, long long p) const {
     const float* row = points + p * d;
     float pn = 0.f, dot = 0.f;
@@ -92,6 +95,9 @@ struct AdcRows {
   __device__ const float* stage_src(long long q) const {
     return lut + q * (long long)(m * C);
   }
+  __device__ AdcRows from(long long s) const {
+    return AdcRows{codes + s * m, lut, m, C};
+  }
   __device__ float dist(const float* lt, long long p) const {
     return adc_dist(lt, codes + p * m, m, C);
   }
@@ -109,14 +115,24 @@ __device__ __forceinline__ int rank_in(const float* d, const int* r, int n,
 }
 
 // Output row q: lookup row *q_start + q of n_q (the query or LUT table).
+// The P point rows start at row *p_start of the arrays (p_start may be
+// null: row 0), and rows are reported relative to it.
 template <class Rows>
 __global__ void __launch_bounds__(W_THREADS)
 wide_kernel(Rows rows, const int* __restrict__ pleaves,
             const int* __restrict__ skip_ids, const int* __restrict__ map_ids,
             const int* __restrict__ qleaves,
             const long long* __restrict__ q_start, long long n_q,
+            const long long* __restrict__ p_start,
             float* out_d, int* out_i, float* scratch_d, int* scratch_i, int P,
             int k) {
+  if (p_start) {
+    const long long s = *p_start;
+    rows = rows.from(s);
+    pleaves += s;
+    if (skip_ids) skip_ids += s;
+    if (map_ids) map_ids += s;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float wd[W_THREADS], cd[W_THREADS];  // warp-sorted, block-sorted
   __shared__ int wr[W_THREADS], cr[W_THREADS];
@@ -217,7 +233,8 @@ wide_kernel(Rows rows, const int* __restrict__ pleaves,
 template <class Rows>
 int wide_launch(const Rows& rows, const int* pleaves, const int* skip_ids,
                 const int* map_ids, const int* qleaves,
-                const long long* q_start, long long n_q, float* out_d,
+                const long long* q_start, long long n_q,
+                const long long* p_start, float* out_d,
                 int* out_i, float* scratch_d, int* scratch_i, int P, int Q,
                 int k, cudaStream_t st, int staged) {
   if (P < 1 || Q < 1 || k < 1 || k > P || (k > W_SMEM_K && !scratch_d))
@@ -229,19 +246,21 @@ int wide_launch(const Rows& rows, const int* pleaves, const int* skip_ids,
       wide_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   wide_kernel<Rows><<<Q, W_THREADS, smem, st>>>(
-      rows, pleaves, skip_ids, map_ids, qleaves, q_start, n_q, out_d, out_i,
-      scratch_d, scratch_i, P, k);
+      rows, pleaves, skip_ids, map_ids, qleaves, q_start, n_q, p_start, out_d,
+      out_i, scratch_d, scratch_i, P, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Dense: out row q is query row q. map_ids may be null (rows out, K1's
-// call) or the shard's ids (K2's call). scratch_d/_i: (Q, k) each, needed
-// only for k > 4096 (else null).
+// call) or the shard's ids (K2's call). p_start may be null (points from
+// row 0) or a device int64, the first of the P rows (K1's query tiles).
+// scratch_d/_i: (Q, k) each, needed only for k > 4096 (else null).
 extern "C" int l2topk_wide_launch(const void* points, const void* pleaves,
                                   const void* map_ids, const void* queries,
-                                  const void* qleaves, void* out_d, void* out_i,
+                                  const void* qleaves, const void* p_start,
+                                  void* out_d, void* out_i,
                                   void* scratch_d, void* scratch_i, int P,
                                   int Q, int d, int k, void* stream) {
   if (d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
@@ -251,13 +270,14 @@ extern "C" int l2topk_wide_launch(const void* points, const void* pleaves,
   const int* pl = (const int*)pleaves;
   const int* mi = (const int*)map_ids;
   const int* ql = (const int*)qleaves;
+  const long long* ps = (const long long*)p_start;
   if (vec)
     return wide_launch(DenseRows<true>{(const float*)points, (const float*)queries, d},
-                       pl, nullptr, mi, ql, nullptr, Q, (float*)out_d,
+                       pl, nullptr, mi, ql, nullptr, Q, ps, (float*)out_d,
                        (int*)out_i, (float*)scratch_d, (int*)scratch_i, P, Q, k,
                        st, d);
   return wide_launch(DenseRows<false>{(const float*)points, (const float*)queries, d},
-                     pl, nullptr, mi, ql, nullptr, Q, (float*)out_d, (int*)out_i,
+                     pl, nullptr, mi, ql, nullptr, Q, ps, (float*)out_d, (int*)out_i,
                      (float*)scratch_d, (int*)scratch_i, P, Q, k, st, d);
 }
 
@@ -275,7 +295,7 @@ extern "C" int adctopk_wide_launch(const void* codes, const void* pleaves,
   return wide_launch(AdcRows{(const uint8_t*)codes, (const float*)lut, m, C},
                      (const int*)pleaves, (const int*)skip_ids,
                      (const int*)map_ids, (const int*)qleaves,
-                     (const long long*)q_start, n_lut, (float*)out_d,
+                     (const long long*)q_start, n_lut, nullptr, (float*)out_d,
                      (int*)out_i, (float*)scratch_d, (int*)scratch_i, P, Q, k,
                      reinterpret_cast<cudaStream_t>(stream), m * C);
 }

@@ -25,6 +25,12 @@ def resolve(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def dtype_name(dtype) -> str:
+    """A torch or numpy dtype's name as the JAX package spells it
+    (``jnp.dtype(...).name``): ``"float32"``, ``"bfloat16"``."""
+    return str(dtype).removeprefix("torch.")
+
+
 def check_kernel_inputs(name: str, *tensors: torch.Tensor, dtypes) -> None:
     """Raise unless every tensor is contiguous, of its dtype, on one CUDA
     device (the kernels take nothing else)."""

@@ -36,13 +36,13 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
-    "l2topk_launch": [_VP] * 6 + [_I] * 4 + [_VP],
+    "l2topk_launch": [_VP] * 7 + [_I] * 4 + [_VP],
     "l2topk_clusters": [_VP],
     "fusedscan_launch": [_VP] * 8 + [_I] * 4 + [_VP],
     "l2nn_launch": [_VP] * 4 + [_I] * 3 + [_VP],
     "adcscan_launch": [_VP] * 8 + [_I] * 6 + [_VP],
     "fusedadc_launch": [_VP] * 7 + [_I] * 5 + [_VP],
-    "l2topk_wide_launch": [_VP] * 9 + [_I] * 4 + [_VP],
+    "l2topk_wide_launch": [_VP] * 10 + [_I] * 4 + [_VP],
     "adctopk_wide_launch": [_VP] * 11 + [_I] * 6 + [_VP],
     "flashattn_launch": [_VP] * 4 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
     "flashattn_tc_launch": [_VP] * 4 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],

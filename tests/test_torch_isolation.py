@@ -28,6 +28,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.kernels.adcscan, repro_torch.codes\n"
         "import repro_torch.models.transformer, repro_torch.kernels.flashattn\n"
         "import repro_torch.configs.lm, repro_torch.data.batches\n"
+        "import repro_torch.obs, repro_torch.obs.registry, repro_torch.obs.tracer\n"
+        "import repro_torch.core.engine.costmodel, repro_torch.core.engine.plan\n"
+        "import repro_torch.distributed.checkpoint, repro_torch.data.store\n"
+        "import repro_torch.index, repro_torch.index.manifest\n"
+        "import repro_torch.index.segment, repro_torch.index.sharding\n"
+        "import repro_torch.index.lifecycle\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -58,8 +64,9 @@ def _no_cuda():
 
 @pytest.mark.parametrize("entry", ["build_tree", "build_index", "batch_search",
                                    "tree_from_numpy", "init_params", "prefill",
-                                   "transformer_params_from_numpy"])
-def test_default_device_raises_without_cuda(entry):
+                                   "transformer_params_from_numpy",
+                                   "Index.create", "Index.open"])
+def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
     tree = interop.tree_from_numpy([x[:2], np.zeros((2, 2, 4), np.float32)],
@@ -76,6 +83,8 @@ def test_default_device_raises_without_cuda(entry):
         "init_params": lambda: init_params(
             cfg.param_specs(), torch.Generator().manual_seed(0)),
         "prefill": lambda: tfm.prefill(cpu_params, cfg, x[:1, :4].astype(np.int32), 8),
+        "Index.create": lambda: repro_torch.Index.create(tree),
+        "Index.open": lambda: repro_torch.Index.open(_cpu_index_dir(tree, tmp_path)),
         "transformer_params_from_numpy": lambda: interop.transformer_params_from_numpy(
             dict(embed=cpu_params["embed"].numpy(),
                  final_norm=cpu_params["final_norm"].numpy(),
@@ -83,6 +92,12 @@ def test_default_device_raises_without_cuda(entry):
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+def _cpu_index_dir(tree, tmp_path):
+    d = str(tmp_path / "idx")
+    repro_torch.Index.create(tree, d, device="cpu")
+    return d
 
 
 def test_resolve_cpu_when_asked():

@@ -1,6 +1,7 @@
 """repro_torch batch search against the JAX package's ``impl="xla"``
-point-major executor (its Pallas and fused executors do not run inside
-``shard_map`` on jax 0.9, so the xla sweep is the reference).
+point-major and query-routed executors (its Pallas and fused executors do
+not run inside ``shard_map`` on jax 0.9, so the xla sweep is the
+reference).
 
 Ids exact, distances bit for bit on integer-valued queries and within
 1e-6 * ||q||^2 on real-valued ones (the reference's 2e-4 contract, held
@@ -198,9 +199,103 @@ def test_largest_divisor_leq(n, cap):
                                          ("scan_codes", "auto"),
                                          ("point_major", "auto")])
 def test_unported_plans_raise(layout, impl):
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        tplan.plan(rows=64, n_leaves=4, n_queries=4, n_shards=1, k=1,
-                   layout=layout, impl=impl, code_m=2, code_bits=2)
+    # these plans raised NotImplementedError until the query-routed layout
+    # and the cost model were ported; now each resolves to the reference's
+    # plan, and the one combination the reference refuses still raises
+    kw = dict(rows=64, n_leaves=4, n_queries=4, n_shards=1, k=1,
+              layout=layout, impl=impl, code_m=2, code_bits=2)
+    jp, tp = jplan.plan(**kw), tplan.plan(**kw)
+    fields = ("layout", "impl", "block_rows", "q_cap", "q_tile", "p_cap",
+              "rerank")
+    assert [getattr(tp, f) for f in fields] == [getattr(jp, f) for f in fields]
+    with pytest.raises(ValueError, match="fused"):
+        tplan.plan(**dict(kw, layout="query_routed", impl="fused"))
+
+
+_QR_REF = {}
+
+
+def _qr_reference(world, probes, k):
+    if (probes, k) not in _QR_REF:
+        _, q, jt, ji, _, _ = world
+        _QR_REF[probes, k] = jsearch.batch_search(
+            ji, jt, jnp.asarray(q), k=k, mesh=_mesh(), layout="query_routed",
+            probes=probes, impl="xla")
+    return _QR_REF[probes, k]
+
+
+@pytest.mark.parametrize("k", [K, 100])
+@pytest.mark.parametrize("probes", [1, 2])
+def test_query_routed_matches_reference_and_point_major(world, probes, k):
+    # k = 100 runs K1's wide kernel on the card; every lookup row is
+    # answered by one query tile's point slab
+    _, q, _, _, tt, ti = world
+    jr = _qr_reference(world, probes, k)
+    tr = batch_search(ti, tt, q, k, layout="query_routed", probes=probes,
+                      device="cpu")
+    assert int(tr.q_cap_overflow) == 0
+    _assert_same(jr, tr)
+    pm = batch_search(ti, tt, q, k, probes=probes, q_cap=256, device="cpu")
+    assert torch.equal(pm.ids, tr.ids) and torch.equal(pm.dists, tr.dists)
+    assert torch.equal(pm.pairs, tr.pairs)
+
+
+@pytest.mark.parametrize("p_cap", [64, 256])
+def test_query_routed_starved_slab_counts_the_same_overflow(world, p_cap):
+    _, q, jt, ji, tt, ti = world
+    jr = jsearch.batch_search(ji, jt, jnp.asarray(q), k=K, mesh=_mesh(),
+                              layout="query_routed", probes=2, p_cap=p_cap,
+                              impl="xla")
+    tr = batch_search(ti, tt, q, K, layout="query_routed", probes=2,
+                      p_cap=p_cap, device="cpu")
+    assert int(tr.q_cap_overflow) > 0
+    _assert_same(jr, tr)
+
+
+def test_query_routed_accounting_equals_per_tile_sums(world):
+    _, q, _, _, tt, ti = world
+    from repro_torch.core import route as troute
+    from repro_torch.core.engine.executors import routed_accounting
+
+    lk = tlookup.build_lookup(tt, torch.as_tensor(q), probes=2)
+    routed = troute.route_by_leaf(lk.vecs, lk.qids, lk.leaves, n_shards=1,
+                                  leaves_per_shard=tt.n_leaves, capacity=512)
+    _, _, qlf, _, _ = troute.cluster_sort(routed, leaf_base=0,
+                                          leaves_per_shard=tt.n_leaves)
+    q_tile, p_cap, offsets = 32, 96, ti.offsets[0]
+    starts = tts.leaf_slab(offsets, qlf[::q_tile], n_entries=tt.n_leaves,
+                           total_rows=ti.rows, cap=p_cap).start
+    pairs, overflow = routed_accounting(offsets, qlf, starts, q_tile=q_tile,
+                                        p_cap=p_cap, n_entries=tt.n_leaves)
+    want_p = want_o = 0
+    for w, s in enumerate(starts.tolist()):
+        t = qlf[w * q_tile:(w + 1) * q_tile]
+        want_p += int(tts.count_pairs(ti.leaves[s:s + p_cap], t))
+        want_o += int(tts.slab_overflow(offsets, tts.last_valid_leaf(t),
+                                        tts.Slab(torch.tensor(s), p_cap),
+                                        n_entries=tt.n_leaves))
+    assert (int(pairs), int(overflow)) == (want_p, want_o)
+    assert want_o > 0 and want_p > 0
+
+
+@pytest.mark.parametrize("k", [3, 100])
+def test_l2topk_slab_start_equals_the_copying_form(world, k):
+    # a point slab read in place from its device-side start gives what the
+    # wrapper gives on the slab's copy, rows counted from the slab's start
+    from repro_torch.kernels.l2topk.ops import l2_topk
+
+    _, q, _, _, _, ti = world
+    qv = torch.as_tensor(q[:40])
+    ql = ti.leaves[torch.arange(0, 40 * 37, 37)]
+    for s in (0, 700, ti.rows - 300):
+        start = torch.tensor([s], dtype=torch.int64)
+        a = l2_topk(ti.vecs, ti.leaves, qv, ql, k=k, p_start=start, p_rows=300)
+        b = l2_topk(ti.vecs[s:s + 300].clone(), ti.leaves[s:s + 300].clone(),
+                    qv, ql, k=k)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with pytest.raises(ValueError, match="p_start"):
+        l2_topk(ti.vecs, ti.leaves, qv, ql, k=k, p_start=torch.tensor(0),
+                p_rows=300)
 
 
 def test_plan_rejects_unknown_values():
@@ -291,6 +386,53 @@ def test_cuda_search_matches_cpu(world, cuda, probes, impl):
         assert torch.equal(getattr(ref, f), getattr(got, f).cpu()), f
     launched = (l2_topk.launches - before[0], fused_topk.launches - before[1])
     assert launched[0 if impl == "pallas" else 1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 20, 100])
+@pytest.mark.parametrize("probes", [1, 2])
+def test_cuda_query_routed_matches_cpu(world, cuda, probes, k):
+    # the query tiles on K1 (k <= 64) and the wide kernel, each slab read
+    # in place, bit-identical to the CPU and to the card's point-major
+    x, q, _, _, tt, _ = world
+    ref = batch_search(build_index(x, tt, device="cpu"), tt, q, k,
+                       layout="query_routed", probes=probes, device="cpu")
+    tree_c = interop.tree_from_numpy([lvl.numpy() for lvl in tt.levels],
+                                     device=cuda)
+    index_c = build_index(x, tree_c, device=cuda)
+    from repro_torch.kernels.l2topk.ops import l2_topk
+
+    before = l2_topk.launches
+    got = batch_search(index_c, tree_c, q, k, layout="query_routed",
+                       probes=probes, device=cuda)
+    torch.cuda.synchronize()
+    assert l2_topk.launches > before
+    pm = batch_search(index_c, tree_c, q, k, probes=probes, q_cap=256,
+                      impl="pallas", device=cuda)
+    for f in ("ids", "dists", "pairs", "q_cap_overflow"):
+        assert torch.equal(getattr(ref, f), getattr(got, f).cpu()), f
+    assert torch.equal(pm.ids, got.ids) and torch.equal(pm.dists, got.dists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 20, 100])
+def test_cuda_l2topk_slab_start_equals_the_copying_form(world, cuda, k):
+    from repro_torch.kernels.l2topk.ops import l2_topk
+    from repro_torch.kernels.l2topk.ref import l2_topk_ref
+
+    x, q, _, _, tt, _ = world
+    ti = build_index(x, interop.tree_from_numpy(
+        [lvl.numpy() for lvl in tt.levels], device=cuda), device=cuda)
+    qv = torch.as_tensor(q[:40], device=cuda)
+    ql = ti.leaves[torch.arange(0, 40 * 37, 37, device=cuda)].contiguous()
+    for s in (0, 700, 2048):
+        start = torch.tensor([s], dtype=torch.int64, device=cuda)
+        a = l2_topk(ti.vecs, ti.leaves, qv, ql, k=k, p_start=start, p_rows=512)
+        pv, pl = ti.vecs[s:s + 512].contiguous(), ti.leaves[s:s + 512].contiguous()
+        b = l2_topk(pv, pl, qv, ql, k=k)
+        c = l2_topk_ref(pv, pl, qv, ql, k)
+        for x1, x2 in ((a, b), (a, c)):
+            assert torch.equal(x1[0], x2[0]) and torch.equal(x1[1], x2[1])
 
 
 @pytest.mark.cuda
