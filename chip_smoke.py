@@ -64,10 +64,10 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      kernel's, the plain version's and one PyTorch yardstick's time, and
      the roofline bound of the same work;
   5. index lifecycle (``Index``), after the P7 phase: a disk probe (1 GiB
-     through ``np.save`` + fsync, ``np.load``, crc32) sets how many rows
-     the phase takes (the main path's 2^24, halved while the script's
-     projected time passes 15 minutes, never below 2^22) and a free-space
-     check (2.5 x the segments' bytes) guards the directory, which lies in
+     through ``np.save`` + fsync, ``np.load``, crc32) gives the disk's
+     rates; the phase takes the main path's 2^24 rows, halved while the
+     disk holds less than 2.5 x the segments' bytes, and 2^22 if the
+     script is past 9 minutes when the phase starts. The directory lies in
      this checkout's git-ignored ``build/`` and is removed at the end.
      ``Index.create`` (bf16 wire, as the main path) then 4 ``append``s of
      2^22 of the main path's rows in id order (each segment 2^23 index
@@ -82,8 +82,7 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      bit-identical to (1), overflow 0, traced; (3) the default
      ``idx.search(q, k=20)`` (layout and model "auto") equal to the plan
      it picks, run explicitly; (4) ``delete`` of 1 % of the ids (from
-     ``--seed``, rounded up to a 2048-id grid so that the compacted rows
-     stay on the wave grid), ``commit``, reopen: both dense impls return
+     ``--seed``), ``commit``, reopen: both dense impls return
      no deleted id and equal a one-shot ``build_index`` + ``batch_search``
      of the live rows; K1 and K2 on 64 waves holding dead rows and K2 on
      a segment's call held against their plain versions bit for bit after
@@ -91,10 +90,12 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      leaves, offsets and vectors equal that rebuild's, search results
      unchanged, and ``gc`` leaves only its files; (6) ``enable_codes()``
      (m 8, bits 8): ``scan_codes`` candidates bit-identical between
-     fusedadc and adcscan, and the reranked distances the exact distances
-     of their ids read through ``read_rows`` on the card. Every kernel of
-     the path (l2topk, fusedscan, l2nn, adcscan, fusedadc) must have been
-     launched. Prints each step's wall time, the bytes on disk, the write
+     fusedadc and adcscan, ``Index.search`` at ``"fused"`` and ``"pallas"``
+     equal, and the reranked distances the exact distances of their ids
+     read through ``read_rows`` on the card. Every kernel of the path
+     (l2topk, fusedscan, l2nn, adcscan, fusedadc) must have been launched
+     by the ``Index`` calls themselves (the one-shot references and the
+     kernel checks are not counted). Prints each step's wall time, the bytes on disk, the write
      and read rates, peak device memory, and K1's query-tile row (64 real
      tiles against the plain version on the slab's copy, timed with it, a
      library top-k and the bound of the tiles' same-leaf pairs);
@@ -167,17 +168,18 @@ F_G, F_LONG = 8, 4096
 # the P7 phase: a k and a rerank depth past the KCAP kernels' lists (64, 128)
 P7_K, P7_RERANK = 100, 256
 # the lifecycle phase: the index grown on disk in LC_APPENDS appends of the
-# main path's rows (halved while the projected time runs past the budget,
-# never below LC_MIN_ROWS in all), in a directory of this checkout's
+# main path's rows (halved while the disk is short, and to LC_MIN_ROWS in
+# all if the phase starts late), in a directory of this checkout's
 # git-ignored build/, which the phase removes
 LC_APPENDS = 4
 LC_MIN_ROWS = 2**22
 LC_DIR = Path(__file__).resolve().parent / "build" / "lifecycle_index"
 LC_FREE_FACTOR = 2.5  # free disk needed, over the segments' bytes
 LC_PROBE_BYTES = 2**30  # the disk probe's array
-LC_SCRIPT_BUDGET_S = 15 * 60  # the script's projected wall past which to cut
-LC_COMPUTE_S = 150.0  # the phase's time off the disk, at full size
-LM_PHASE_S = 120.0  # the script's time after the phase
+# the latest script time at which the phase starts at full size: on the
+# H100 it has started at about 5.5 min, and it and the LM phase after it
+# have taken about 5 min
+LC_LATEST_START_S = 9 * 60
 N_DEAD_WAVES = 64  # K1 waves held on dense tombstones
 N_TILES = 64  # K1 query tiles held and timed
 LC_KERNELS = ("l2topk", "fusedscan", "l2nn", "adcscan", "fusedadc")
@@ -1279,33 +1281,24 @@ def disk_probe(directory: Path, nbytes: int) -> dict:
                 crc32=nbytes / (t3 - t2))
 
 
-def lc_plan_rows(sizes, directory, t_start):
+def lc_plan_rows(sizes, free, elapsed):
     """The rows each append takes: the sift100m index split in
-    ``lc_appends``, halved (not below ``LC_MIN_ROWS`` in all) while the
-    phase's projected time -- its disk traffic at the probe's rates plus
-    its compute -- would take the script past ``LC_SCRIPT_BUDGET_S``.
-    Returns (rows an append, probe rates, projected s, cut note)."""
-    rates = disk_probe(directory, LC_PROBE_BYTES)
+    ``lc_appends``; halved (not below ``LC_MIN_ROWS`` in all) while
+    ``free`` bytes of disk hold less than ``LC_FREE_FACTOR`` times the
+    segments, and cut to ``LC_MIN_ROWS`` in all if the script's ``elapsed``
+    seconds pass ``LC_LATEST_START_S``. Returns (rows an append, cut note
+    or None)."""
     rows = sizes["index_rows"] // sizes["lc_appends"]
-    cut = None
-
-    def projected(r):
-        seg = lc_segment_bytes(sizes, r)
-        # two full writes (appends, compaction), two full reads (open,
-        # reopen) and a crc32 of each, plus compute and the LM phase
-        io = 2 * seg / rates["write"] + 2 * seg / rates["read"] + 4 * seg / rates["crc32"]
-        return io + LC_COMPUTE_S * r / (sizes["index_rows"] // sizes["lc_appends"])
-
-    elapsed = time.perf_counter() - t_start
-    while (elapsed + projected(rows) + LM_PHASE_S > LC_SCRIPT_BUDGET_S
-           and rows * sizes["lc_appends"] // 2 >= LC_MIN_ROWS):
-        cut = (f"halved to {rows // 2} rows an append: {elapsed:.0f} s elapsed + "
-               f"{projected(rows):.0f} s projected at write "
-               f"{rates['write'] / 2**30:.2f} GiB/s, read "
-               f"{rates['read'] / 2**30:.2f} GiB/s, crc32 "
-               f"{rates['crc32'] / 2**30:.2f} GiB/s")
+    least = LC_MIN_ROWS // sizes["lc_appends"]
+    cut = []
+    while rows > least and free < LC_FREE_FACTOR * lc_segment_bytes(sizes, rows):
         rows //= 2
-    return rows, rates, projected(rows), cut
+        cut.append(f"halved to {rows} rows an append: {free / 2**30:.1f} GiB free")
+    if rows > least and elapsed > LC_LATEST_START_S:
+        rows = least
+        cut.append(f"cut to {rows} rows an append: the phase starts at "
+                   f"{elapsed:.0f} s, past {LC_LATEST_START_S} s")
+    return rows, "; ".join(cut) or None
 
 
 def dir_bytes(directory) -> int:
@@ -1341,13 +1334,6 @@ def same_result(a, b, what):
         raise AssertionError(f"{what}: ids or distances differ")
 
 
-def lc_search(idx, run, sizes, **kw):
-    """One timed ``Index.search`` of the main path's queries."""
-    t0 = sync_now()
-    res = idx.search(run["queries"], k=sizes["k"], **kw)
-    return res, sync_now() - t0
-
-
 def dead_row_checks(rt, idx, run, sizes, seed):
     """K1 and K2 on a segment with dense tombstones (rows whose vector is
     ``TOMBSTONE_VEC`` and whose id is -1, keeping their leaf): both on 64
@@ -1363,7 +1349,7 @@ def dead_row_checks(rt, idx, run, sizes, seed):
     with_dead = torch.nonzero(per_wave > 0)[:, 0]
     if with_dead.numel() < N_DEAD_WAVES:
         raise AssertionError(f"only {with_dead.numel()} waves hold dead rows")
-    mid = with_dead.numel() // 2
+    mid = min(with_dead.numel() // 2, with_dead.numel() - N_DEAD_WAVES)
     picks = with_dead[mid:mid + N_DEAD_WAVES].tolist()
     lk = rt.build_lookup(run["tree"], run["queries"], probes=1)
 
@@ -1486,7 +1472,9 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
     from the main path's rows, commit, open, search it four ways, delete,
     compact, enable codes; each step checked as the docstring's phase 5
     says. Frees the main path's index once the rows are appended. Adds the
-    K1 query-tile row and the dead-row checks to ``kernels``."""
+    K1 query-tile row and the dead-row checks to ``kernels``. The path's
+    launch counts are those of the ``Index`` calls alone: the one-shot
+    references, the kernel checks and the traced search run outside them."""
     dev, k = run["queries"].device, sizes["k"]
     queries, tree = run["queries"], run["tree"]
     n = queries.shape[0]
@@ -1500,22 +1488,32 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
     times, rows_of = {}, {r["name"]: r for r in kernels}
     path = dict.fromkeys(LC_KERNELS, 0)  # launches of the lifecycle path
 
-    def take():
-        """Add the launches since the last reset to the path's count."""
+    def on_path(fn, *a, **kw):
+        """One ``Index`` call: its launches, and only they, go to the path."""
+        rt.reset_counts()
+        out = fn(*a, **kw)
         for name in path:
             path[name] += rt.counts()[name]
         rt.reset_counts()
+        return out
 
-    rt.reset_counts()
+    def search(idx, **kw):
+        """One timed ``Index.search`` of the main path's queries."""
+        t0 = sync_now()
+        res = on_path(idx.search, queries, k=k, **kw)
+        return res, sync_now() - t0
+
     try:
-        append_rows, rates, projected, cut = lc_plan_rows(sizes, directory, t_start)
+        elapsed = time.perf_counter() - t_start
+        rates = disk_probe(directory, LC_PROBE_BYTES)
+        free = shutil.disk_usage(directory).free
+        append_rows, cut = lc_plan_rows(sizes, free, elapsed)
         total = append_rows * sizes["lc_appends"]
         need = LC_FREE_FACTOR * lc_segment_bytes(sizes, append_rows)
-        free = shutil.disk_usage(directory).free
-        log(f"lifecycle: disk probe {json.dumps(rates)} B/s; {sizes['lc_appends']} "
-            f"appends of {append_rows} rows ({total} in all"
-            f"{'; ' + cut if cut else ', no cut'}), projected {projected:.0f} s; "
-            f"{free / 2**30:.1f} GiB free, {need / 2**30:.1f} GiB needed")
+        log(f"lifecycle: starts at {elapsed:.0f} s; disk probe {json.dumps(rates)} "
+            f"B/s; {sizes['lc_appends']} appends of {append_rows} rows ({total} in "
+            f"all{'; ' + cut if cut else ', no cut'}); {free / 2**30:.1f} GiB free, "
+            f"{need / 2**30:.1f} GiB needed")
         if free < need:
             raise AssertionError(f"lifecycle: {free / 2**30:.1f} GiB free on the "
                                  f"disk, {need / 2**30:.1f} GiB needed")
@@ -1525,18 +1523,18 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
         valid = index.ids >= 0
         row_of = torch.empty(sizes["index_rows"], dtype=torch.int64, device=dev)
         row_of[index.ids[valid].long()] = torch.nonzero(valid)[:, 0]
-        idx = rt.Index.create(tree, str(directory), device=dev,
-                              wire_dtype=torch.bfloat16)
+        idx = on_path(rt.Index.create, tree, str(directory), device=dev,
+                      wire_dtype=torch.bfloat16)
         for c in range(sizes["lc_appends"]):
             lo, hi = c * append_rows, (c + 1) * append_rows
             chunk = index.vecs[row_of[lo:hi]]
             t0 = sync_now()
-            idx.append(chunk, ids=np.arange(lo, hi))
+            on_path(idx.append, chunk, ids=np.arange(lo, hi))
             times[f"append_{c}"] = sync_now() - t0
             del chunk
         del row_of, valid, index
         t0 = sync_now()
-        version = idx.commit()
+        version = on_path(idx.commit)
         times["commit"] = sync_now() - t0
         written = dir_bytes(directory)
         save_s = span_s(tracer, "index.save")
@@ -1551,7 +1549,7 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
 
         # --- 1. open, and search point-major at both impls ---
         t0 = sync_now()
-        idx = rt.Index.open(str(directory), device=dev)
+        idx = on_path(rt.Index.open, str(directory), device=dev)
         times["open"] = sync_now() - t0
         load_s = span_s(tracer, "index.load")
         if idx.version != version or idx.rows != total:
@@ -1563,9 +1561,8 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
         res = {}
         for name, impl, probes in (("pallas", "pallas", 1), ("fused", "fused", 1),
                                    ("fused_p2", "fused", 2)):
-            res[name], times[f"search_{name}"] = lc_search(
-                idx, run, sizes, layout="point_major", impl=impl, probes=probes,
-                **rows_kw)
+            res[name], times[f"search_{name}"] = search(
+                idx, layout="point_major", impl=impl, probes=probes, **rows_kw)
             if int(res[name].q_cap_overflow) != 0:
                 raise AssertionError(f"segmented {name}: q_cap overflow")
         same_result(res["pallas"], ref["pallas"], "segmented pallas vs one-shot")
@@ -1577,10 +1574,10 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
             f"bit-identical, {ties} ids differ, each inside an exact distance tie")
 
         # --- 2. query-routed on the opened index ---
-        take()
-        qr, times["search_query_routed"] = lc_search(
-            idx, run, sizes, layout="query_routed", impl="xla", probes=1)
-        qr_launches = rt.counts()["l2topk"]
+        before = path["l2topk"]
+        qr, times["search_query_routed"] = search(
+            idx, layout="query_routed", impl="xla", probes=1)
+        qr_launches = path["l2topk"] - before
         if int(qr.q_cap_overflow) != 0:
             raise AssertionError("query-routed: overflow")
         if dev.type == "cuda" and qr_launches <= 0:
@@ -1593,9 +1590,7 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
         log(f"lifecycle 2: query-routed bit-identical to point-major, overflow 0, "
             f"l2topk launched {qr_launches} times (one a real query tile, each "
             f"tile's point slab read in place)")
-        take()
         kernels.append(query_tile_entry(rt, idx, queries, qr_launches, sizes))
-        rt.reset_counts()  # the held and timed launches are not the path's
 
         # --- 3. the default call: layout "auto", the heuristic model ---
         plans = [rt.make_plan(rows=s.rows, n_leaves=idx.n_leaves, n_queries=n,
@@ -1605,10 +1600,10 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
         if len(set(plans)) != 1:
             raise AssertionError(f"segments of one size got plans {plans}")
         p = plans[0]
-        auto, times["search_auto"] = lc_search(idx, run, sizes)
-        explicit, _ = lc_search(idx, run, sizes, layout=p.layout, impl=p.impl,
-                                block_rows=p.block_rows, q_cap=p.q_cap,
-                                q_tile=p.q_tile, p_cap=p.p_cap)
+        auto, times["search_auto"] = search(idx)
+        explicit, _ = search(idx, layout=p.layout, impl=p.impl,
+                             block_rows=p.block_rows, q_cap=p.q_cap,
+                             q_tile=p.q_tile, p_cap=p.p_cap)
         same_result(auto, explicit, "search(layout='auto') vs its plan")
         log(f"lifecycle 3: idx.search(q, k={k}) planned every segment as "
             f"{p.layout}/{p.impl} block_rows {p.block_rows} q_cap {p.q_cap} "
@@ -1619,39 +1614,38 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
 
         # --- 4. delete, commit, reopen; a one-shot rebuild of the live rows
         # is the reference ---
-        n_dead = -(-total // 100 // 2048) * 2048  # 1 %, on a 2048-id grid
+        n_dead = total // 100
         dead = np.sort(np.random.default_rng(seed + 17).choice(
             total, n_dead, replace=False))
         t0 = sync_now()
-        if idx.delete(dead) != n_dead:
+        if on_path(idx.delete, dead) != n_dead:
             raise AssertionError("delete: not every id was tombstoned")
-        idx.commit()
+        on_path(idx.commit)
         times["delete_commit"] = sync_now() - t0
         del idx
         gc.collect()
         torch.cuda.empty_cache()
         t0 = sync_now()
-        idx = rt.Index.open(str(directory), device=dev)
+        idx = on_path(rt.Index.open, str(directory), device=dev)
         times["reopen"] = sync_now() - t0
         live = np.setdiff1d(np.arange(total), dead)
+        t0 = sync_now()
         rebuilt, rref = lc_oneshot(rt, idx, run, sizes, live, keep=True)
+        times["oneshot_rebuild"] = sync_now() - t0
         dead_t = torch.as_tensor(dead, device=dev)
         dres = {}
         for impl in ("pallas", "fused"):
-            dres[impl], times[f"search_deleted_{impl}"] = lc_search(
-                idx, run, sizes, layout="point_major", impl=impl, **rows_kw)
+            dres[impl], times[f"search_deleted_{impl}"] = search(
+                idx, layout="point_major", impl=impl, **rows_kw)
             if bool(torch.isin(dres[impl].ids, dead_t).any()):
                 raise AssertionError(f"delete: a deleted id came back ({impl})")
             same_result(dres[impl], rref, f"delete {impl} vs rebuild")
-        take()
         k1_dead, k2_dead = dead_row_checks(rt, idx, run, sizes, seed)
-        rt.reset_counts()
         rows_of["l2topk"].update(k1_dead)
         rows_of["fusedscan"].update(k2_dead)
-        log(f"lifecycle 4: {n_dead} ids deleted (1 % of {total}, rounded up to a "
-            f"2048-id grid so that the compacted rows stay on the wave grid); "
-            f"both dense impls return no deleted id and equal a one-shot "
-            f"build_index + batch_search of the {live.size} live rows")
+        log(f"lifecycle 4: {n_dead} ids deleted (1 % of {total}); both dense "
+            f"impls return no deleted id and equal a one-shot build_index + "
+            f"batch_search of the {live.size} live rows")
 
         # --- 5. compact: the arrays of that rebuild; gc ---
         ref_small = {f: getattr(rebuilt, f) for f in ("ids", "leaves", "offsets")}
@@ -1660,7 +1654,7 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = sync_now()
-        merged = idx.compact()
+        merged = on_path(idx.compact)
         times["compact"] = sync_now() - t0
         seg = idx.segments[0].index
         if idx.n_segments != 1 or seg.rows != ref_vecs.shape[0]:
@@ -1672,26 +1666,30 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
             if not torch.equal(seg.vecs[s:s + 2**22].cpu(), ref_vecs[s:s + 2**22]):
                 raise AssertionError("compact: vecs differ from the rebuild's")
         del ref_vecs, ref_small
-        after, times["search_compacted"] = lc_search(
-            idx, run, sizes, layout="point_major", impl="fused", **rows_kw)
+        after, times["search_compacted"] = search(
+            idx, layout="point_major", impl="fused", **rows_kw)
         same_result(after, dres["fused"], "compacted vs before compaction")
-        report = idx.gc()
+        report = on_path(idx.gc)
         seg_dir = directory / "segments"
         left = sorted(os.listdir(seg_dir))
         if left != [merged] or len(rt.manifest_versions(str(directory))) != 1:
             raise AssertionError(f"gc left segments {left}")
-        log(f"lifecycle 5: compact() left one segment ({merged}, {seg.rows} rows) "
-            f"whose ids, leaves, offsets and vecs equal the rebuild's; results "
-            f"unchanged; gc removed {json.dumps({k_: len(v) for k_, v in report.items()})}")
+        block = rt.make_plan(rows=seg.rows, n_leaves=idx.n_leaves, n_queries=n,
+                             n_shards=1, k=k, **rows_kw).block_rows
+        log(f"lifecycle 5: compact() left one segment ({merged}, {seg.rows} rows, "
+            f"block_rows {block} of the {sizes['block_rows']} asked: "
+            f"{seg.rows // block} waves a sweep) whose ids, leaves, offsets and "
+            f"vecs equal the rebuild's; results unchanged; gc removed "
+            f"{json.dumps({k_: len(v) for k_, v in report.items()})}")
         del dres, after
 
         # --- 6. codes: K5 and K4 give the same candidates; the reranked
         # distances are the exact distances of their ids ---
         t0 = sync_now()
-        pq = idx.enable_codes()
+        pq = on_path(idx.enable_codes)
         times["enable_codes"] = sync_now() - t0
         t0 = sync_now()
-        idx.commit()
+        on_path(idx.commit)
         times["codes_commit"] = sync_now() - t0
         view = idx.segment_views()[0]
         lookup = rt.build_lookup(tree, queries, probes=1)
@@ -1706,11 +1704,15 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
         a, b = cand["fused"], cand["pallas"]
         if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)):
             raise AssertionError("codes: fusedadc and adcscan candidates differ")
-        # the search itself (fused): its candidates rerank to these rows
-        r, times["search_codes_fused"] = lc_search(
-            idx, run, sizes, layout="scan_codes", impl="fused", **rows_kw)
+        # the searches themselves: the same candidates rerank to the same rows
+        cres = {}
+        for impl in ("fused", "pallas"):
+            cres[impl], times[f"search_codes_{impl}"] = search(
+                idx, layout="scan_codes", impl=impl, **rows_kw)
+        same_result(cres["pallas"], cres["fused"], "codes: Index.search pallas vs fused")
+        r = cres["fused"]
         ok = r.ids >= 0
-        rows = idx.read_rows(r.ids[ok])
+        rows = on_path(idx.read_rows, r.ids[ok])
         q = queries[:, None, :].expand(-1, k, -1)[ok]
         diff = rows - q
         if not (torch.equal((diff * diff).sum(-1), r.dists[ok])
@@ -1719,22 +1721,23 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
                                  "distances of their ids")
         log(f"lifecycle 6: enable_codes (m {pq.m}, bits {pq.bits}); scan_codes "
             f"candidates bit-identical between fusedadc and adcscan "
-            f"(rerank {a.ids.shape[1]}); reranked top-{k} distances equal the "
-            f"exact distances of their ids read through read_rows on the card")
-        del cand, a, b, r, rows, q, diff, lookup, view
+            f"(rerank {a.ids.shape[1]}), and so the two searches' results; "
+            f"reranked top-{k} distances equal the exact distances of their ids "
+            f"read through read_rows on the card")
+        del cand, cres, a, b, r, rows, q, diff, lookup, view
 
-        take()
         missing = [name for name, v in path.items() if v <= 0]
         if dev.type == "cuda" and missing:
             raise AssertionError(f"lifecycle path: {missing} never launched "
                                  f"({json.dumps(path)})")
         on_disk = dir_bytes(directory)
         stats = dict(append_rows=append_rows, appends=sizes["lc_appends"],
-                     rows=total, cut=cut, probe=rates, projected_s=projected,
+                     rows=total, cut=cut, start_s=elapsed, probe=rates,
                      segment_bytes=written, bytes_on_disk_end=on_disk,
                      save_s=save_s, write_gib_s=written / save_s / 2**30,
                      load_s=load_s, read_gib_s=written / load_s / 2**30,
-                     deleted=int(n_dead), launches=path,
+                     deleted=int(n_dead), compacted_block_rows=block,
+                     launches=path,
                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                      times=times)
         log(f"lifecycle: {json.dumps(stats)}")

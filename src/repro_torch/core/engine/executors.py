@@ -251,16 +251,16 @@ def _query_routed_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
         cand_d = torch.empty((n_real, k), dtype=torch.float32, device=dev)
         cand_i = torch.empty((n_real, k), dtype=torch.int32, device=dev)
         for w, qs in enumerate(range(0, n_real, q_tile)):
-            start = starts[w:w + 1]
-            qv = qv_all[qs:qs + q_tile]
-            d, sel = l2topk_ops.l2_topk(vecs, leaves, qv, qlf_all[qs:qs + q_tile],
-                                        k=k, p_start=start, p_rows=p_cap)
-            i = torch.where(sel >= 0, ids[(start + sel.clamp(min=0)).long()],
-                            INVALID_ID)
-            # the tile's true squared distances (dead and absent rows: inf)
-            cand_d[qs:qs + q_tile] = (torch.where(i >= 0, d, torch.inf)
-                                      + sq_norms(qv)[:, None])
-            cand_i[qs:qs + q_tile] = i
+            cand_d[qs:qs + q_tile], cand_i[qs:qs + q_tile] = l2topk_ops.l2_topk(
+                vecs, leaves, qv_all[qs:qs + q_tile], qlf_all[qs:qs + q_tile],
+                k=k, p_start=starts[w:w + 1], p_rows=p_cap)
+        # slab rows to ids, then the true squared distances (dead and
+        # absent rows: inf), once over every tile
+        rows = starts[:n_real // q_tile].repeat_interleave(q_tile)[:, None]
+        cand_i = torch.where(cand_i >= 0, ids[(rows + cand_i.clamp(min=0)).long()],
+                             INVALID_ID)
+        cand_d = (torch.where(cand_i >= 0, cand_d, torch.inf)
+                  + sq_norms(qv_all[:n_real])[:, None])
         pairs, overflow = routed_accounting(
             offsets, qlf_all, starts, q_tile=q_tile, p_cap=p_cap, n_entries=lps)
         # one scatter back to flat slot order (each lookup row was answered
