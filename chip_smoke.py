@@ -99,6 +99,30 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      and read rates, peak device memory, and K1's query-tile row (64 real
      tiles against the plain version on the slab's copy, timed with it, a
      library top-k and the bound of the tiles' same-leaf pairs);
+     Inside it, after check (3), the serving phase (``repro_torch.serving``)
+     on the 4 appended segments: 4,096 one-image requests (256 of the
+     index's rows an image, moved by the trace's noise of 4; Zipf s = 1.1
+     over the 65,536 images, trace seed 1, all at t = 0) through
+     ``MicroBatcher`` (EDF) over a fused ``SearchSession`` (rungs 8192,
+     16384, 32768 rows): latency percentiles on the batcher's clock, engine
+     ms an image, 0 steady-state recompiles, and over the steady state
+     exactly 4 fusedscan launches and 1 l2nn launch a dispatch; 8
+     dispatched batches replayed through ``Index.search`` with their rung's
+     plan, and a FIFO replay, bit-identical; two ``impl="xla"`` sessions
+     (point-major, query-routed; one 2^15-row rung, 2 recorded dispatches
+     each) calibrate the card, ``commit`` persists the records, and the
+     default ``idx.search(q, k=20)`` is then planned again and timed
+     (ROADMAP P10); a 2-shard ``ShardedSearchSession`` equal to the
+     unsharded one over 256 requests. After check (4)'s delete + commit the
+     session's ``maybe_refresh`` adopts the new cut and equals
+     ``Index.search`` with no deleted id; after (6) a fused ``scan_codes``
+     session (fusedadc, then the exact rerank) equals ``Index.search`` on
+     256 requests; the phase's tracer is written under ``build/`` as a
+     Chrome trace and as JSONL, each read by ``scripts/tracereport.py``.
+     After the phase, ``python -m repro_torch.launch.serve`` (200,000 rows,
+     d = 128, 2,000 images, fanouts 32 x 32, a Zipf trace of 500 requests)
+     runs as a subprocess on the card and must exit 0 with 0 steady-state
+     recompiles;
   6. LM serving path, after the search phases' tensors are dropped: gemma3-4b
      at full width and depth (34 layers, bf16 weights drawn on the card from
      ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
@@ -183,6 +207,22 @@ LC_LATEST_START_S = 9 * 60
 N_DEAD_WAVES = 64  # K1 waves held on dense tombstones
 N_TILES = 64  # K1 query tiles held and timed
 LC_KERNELS = ("l2topk", "fusedscan", "l2nn", "adcscan", "fusedadc")
+# the serving phase: one-image requests over the grown index's images
+SV_DPI = 256  # descriptors an image (the paper's collection: about 300)
+SV_REQUESTS = 4096
+SV_SEED = 1  # trace seed
+SV_NOISE = 4.0
+SV_ZIPF = 1.1
+SV_BUCKETS = (8192, 16384, 32768)  # the fused session's rungs
+SV_RATE = 4000.0  # paced trace: images a second, about half the H100's burst rate
+SV_CACHE_REQUESTS = 512  # paced requests of the cache step
+SV_CACHE_LEAVES = 8192  # the cache step's capacity (hot leaves hold about 400 KiB)
+SV_REPLAYS = 8  # dispatched batches replayed through Index.search
+SV_SUBSET = 256  # requests of the sharded and codes checks
+SV_CAL_DISPATCHES = 2  # recorded dispatches of each calibrating session
+SV_TRACE = Path(__file__).resolve().parent / "build" / "serving_trace.json"
+SV_CLI = ("--rows", "200000", "--dim", "128", "--images", "2000", "--fanout",
+          "32", "32", "--trace", "zipf", "--requests", "500")
 SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
              fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
              k1_waves=K1_WAVES, n_sample=N_SAMPLE, lc_appends=LC_APPENDS,
@@ -1612,6 +1652,16 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
             f"{int(auto.q_cap_overflow)}")
         del auto, explicit, qr
 
+        # --- the serving phase on the grown index (steps 1-5) ---
+        t0 = time.perf_counter()
+        sv = serving_phase(rt, idx, run, sizes, times, p)
+        times["serving"] = time.perf_counter() - t0
+        for name, n_launch in sv["stats"]["launches"].items():
+            rows_of[name]["serving_launches"] = n_launch
+        rows_of["l2topk"]["serving_launches"] = sum(
+            c["l2topk"] for c in sv["stats"]["calibration"].values()
+        ) + sv["stats"]["cache"]["launches"]["l2topk"]
+
         # --- 4. delete, commit, reopen; a one-shot rebuild of the live rows
         # is the reference ---
         n_dead = total // 100
@@ -1622,6 +1672,10 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
             raise AssertionError("delete: not every id was tombstoned")
         on_path(idx.commit)
         times["delete_commit"] = sync_now() - t0
+        t0 = time.perf_counter()
+        serving_refresh(rt, sv, idx, dead, k)
+        times["serving_refresh"] = time.perf_counter() - t0
+        del sv["session"]
         del idx
         gc.collect()
         torch.cuda.empty_cache()
@@ -1725,6 +1779,11 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
             f"reranked top-{k} distances equal the exact distances of their ids "
             f"read through read_rows on the card")
         del cand, cres, a, b, r, rows, q, diff, lookup, view
+        t0 = time.perf_counter()
+        serving_codes(rt, sv, idx, k)
+        rows_of["fusedadc"]["serving_launches"] = sv["stats"]["codes"]["fusedadc"]
+        serving_trace_files(rt, tracer, sv["stats"])
+        times["serving_codes_trace"] = time.perf_counter() - t0
 
         missing = [name for name, v in path.items() if v <= 0]
         if dev.type == "cuda" and missing:
@@ -1737,7 +1796,7 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
                      save_s=save_s, write_gib_s=written / save_s / 2**30,
                      load_s=load_s, read_gib_s=written / load_s / 2**30,
                      deleted=int(n_dead), compacted_block_rows=block,
-                     launches=path,
+                     launches=path, serving=sv["stats"],
                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                      times=times)
         log(f"lifecycle: {json.dumps(stats)}")
@@ -1748,6 +1807,461 @@ def lifecycle_phase(rt, run, sizes, seed, kernels, t_start):
     gc.collect()
     torch.cuda.empty_cache()
     return stats
+
+
+# ---------------------------------------------------------------------------
+# the serving phase (repro_torch.serving on the lifecycle's grown index)
+# ---------------------------------------------------------------------------
+
+
+class ImageRows:
+    """The traces' images' descriptor rows, read in one call from the index
+    on the card (``Index.read_rows``) and held on the host: a store with
+    ``read_rows`` for ``TraceLoadGenerator`` (image ``i`` owns ids
+    ``[i * dpi, (i + 1) * dpi)``, the main path's row ids). Without an
+    index it reads zeros (a dry pass that learns a trace's image ids)."""
+
+    def __init__(self, idx, image_ids, dpi: int, dim: int = DIM):
+        self.dpi, self.dim, self.rows = dpi, dim, None
+        if idx is None:
+            return
+        uniq = np.unique(np.asarray(image_ids, np.int64))
+        ids = (uniq[:, None] * dpi + np.arange(dpi)).reshape(-1)
+        rows = idx.read_rows(torch.as_tensor(ids, device=idx.device))
+        self.rows = rows.cpu().numpy().reshape(uniq.size, dpi, -1)
+        self.slot = dict(zip(uniq.tolist(), range(uniq.size)))
+
+    def read_rows(self, rows):
+        rows = np.asarray(rows, np.int64)
+        if self.rows is None:
+            return np.zeros((rows.size, self.dim), np.float32)
+        img = np.array([self.slot[int(i)] for i in rows // self.dpi])
+        return self.rows[img, rows % self.dpi]
+
+
+def serving_requests(rt, idx, n_images: int):
+    """The phase's two traces of ``SV_REQUESTS`` one-image requests over the
+    index's images (``SV_DPI`` rows each, moved by the trace's noise, trace
+    seed ``SV_SEED``): a paced multi-tenant stream (``default_tenant_mix``
+    at ``SV_RATE`` images a second: interactive and standard traffic Zipf
+    over their own hot sets, batch traffic uniform in 8-fold bursts), and a
+    burst, Zipf s = ``SV_ZIPF``, all at t = 0 (the throughput reading)."""
+    mix = rt.serving.default_tenant_mix(SV_REQUESTS, rate=SV_RATE)
+    image_ids, arrivals = rt.synth.sample_trace(
+        SV_REQUESTS, n_images, skew="zipf", zipf_s=SV_ZIPF, seed=SV_SEED)
+    # the multi-tenant draw picks its images inside: a dry pass over zeros
+    # learns them, so the index is read once for both traces
+    dry = rt.serving.TraceLoadGenerator(ImageRows(None, (), SV_DPI, idx.dim),
+                                        SV_DPI, noise=SV_NOISE, seed=SV_SEED)
+    paced_ids = [r.image_id for r in dry.multi_tenant(mix, n_images)]
+    rows = ImageRows(idx, np.concatenate([paced_ids, image_ids]), SV_DPI)
+    gen = rt.serving.TraceLoadGenerator(rows, SV_DPI, noise=SV_NOISE,
+                                        seed=SV_SEED)
+    return gen.multi_tenant(mix, n_images), gen.requests(image_ids, arrivals)
+
+
+def per_request(results, reqs):
+    """Split one search's ``(ids, dists)`` rows back into the requests'."""
+    ids, dists = (results.ids.cpu().numpy(), results.dists.cpu().numpy()) \
+        if hasattr(results, "ids") else results
+    out, off = [], 0
+    for r in reqs:
+        out.append((ids[off:off + r.rows], dists[off:off + r.rows]))
+        off += r.rows
+    return out
+
+
+def same_requests(a, b, what):
+    """Raise unless two lists of per-request ``(ids, dists)`` are equal bit
+    for bit."""
+    for i, ((ia, da), (ib, db)) in enumerate(zip(a, b)):
+        if not (np.array_equal(ia, ib) and np.array_equal(da, db)):
+            raise AssertionError(f"{what}: request {i} differs")
+
+
+def replay_direct(rt, idx, session, reqs, k):
+    """``Index.search`` over one dispatch's requests with the rung's plan."""
+    q = np.concatenate([r.queries for r in reqs])
+    rung = session._runtimes[rt.snap_to_bucket(q.shape[0], session.buckets)]
+    return per_request(idx.search(q, k=k, plan=rung.plan), reqs)
+
+
+def steady_launches(rt, fn):
+    """Kernel launches of ``fn()`` alone (counts zeroed before, read after)."""
+    rt.reset_counts()
+    out = fn()
+    counts = rt.counts()
+    rt.reset_counts()
+    return out, counts
+
+
+def latency_line(m):
+    lat = m.latency.summary()
+    return (f"p50 {lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms, p99 "
+            f"{lat['p99_ms']:.1f} ms on the batcher's clock; engine "
+            f"{m.ms_per_image:.3f} ms an image over {m.engine_batches} dispatches")
+
+
+def class_latency(m) -> dict:
+    """Per priority class: p50 / p99 on the batcher's clock (ms), and the
+    requests shed or rejected."""
+    out = {}
+    for name, cm in sorted(m.per_class.items()):
+        lat = cm.latency.summary()
+        out[name] = dict(p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+                         completed=cm.completed, shed=cm.shed,
+                         rejected=cm.rejected)
+    return out
+
+
+def engine_order(done) -> list:
+    """The engine-served requests' ids in completion order (each dispatch's
+    requests together): the dispatch sequence a scheduler produced."""
+    return [c.rid for c in done if c.source == "engine"]
+
+
+def served(done) -> dict:
+    return {c.rid: (c.ids, c.dists) for c in done if c.ids is not None}
+
+
+def default_plan(rt, idx, n, k):
+    """What the default ``idx.search(q, k)`` resolves every segment to
+    (layout and model "auto"; the segments are one size): the plan, the
+    candidates whose signature the calibration lacks at those shapes, and
+    which model decided."""
+    seg_rows = idx.segment_views()[0].rows
+    shape_kw = dict(rows=seg_rows, n_leaves=idx.n_leaves, n_queries=n,
+                    n_shards=1)
+    p = rt.make_plan(k=k, layout="auto", calibration=idx.calibration,
+                     **shape_kw)
+    shapes = rt.PlanShapes(**shape_kw)
+    cands = tuple(rt.make_plan(k=k, layout=lay, **shape_kw)
+                  for lay in ("point_major", "query_routed"))
+    missing = [rt.signature_key(rt.plan_signature(c)) for c in cands
+               if idx.calibration.mean_ms(c, shapes) is None]
+    _, decided_by = rt.resolve_model("auto", idx.calibration).decide(
+        cands, shapes)
+    return p, missing, decided_by
+
+
+def serving_phase(rt, idx, run, sizes, times, plan_before):
+    """Steps 1-5 of the serving phase on the grown index: the fused dense
+    session under EDF, its batches replayed through ``Index.search``, FIFO
+    equal to EDF, the calibration that decides the default search (P10),
+    and the sharded session equal to the unsharded one. Returns the state
+    the later steps need."""
+    dev, k = run["queries"].device, sizes["k"]
+    queries = run["queries"]
+    nq = queries.shape[0]  # the calibration rung: the default search's batch
+    n_images = idx.rows // SV_DPI
+    t0 = time.perf_counter()
+    paced, burst = serving_requests(rt, idx, n_images)
+    out = dict(requests=len(paced), images=n_images,
+               distinct=len({r.image_id for r in paced}),
+               rate_images_per_s=SV_RATE, trace_s=time.perf_counter() - t0)
+
+    # --- 1. the fused dense session, EDF, on the paced multi-tenant trace ---
+    s = rt.serving.SearchSession(idx, k=k, layout="point_major", impl="fused",
+                                 buckets=SV_BUCKETS)
+    out["warmup_ms"] = s.warmup()
+    out["warmed_builds"] = s.recompiles()
+    edf, counts = steady_launches(rt, lambda: rt.serving.MicroBatcher(
+        s, max_queue=SV_REQUESTS, scheduler="edf").run(paced))
+    m = s.metrics
+    n_disp = m.engine_batches
+    segs = len(s._segments)
+    steady = s.steady_state_recompiles()
+    want = {"fusedscan": n_disp * segs, "l2nn": n_disp, "l2topk": 0}
+    got = {name: counts[name] for name in want}
+    classes = class_latency(m)
+    log(f"serving 1: {len(paced)} one-image requests ({out['distinct']} "
+        f"distinct of {n_images} images, {SV_DPI} descriptors each), paced "
+        f"multi-tenant at {SV_RATE:.0f} images/s, through MicroBatcher (EDF) "
+        f"over the fused session (rungs {list(SV_BUCKETS)}, {segs} segments): "
+        f"{latency_line(m)}; per class {json.dumps(classes)}; steady-state "
+        f"recompiles {steady} (executors and device segments); launches "
+        f"{json.dumps(got)}")
+    if steady != 0:
+        raise AssertionError(f"serving: {steady} steady-state recompiles")
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"serving launches {got}, want {want}")
+    lat = m.latency.summary()
+    out.update(edf_dispatches=n_disp, edf_ms_per_image=m.ms_per_image,
+               edf_engine_ms=m.engine_ms, p50_ms=lat["p50_ms"],
+               p95_ms=lat["p95_ms"], p99_ms=lat["p99_ms"], edf_classes=classes,
+               launches={"fusedscan": got["fusedscan"], "l2nn": got["l2nn"]},
+               steady_state_recompiles=steady)
+    votes = [np.bincount(c.ids[:, 0][c.ids[:, 0] >= 0] // SV_DPI).argmax()
+             == c.image_id for c in edf if c.ids is not None]
+    out["recall_at_1_images"] = float(np.mean(votes))
+
+    # --- 2. dispatched batches replayed through Index.search ---
+    by_rid = served(edf)
+    req_of = {r.rid: r for r in paced}
+    dispatches = [sp.attrs["rids"] for sp in rt.obs.get_tracer().spans
+                  if sp.name == "engine.dispatch"][-n_disp:]
+    t0 = sync_now()
+    for rids in dispatches[:SV_REPLAYS]:
+        batch = [req_of[r] for r in rids]
+        same_requests([by_rid[r] for r in rids],
+                      replay_direct(rt, idx, s, batch, k),
+                      "serving 2: a dispatched batch vs Index.search")
+    out["replay_s"] = sync_now() - t0
+    log(f"serving 2: {min(SV_REPLAYS, len(dispatches))} dispatched batches "
+        f"replayed through Index.search with their rung's plan: ids and "
+        f"distances bit-identical")
+
+    # the burst: every request at t = 0, so every dispatch is a full rung
+    # (the throughput reading; its percentiles are the queue's drain)
+    s.metrics = rt.serving.ServingMetrics()
+    rt.serving.MicroBatcher(s, max_queue=SV_REQUESTS, scheduler="edf").run(burst)
+    mb = s.metrics
+    out.update(burst_dispatches=mb.engine_batches,
+               burst_ms_per_image=mb.ms_per_image,
+               burst_images_per_s=1e3 / mb.ms_per_image)
+    log(f"serving 1b: a burst of {len(burst)} requests at t = 0 "
+        f"({len({r.image_id for r in burst})} distinct images, Zipf s = "
+        f"{SV_ZIPF}): {mb.engine_batches} dispatches, engine "
+        f"{mb.ms_per_image:.4f} ms an image ({1e3 / mb.ms_per_image:.0f} "
+        f"images/s)")
+
+    # one full dispatch (128 images) timed, then traced: where its wall goes
+    batch = [r.queries for r in burst[:nq // SV_DPI]]
+    t0 = sync_now()
+    s.serve_many(batch)
+    wall = sync_now() - t0
+    ev, busy = device_trace(lambda: s.serve_many(batch))
+    log_trace("serving dispatch", ev, busy, wall, 6)
+    out.update(dispatch_wall_s=wall, dispatch_busy_s=busy)
+
+    # --- 3. FIFO on the paced trace: another dispatch sequence ---
+    s.metrics = rt.serving.ServingMetrics()
+    fifo = rt.serving.MicroBatcher(s, max_queue=SV_REQUESTS,
+                                   scheduler="fifo").run(paced)
+    f_by = served(fifo)
+    both = sorted(set(by_rid) & set(f_by))
+    same_requests([by_rid[r] for r in both], [f_by[r] for r in both],
+                  "serving 3: FIFO vs EDF")
+    if engine_order(fifo) == engine_order(edf):
+        raise AssertionError("serving 3: EDF dispatched the paced trace in "
+                             "FIFO's order: the check compares nothing")
+    out.update(fifo_dispatches=s.metrics.engine_batches,
+               fifo_classes=class_latency(s.metrics), fifo_edf_compared=len(both))
+    log(f"serving 3: FIFO on the paced trace ({s.metrics.engine_batches} "
+        f"dispatches against EDF's {n_disp}, another order): ids and "
+        f"distances of all {len(both)} requests both served bit-identical to "
+        f"EDF's; FIFO per class {json.dumps(out['fifo_classes'])}")
+    s.metrics = m
+
+    # --- 3b. the hot-leaf cache on the card: hits through K1 ---
+    out["cache"] = serving_cache(rt, idx, k, paced[:SV_CACHE_REQUESTS], by_rid)
+
+    # --- 4. calibration: the default search's plan before and after ---
+    p_b = plan_before
+    log(f"serving 4: before: idx.search(q, k={k}) resolves to {p_b.layout}/"
+        f"{p_b.impl} ({times['search_auto']:.3f} s in lifecycle 3)")
+    cal = {}
+    for layout in ("point_major", "query_routed"):
+        cs = rt.serving.SearchSession(idx, k=k, layout=layout, impl="xla",
+                                      buckets=(nq,))
+        t0 = sync_now()
+        cs.warmup()
+        warm = sync_now() - t0
+        per = nq // SV_DPI
+        recorded, counts = steady_launches(rt, lambda: [
+            cs.serve_many([r.queries for r in burst[i * per:(i + 1) * per]])
+            for i in range(SV_CAL_DISPATCHES)])
+        cal[layout] = dict(warmup_s=warm, ms_per_image=cs.metrics.ms_per_image,
+                           dispatch_s=cs.metrics.engine_ms / 1e3
+                           / cs.metrics.engine_batches,
+                           l2topk=counts["l2topk"], l2nn=counts["l2nn"],
+                           steady=cs.steady_state_recompiles())
+        if cal[layout]["steady"] != 0:
+            raise AssertionError(f"serving 4: {layout} session rebuilt")
+        if dev.type == "cuda" and (counts["l2topk"] <= 0 or counts["l2nn"]
+                                   != SV_CAL_DISPATCHES):
+            raise AssertionError(f"serving 4: {layout} launches {counts}")
+        del cs, recorded
+    version = idx.commit()
+    p_a, missing, decided_by = default_plan(rt, idx, nq, k)
+    t0 = sync_now()
+    res = idx.search(queries, k=k)
+    wall = sync_now() - t0
+    explicit = idx.search(queries, k=k, layout=p_a.layout, impl=p_a.impl,
+                          block_rows=p_a.block_rows, q_cap=p_a.q_cap,
+                          q_tile=p_a.q_tile, p_cap=p_a.p_cap)
+    same_result(res, explicit, "serving 4: default search vs its plan")
+    out.update(calibration=cal, commit_version=version,
+               plan_before=f"{p_b.layout}/{p_b.impl}",
+               wall_before_s=times["search_auto"],
+               plan_after=f"{p_a.layout}/{p_a.impl}", wall_after_s=wall,
+               decided_by=decided_by,
+               missing_signatures=missing)
+    log(f"serving 4: two xla sessions (rung {nq}) recorded "
+        f"{SV_CAL_DISPATCHES} dispatches each after warmup "
+        f"({json.dumps(cal)}); commit -> manifest v{version}; after: "
+        f"idx.search(q, k={k}) resolves to {p_a.layout}/{p_a.impl} (decided by "
+        f"{out['decided_by']}), {wall:.3f} s, equal to that plan run "
+        f"explicitly" + (f"; signatures missing: {missing}" if missing else ""))
+    del res, explicit
+
+    # --- 5. sharded equals unsharded ---
+    sub = paced[:SV_SUBSET]
+    q_sub = np.concatenate([r.queries for r in sub])
+    sh = rt.serving.ShardedSearchSession(idx, shards=2, k=k,
+                                         layout="point_major", impl="fused",
+                                         buckets=SV_BUCKETS)
+    sh.warmup()
+    a, b = sh.search(q_sub), s.search(q_sub)
+    same_requests(per_request(a, sub), per_request(b, sub),
+                  "serving 5: sharded vs unsharded")
+    if sh.steady_state_recompiles() != 0:
+        raise AssertionError("serving 5: the sharded session rebuilt")
+    log(f"serving 5: ShardedSearchSession (2 shards, "
+        f"{sh.shard_plan.describe()}) over {len(sub)} requests: bit-identical "
+        f"to the unsharded session; steady-state recompiles 0")
+    del sh, a, b
+    return dict(session=s, requests=paced, stats=out, nq=nq)
+
+
+def serving_cache(rt, idx, k, reqs, reference):
+    """Step 3b: a fused session with the hot-leaf cache on over the paced
+    trace's first requests. Its slabs live on the card and every hit is one
+    K1 launch; every answer, hit or dispatch, equals the cache-free EDF
+    run's bit for bit."""
+    dev = idx.device
+    cs = rt.serving.SearchSession(
+        idx, k=k, layout="point_major", impl="fused", buckets=SV_BUCKETS,
+        cache_leaves=SV_CACHE_LEAVES, cache_admit_after=2,
+        cache_eviction="lru")
+    cs.warmup()
+    t0 = time.perf_counter()
+    done, counts = steady_launches(rt, lambda: rt.serving.MicroBatcher(
+        cs, max_queue=SV_REQUESTS, scheduler="edf").run(reqs))
+    wall = time.perf_counter() - t0
+    got = served(done)
+    both = sorted(set(got) & set(reference))
+    same_requests([got[r] for r in both], [reference[r] for r in both],
+                  "serving 3b: cached session vs the EDF run")
+    c, m = cs.cache, cs.metrics
+    n_disp, segs = m.engine_batches, len(cs._segments)
+    want = {"l2topk": c.hits, "fusedscan": n_disp * segs, "l2nn": n_disp}
+    launches = {name: counts[name] for name in want}
+    if c.hits == 0:
+        raise AssertionError("serving 3b: the cache answered no request")
+    if dev.type == "cuda" and (launches != want or not all(
+            t.is_cuda for slab in c._slabs.values() for t in slab)):
+        raise AssertionError(f"serving 3b: launches {launches}, want {want}, "
+                             "or a slab off the card")
+    hit_ms = [d.compute_ms for d in done if d.source == "cache"]
+    stats = dict(requests=len(reqs), hits=c.hits, hit_rate=c.hit_rate,
+                 cached_leaves=c.n_cached_leaves, evictions=c.evictions,
+                 resident_mib=c.resident_bytes / 2**20,
+                 hit_ms_mean=float(np.mean(hit_ms)), dispatches=n_disp,
+                 steady_state_recompiles=cs.steady_state_recompiles(),
+                 launches=launches, wall_s=wall)
+    log(f"serving 3b: hot-leaf cache ({SV_CACHE_LEAVES} leaves, admit after "
+        f"2, lru) over the paced trace's first {len(reqs)} requests: "
+        f"{c.hits} hits ({c.hit_rate:.3f}), {stats['resident_mib']:.1f} MiB "
+        f"of slabs on the card, a hit {stats['hit_ms_mean']:.3f} ms (one K1 "
+        f"launch); {len(both)} answers bit-identical to the cache-free run; "
+        f"launches {json.dumps(launches)}; steady-state recompiles "
+        f"{stats['steady_state_recompiles']} (not gated: the slabs share the "
+        f"allocator); {wall:.1f} s")
+    return stats
+
+
+def serving_refresh(rt, sv, idx, dead, k):
+    """Step 6: after the delete + commit, the session adopts the new cut,
+    and a batch equals ``Index.search`` on it with no deleted id."""
+    s = sv["session"]
+    if not s.maybe_refresh():
+        raise AssertionError("serving 6: maybe_refresh() adopted nothing")
+    sub = sv["requests"][:sv["nq"] // SV_DPI]
+    got = per_request(s.search(np.concatenate([r.queries for r in sub])), sub)
+    same_requests(got, replay_direct(rt, idx, s, sub, k),
+                  "serving 6: refreshed session vs Index.search")
+    ids = np.concatenate([g[0] for g in got])
+    if np.isin(ids, dead).any():
+        raise AssertionError("serving 6: a deleted id came back")
+    if s.steady_state_recompiles() != 0:
+        raise AssertionError("serving 6: rebuilt after the refresh's warmup")
+    sv["stats"]["refresh_version"] = s.pinned_version
+    log(f"serving 6: maybe_refresh() adopted manifest v{s.pinned_version} "
+        f"(warmed before it returned); {len(sub)} requests equal Index.search "
+        f"on the post-delete index, no deleted id in any result")
+
+
+def serving_codes(rt, sv, idx, k):
+    """Step 7: a fused scan_codes session (K5, then the exact rerank)
+    equals ``Index.search(layout="scan_codes", impl="fused")``."""
+    nq = sv["nq"]
+    cs = rt.serving.SearchSession(idx, k=k, layout="scan_codes", impl="fused",
+                                  buckets=(nq,))
+    cs.warmup()
+    per = nq // SV_DPI
+    sub = sv["requests"][:SV_SUBSET]
+    chunks = [sub[i:i + per] for i in range(0, len(sub), per)]
+    got, counts = steady_launches(rt, lambda: [
+        cs.serve_many([r.queries for r in c]) for c in chunks])
+    for c, g in zip(chunks, got):
+        same_requests(g, replay_direct(rt, idx, cs, c, k),
+                      "serving 7: codes session vs Index.search")
+    if cs.steady_state_recompiles() != 0:
+        raise AssertionError("serving 7: the codes session rebuilt")
+    want = len(chunks) * len(cs._segments)
+    if idx.device.type == "cuda" and counts["fusedadc"] != want:
+        raise AssertionError(f"serving 7: fusedadc launched "
+                             f"{counts['fusedadc']} times, want {want}")
+    sv["stats"]["codes"] = dict(dispatches=len(chunks),
+                                fusedadc=counts["fusedadc"],
+                                ms_per_image=cs.metrics.ms_per_image)
+    log(f"serving 7: scan_codes session (fused, rerank "
+        f"{cs._runtimes[nq].rerank}) over {len(sub)} requests equals "
+        f"Index.search(layout='scan_codes', impl='fused') after the exact "
+        f"rerank; fusedadc launched {counts['fusedadc']} times")
+
+
+def serving_trace_files(rt, tracer, stats):
+    """Step 9: the phase's tracer as a Chrome trace and as JSONL under
+    ``build/``, each read by the stdlib-only ``scripts/tracereport.py``."""
+    out = {}
+    for path in (SV_TRACE, SV_TRACE.with_suffix(".jsonl")):
+        rt.obs.export_trace(tracer, str(path))
+        rep = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                                 / "tracereport.py"), str(path), "--top", "3"],
+            capture_output=True, text=True, timeout=300)
+        if rep.returncode != 0 or "slowest requests" not in rep.stdout:
+            raise AssertionError(f"tracereport on {path.name}: {rep.stderr}")
+        out[path.name] = path.stat().st_size
+    stats["trace_files"] = out
+    log(f"serving 9: the phase's trace written as {json.dumps(out)} bytes "
+        f"under build/ and read by scripts/tracereport.py")
+
+
+def serving_cli(dev):
+    """Step 8: ``python -m repro_torch.launch.serve`` as a subprocess on
+    the device; it must exit 0 with 0 steady-state recompiles."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *SV_CLI, "--device", dev.type],
+                       capture_output=True, text=True, env=env,
+                       cwd=str(Path(__file__).resolve().parent), timeout=600)
+    wall = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith(("warmup:", "served", "latency:", "throughput:",
+                            "steady-state", "recall")):
+            log(f"serving 8 (cli): {line}")
+    if p.returncode != 0 or not any(
+            "steady-state recompiles after warmup: 0 (OK)" in ln for ln in lines):
+        raise AssertionError(f"serving 8: the CLI exited {p.returncode}:\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    log(f"serving 8: python -m repro_torch.launch.serve {' '.join(SV_CLI)} "
+        f"--device {dev.type}: exit 0, 0 steady-state recompiles, {wall:.1f} s")
+    return wall
 
 
 def lc_oneshot(rt, idx, run, sizes, ids, keep=False):
@@ -2159,7 +2673,15 @@ class Port:
             _live_leaves,
             routed_capacity,
         )
+        from repro_torch import serving
+        from repro_torch.core.engine.costmodel import (
+            PlanShapes,
+            plan_signature,
+            resolve_model,
+            signature_key,
+        )
         from repro_torch.core.engine.plan import plan as make_plan
+        from repro_torch.core.engine.plan import snap_to_bucket
         from repro_torch.core.engine.tilescan import count_pairs, fold_topk, leaf_slab
         from repro_torch.core.lookup import build_lookup
         from repro_torch.core.search import (
@@ -2190,6 +2712,9 @@ class Port:
         self.batch_search = repro_torch.batch_search
         self.tree_assign = repro_torch.tree_assign
         self.Index, self.obs, self.route = repro_torch.Index, obs, route
+        self.serving, self.PlanShapes = serving, PlanShapes
+        self.plan_signature, self.signature_key = plan_signature, signature_key
+        self.resolve_model, self.snap_to_bucket = resolve_model, snap_to_bucket
         self.leaf_slab, self.routed_capacity = leaf_slab, routed_capacity
         self.manifest_versions = list_versions
         self.build_lookup = build_lookup
@@ -2294,6 +2819,7 @@ def main(argv=None) -> int:
     kernels = kernel_checks(rt, run, sizes, args.seed)
     p7_phase(rt, run, sizes, args.seed, kernels)
     lifecycle_phase(rt, run, sizes, args.seed, kernels, t_start)
+    serving_cli(dev)
 
     tree, build_wall = run["tree"], run["times"]["build_index"]
     del run  # the search phases' tensors (the dense phase peaks at 41 GiB)

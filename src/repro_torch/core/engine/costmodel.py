@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 LAYOUTS = ("point_major", "query_routed", "scan_codes")
+DENSE_LAYOUTS = ("point_major", "query_routed")
 
 
 #: every field of a plan that shapes its cost (and its signature key)
@@ -353,6 +354,11 @@ class CalibrationStore:
             return None
         return o["total_ms"] / max(1, o["count"])
 
+    def layouts(self) -> set:
+        """The layouts with at least one recorded measurement."""
+        with self._mu:
+            return {sig[0] for (sig, _) in self._records}
+
     def fit_rows(self) -> list[tuple[tuple, dict, PlanShapes]]:
         """Observations usable by the fit: ``(signature, stats, shapes)``
         for every record that carries shapes and is inside the decay
@@ -484,6 +490,30 @@ def default_calibration() -> CalibrationStore:
     return _DEFAULT_STORE
 
 
+def reset_default_calibration() -> None:
+    """Clear the module default store (tests, fresh processes)."""
+    store = default_calibration()
+    store.clear()
+    store.mark_clean()
+
+
+def record_observation(plan, ms_per_image: float,
+                       shapes: PlanShapes | None = None) -> None:
+    """Fold one measured ms/image into the *default* store (index-less
+    callers; index-scoped recording goes through ``Index.calibration``)."""
+    default_calibration().record(plan, ms_per_image, shapes)
+
+
+def observations() -> dict[str, dict]:
+    """JSON-ready snapshot of the default store."""
+    return default_calibration().snapshot()
+
+
+def reset_observations() -> None:
+    """Clear the default store (alias of :func:`reset_default_calibration`)."""
+    reset_default_calibration()
+
+
 # ---------------------------------------------------------------------------
 # the models
 # ---------------------------------------------------------------------------
@@ -507,6 +537,9 @@ class CostModel:
     def ready(self) -> bool:
         """True when this model has enough data to ever decide."""
         return True
+
+    def describe(self) -> str:
+        return self.kind
 
     def choose(self, candidates, shapes: PlanShapes):
         """The cheapest of ``candidates`` under this model, or ``None``.
@@ -596,6 +629,12 @@ class ObservedModel(CostModel):
     def __init__(self, store: CalibrationStore):
         self.store = store
 
+    def ready(self) -> bool:
+        """Both dense layouts measured: the minimum for this model to ever
+        rank an auto candidate pair (per-candidate signatures are still
+        checked at decision time)."""
+        return set(DENSE_LAYOUTS) <= self.store.layouts()
+
     def predict_ms(self, plan, shapes: PlanShapes) -> float | None:
         return self.store.mean_ms(plan, shapes)
 
@@ -676,7 +715,9 @@ class FittedModel(CostModel):
             self.store._seq, dict(self.coefficients)
         )
 
-    def ready(self) -> bool:
+    def ready(self, layout: str | None = None) -> bool:
+        if layout is not None:
+            return any(curve[0] == layout for curve in self.coefficients)
         return bool(self.coefficients)
 
     def predict_ms(self, plan, shapes: PlanShapes) -> float | None:
@@ -738,6 +779,23 @@ class ModelChain(CostModel):
             if v is not None:
                 return v
         return None
+
+    def describe(self) -> str:
+        """Best-effort provenance label (e.g. ``"auto(observed)"``): the most
+        calibrated member with enough data to ever rank an auto candidate
+        pair; :meth:`decide` gives the per-decision answer."""
+        for m in self.models:
+            # a fitted model that cannot price every dense layout cannot
+            # rank an auto candidate pair
+            if isinstance(m, FittedModel):
+                if not all(m.ready(layout) for layout in DENSE_LAYOUTS):
+                    continue
+            elif not m.ready():
+                continue
+            return f"{self.kind}({m.kind})" if m.kind != self.kind \
+                else self.kind
+        return f"{self.kind}({self.models[-1].kind})"
+
 
 def resolve_model(model="auto",
                   calibration: CalibrationStore | None = None) -> CostModel:

@@ -61,6 +61,42 @@ def largest_divisor_leq(n: int, cap: int) -> int:
     return best
 
 
+def bucket_ladder(
+    max_queries: int,
+    *,
+    n_buckets: int = 4,
+    min_queries: int = 32,
+) -> tuple[int, ...]:
+    """Padded batch-size buckets for the serving layer, ascending.
+
+    A geometric ladder from ``max_queries`` down (each rung about half the
+    one above), every rung snapped to a *divisor* of ``max_queries`` by
+    :func:`largest_divisor_leq`, so a full bucket of small requests
+    coalesces exactly into the next rung. Serving sessions build one
+    pipeline per rung at warmup; steady-state requests snap up to a rung.
+    """
+    if max_queries < 1:
+        raise ValueError(f"{max_queries=} must be positive")
+    min_queries = max(1, min(min_queries, max_queries))
+    rungs = {max_queries}
+    target = max_queries // 2
+    while len(rungs) < n_buckets and target >= min_queries:
+        rung = largest_divisor_leq(max_queries, target)
+        if rung >= min_queries:  # divisor-poor sizes: no sub-floor rungs
+            rungs.add(rung)
+        target //= 2
+    return tuple(sorted(rungs))
+
+
+def snap_to_bucket(n: int, buckets) -> int:
+    """Smallest warmed bucket that fits ``n`` rows (the largest bucket caps
+    it: callers split bigger batches across dispatches)."""
+    if n < 1:
+        raise ValueError(f"{n=} must be positive")
+    fitting = [b for b in buckets if b >= n]
+    return min(fitting) if fitting else max(buckets)
+
+
 @dataclasses.dataclass(frozen=True)
 class SearchPlan:
     """Static description of one search execution (hashable).
@@ -121,6 +157,16 @@ class SearchPlan:
                 raise ValueError(f"plan field {f!r} unresolved for {self.layout}")
         return self
 
+    def observe(self, ms_per_image: float, *,
+                store: CalibrationStore | None = None,
+                shapes: PlanShapes | None = None) -> None:
+        """Record one measured ms/image for this plan into ``store`` (an
+        index's ``Index.calibration``, durable at its next commit), or the
+        module default when ``None``; ``shapes`` (the shapes measured at)
+        let the observation feed the fitted model."""
+        target = (store if store is not None
+                  else costmodel_lib.default_calibration())
+        target.record(self, ms_per_image, shapes)
 
 
 def _point_major_budgets(

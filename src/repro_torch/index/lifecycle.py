@@ -452,6 +452,38 @@ class Index:
         """Live (searchable) descriptor rows: valid minus tombstoned."""
         return sum(s.valid_rows for s in self.segments) - len(self._tombstones)
 
+    def codes_stats(self) -> dict | None:
+        """Footprint of the compressed tier, or ``None`` when disabled."""
+        pq = self.quantizer
+        if pq is None:
+            return None
+        return {
+            "code_m": pq.m,
+            "code_bits": pq.bits,
+            "bytes_per_row": pq.bytes_per_row,
+            "raw_bytes_per_row": 4 * self.dim,
+            "compression_ratio": pq.compression_ratio(),
+            "codebook_bytes": pq.codebook_bytes,
+        }
+
+    @property
+    def meta(self) -> dict:
+        """User extra merged with the derived structure and size keys, as
+        the JAX package's ``Index.meta`` has them (one shard)."""
+        out = dict(self._user_meta)
+        out.update(self._tree_meta())
+        out.update(
+            rows=sum(s.rows for s in self.segments),
+            valid_rows=sum(s.valid_rows for s in self.segments),
+            live_rows=self.rows,
+            n_shards=1,
+            n_segments=self.n_segments,
+            n_tombstones=int(len(self._tombstones)),
+            next_id=self._next_id,
+            version=self._version,
+        )
+        return out
+
     def _tree_meta(self) -> dict:
         return {
             "n_leaves": int(self.tree.n_leaves),

@@ -294,8 +294,17 @@ class ShardedIndex:
     """
 
     def __init__(self, index, plan: ShardPlan | None = None, *,
-                 n_shards: int | None = None, strategy: str = "round_robin"):
+                 n_shards: int | None = None, strategy: str = "round_robin",
+                 segments=None, views=None, codes=None, tombstones=None):
         self.index = index
+        # segments/views/codes/tombstones pin the scatter to one
+        # IndexSnapshot's cut instead of the index's live state: a serving
+        # session keeps resolving against it while the index mutates
+        self._pin_segments = tuple(segments) if segments is not None else None
+        self._pin_views = tuple(views) if views is not None else None
+        self._pin_codes = dict(codes) if codes is not None else None
+        self._pin_tombstones = (np.asarray(tombstones, np.int64)
+                                if tombstones is not None else None)
         if plan is None:
             if n_shards is not None:
                 plan = ShardPlan.for_index(index, n_shards, strategy)
@@ -318,20 +327,48 @@ class ShardedIndex:
 
     @property
     def segments(self) -> tuple:
+        """The segment cut this view scatters over: the pinned one when
+        given, else the index's live committed + staged set."""
+        if self._pin_segments is not None:
+            return self._pin_segments
         return tuple(self.index.segments)
+
+    def segment_views(self) -> tuple:
+        if self._pin_views is not None:
+            return self._pin_views
+        return tuple(self.index.segment_views())
+
+    @property
+    def tombstones(self) -> np.ndarray:
+        if self._pin_tombstones is not None:
+            return self._pin_tombstones
+        return self.index.tombstones
+
+    def _codes(self, name: str):
+        if self._pin_codes is not None:
+            return self._pin_codes[name]
+        return self.index._codes[name]
 
     def shard_views(self) -> list[list[tuple[int, object]]]:
         """Per shard: ``(global_ordinal, masked DistributedIndex view)``
         pairs in global append order."""
         by_name = {s.name: (g, v) for g, (s, v) in enumerate(
-            zip(self.segments, self.index.segment_views()))}
+            zip(self.segments, self.segment_views()))}
         return [[by_name[name] for name in shard]
                 for shard in self.plan.assignment]
 
     def _live_counts(self) -> np.ndarray:
         segs = self.segments
         valid = np.array([s.valid_rows for s in segs], np.int64)
-        return valid - dead_counts(segs, self.index.tombstones)
+        return valid - dead_counts(segs, self.tombstones)
+
+    def stats(self) -> dict:
+        """The plan and each shard's segments and valid rows."""
+        segs = {s.name: s for s in self.segments}
+        return {"plan": self.plan.to_json(), "shards": [
+            {"shard": s, "segments": list(names),
+             "rows": sum(segs[n].valid_rows for n in names)}
+            for s, names in enumerate(self.plan.assignment)]}
 
     def search(self, queries, k: int = 10, *, plan=None, layout: str = "auto",
                probes: int = 1, impl: str = "xla",
@@ -412,7 +449,7 @@ class ShardedIndex:
                         p, scale, n_queries=q, shard_rows=view.rows)
                 kw = {}
                 if use_codes:
-                    kw = dict(codes=idx._codes[segs[g].name],
+                    kw = dict(codes=self._codes(segs[g].name),
                               codebooks=pq.codebooks)
                 res = search_with_lookup(view, lookup, p, n_queries=q, **kw)
                 per_seg.append(res)
@@ -438,7 +475,9 @@ class ShardedIndex:
                                             [g for g, _ in e], r_max)
                         for e in entries_by_shard]
             cand_ids, _ = gather_merge(partials, r_max)
-            ids, dists = rerank_exact(idx.read_rows, queries, cand_ids, k)
+            segs_ts = dict(segments=self.segments, tombstones=self.tombstones)
+            ids, dists = rerank_exact(lambda i: idx.read_rows(i, **segs_ts),
+                                      queries, cand_ids, k)
         else:
             ids, dists = gather_merge(partials, k)
         return SearchResult(ids=ids, dists=dists, pairs=pairs,

@@ -1,12 +1,15 @@
-"""Observability: spans and a metrics registry, as the JAX package's
-``obs`` has them (its ``export`` module comes with serving, ROADMAP M11).
+"""Observability: spans, a metrics registry and trace export, as the JAX
+package's ``obs`` has them.
 
   * :mod:`repro_torch.obs.tracer` -- ``Tracer`` records span trees; the
     process-wide default is the no-op ``NULL_TRACER``, so instrumented
     paths cost an attribute load until a real tracer is installed;
   * :mod:`repro_torch.obs.registry` -- ``MetricsRegistry`` of named
     counters / gauges / histograms (the index lifecycle counts
-    ``index.appends``, ``index.commits``, ``index.tombstoned`` ...).
+    ``index.appends``, ``index.commits``, ``index.tombstoned`` ...; the
+    serving metrics and the hot-leaf cache register as sources);
+  * :mod:`repro_torch.obs.export` -- JSONL event log, Chrome
+    ``trace_event`` JSON and a text summary of a recorded tracer.
 
 Process-wide accessors: :func:`get_tracer` / :func:`set_tracer` /
 :func:`tracing`, and :func:`get_registry` / :func:`set_registry`.
@@ -16,6 +19,13 @@ from __future__ import annotations
 
 import contextlib
 
+from repro_torch.obs.export import (  # noqa: F401
+    chrome_trace_events,
+    export_trace,
+    summary,
+    write_chrome_trace,
+    write_jsonl,
+)
 from repro_torch.obs.registry import (  # noqa: F401
     Counter,
     Gauge,

@@ -14,8 +14,10 @@ import repro_torch
 from repro_torch import interop
 from repro_torch.configs.lm import GEMMA3_4B_SMOKE
 from repro_torch.device import resolve
+from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import init_params
+from repro_torch.serving import SearchSession
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -33,7 +35,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.distributed.checkpoint, repro_torch.data.store\n"
         "import repro_torch.index, repro_torch.index.manifest\n"
         "import repro_torch.index.segment, repro_torch.index.sharding\n"
-        "import repro_torch.index.lifecycle\n"
+        "import repro_torch.index.lifecycle, repro_torch.obs.export\n"
+        "import repro_torch.serving, repro_torch.serving.batching\n"
+        "import repro_torch.serving.cache, repro_torch.serving.metrics\n"
+        "import repro_torch.serving.persist, repro_torch.serving.session\n"
+        "import repro_torch.serving.sharded, repro_torch.serving.slo\n"
+        "import repro_torch.serving.trace, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -65,7 +72,9 @@ def _no_cuda():
 @pytest.mark.parametrize("entry", ["build_tree", "build_index", "batch_search",
                                    "tree_from_numpy", "init_params", "prefill",
                                    "transformer_params_from_numpy",
-                                   "Index.create", "Index.open"])
+                                   "Index.create", "Index.open",
+                                   "SearchSession.load_or_build",
+                                   "launch.serve"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -85,6 +94,10 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
         "prefill": lambda: tfm.prefill(cpu_params, cfg, x[:1, :4].astype(np.int32), 8),
         "Index.create": lambda: repro_torch.Index.create(tree),
         "Index.open": lambda: repro_torch.Index.open(_cpu_index_dir(tree, tmp_path)),
+        "SearchSession.load_or_build": lambda: SearchSession.load_or_build(
+            _cpu_index_dir(tree, tmp_path), build_fn=None),
+        "launch.serve": lambda: serve.main(["--rows", "64", "--dim", "4",
+                                            "--images", "8"]),
         "transformer_params_from_numpy": lambda: interop.transformer_params_from_numpy(
             dict(embed=cpu_params["embed"].numpy(),
                  final_norm=cpu_params["final_norm"].numpy(),
