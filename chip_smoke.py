@@ -123,7 +123,36 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      d = 128, 2,000 images, fanouts 32 x 32, a Zipf trace of 500 requests)
      runs as a subprocess on the card and must exit 0 with 0 steady-state
      recompiles;
-  6. LM serving path, after the search phases' tensors are dropped: gemma3-4b
+  6. the index job (``python -m repro_torch.launch.index``), after the
+     search phases' tensors are dropped: ``--rows 8388605 --block-rows
+     4194304`` at the sift100m widths (d 128, fanouts 256 x 256, a 2^20-row
+     tree sample), two blocks of 2^22 rows, the second 4,194,301 rows, off
+     the 4,096-row wave grid, in this checkout's git-ignored
+     ``build/index_job`` (disk probed first, removed at the end). J1: the
+     CLI as a subprocess with ``--commit-every 1 --inject-failures``,
+     SIGKILLed once the port's manifest reader sees version 1 carrying
+     block 0's cursor; ``Index.open`` must show one segment of 2^22 rows and
+     ``next_block`` 1. J2: the same arguments and ``--codes``, in this
+     process through ``launch.index.main``: it must resume at block 1/2, run
+     one append wave after one failed attempt (the injector's (1, 0)),
+     index 4,194,301 rows and train codes. J4: the ids are 0..n-1 once each
+     and every segment's leaves ascend; J2's segment equals, bit for bit, a
+     build of the regenerated block at 1,000-row waves, and that block
+     and the tree moved off the integer grid (where fp32 sums are not
+     exact) build alike at 4,096- and 1,000-row waves; every build of the
+     job ran l2nn once a 4,096-row wave, ceil(n / 4096) waves (printed
+     beside the reference's snapped count). J3: ``--compact
+     --verify-queries 256`` with trace and metrics files: resumed at block
+     2/2, one segment of 8,388,605 rows, ``q_cap_overflow 0``, the trace read
+     back. J5: Copydays on the compacted index: 127 originals of 256
+     consecutive store rows (seeded), the 7 variants searched at k = 10 with
+     ``Index.search(layout="point_major", impl="fused")`` and scored with
+     ``vote_images``; crop10 recall@1 must reach 0.9. J2-J5 read the store
+     through a per-process block cache of this script. The kernels line
+     gains each kernel's launches in J2, J3 and J5 (the child's are not
+     counted). If the script would pass 1,050 s, the job is cut to
+     ``--rows 2097149 --block-rows 1048576`` and says so;
+  7. LM serving path, after the search phases' tensors are dropped: gemma3-4b
      at full width and depth (34 layers, bf16 weights drawn on the card from
      ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
      with ``attn_impl="chunked"`` (flashattn in every layer), then 32 greedy
@@ -160,9 +189,11 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -223,6 +254,23 @@ SV_CAL_DISPATCHES = 2  # recorded dispatches of each calibrating session
 SV_TRACE = Path(__file__).resolve().parent / "build" / "serving_trace.json"
 SV_CLI = ("--rows", "200000", "--dim", "128", "--images", "2000", "--fanout",
           "32", "32", "--trace", "zipf", "--requests", "500")
+# the index-job phase: python -m repro_torch.launch.index at the sift100m
+# widths, two blocks of 2^22 descriptors, the second off the 4,096-row wave
+# grid (4,194,301 rows); crashed, resumed, compacted and verified in a
+# directory of this checkout's git-ignored build/, which the phase removes
+JOB_DIR = Path(__file__).resolve().parent / "build" / "index_job"
+JOB_ROWS, JOB_BLOCK = 8388605, 2**22
+# the cut, if the script would pass JOB_LATEST_END_S: the crash on a 2^20-row
+# first block, then one off-grid block of 1,048,573 rows
+JOB_CUT_ROWS, JOB_CUT_BLOCK = 2097149, 2**20
+JOB_BUDGET_S = 150  # the phase's time budget
+JOB_AFTER_S = 60  # the LM phase after it
+JOB_LATEST_END_S = 1050  # the script's end past which the job is cut
+JOB_VERIFY = 256  # --verify-queries of the compaction run
+JOB_CRASH_WAIT_S = 300  # how long J1 waits for the first commit
+CD_ORIGINALS = 127  # the paper's Copydays originals
+CD_K = 10
+CD_CROP10_MIN = 0.9  # tests/test_system.py's bar for the mildest variant
 SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
              fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
              k1_waves=K1_WAVES, n_sample=N_SAMPLE, lc_appends=LC_APPENDS,
@@ -2389,6 +2437,345 @@ def trace_build(rt, args, dev, sizes, tree, wall):
                 build_busy_s=busy, build_wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# the index-job phase (python -m repro_torch.launch.index)
+# ---------------------------------------------------------------------------
+
+
+def job_argv(rows, block, seed, dev):
+    return ["--rows", str(rows), "--dim", str(DIM), "--block-rows", str(block),
+            "--fanout", *map(str, FANOUTS), "--tree-sample", str(SAMPLE_ROWS),
+            "--seed", str(seed), "--index-dir", str(JOB_DIR), "--device", dev.type]
+
+
+def job_crash(rt, argv):
+    """J1: the CLI as a subprocess; once the manifest of version 1 carrying
+    block 0's cursor is published (read with the port's manifest reader),
+    SIGKILL. Returns (wall s, the child's last lines)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    out_path = JOB_DIR / "crash.log"  # removed with the directory
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.index",
+                              *argv], stdout=out, stderr=subprocess.STDOUT,
+                             env=env, cwd=str(Path(__file__).resolve().parent))
+        try:
+            while True:
+                m = rt.manifest_latest(str(JOB_DIR))
+                if (m is not None and m.version >= 1
+                        and (m.meta.get("ingest") or {}).get("next_block") == 1):
+                    break
+                if p.poll() is not None:
+                    raise AssertionError(
+                        f"J1: the job exited {p.returncode} before its first "
+                        f"commit:\n{out_path.read_text()[-4000:]}")
+                if time.perf_counter() - t0 > JOB_CRASH_WAIT_S:
+                    raise AssertionError(f"J1: no commit in {JOB_CRASH_WAIT_S} s")
+                time.sleep(0.05)
+            p.send_signal(signal.SIGKILL)
+            p.wait(timeout=60)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    if p.returncode != -signal.SIGKILL:
+        raise AssertionError(f"J1: the job ended with {p.returncode}, not SIGKILL")
+    return wall, out_path.read_text().strip().splitlines()
+
+
+@contextlib.contextmanager
+def cached_blocks(cls, store, prefetch):
+    """``cls.read_block`` through a per-process cache: each block of a
+    store is generated once however often the job, the verification and
+    the checks read it, and the blocks ``prefetch`` of ``store`` are
+    generated in a thread from the start (while J1's child runs). A
+    wrapper of this script's, not of the package."""
+    real = cls.read_block
+    cache = {}
+
+    def key(st, b):
+        return (st.seed, st.n_rows, st.dim, st.block_rows, b)
+
+    def read_block(self, b):
+        k = key(self, b)
+        if k not in cache:
+            cache[k] = pool.submit(real, self, b)
+        return cache[k].result()
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for b in prefetch:
+            cache[key(store, b)] = pool.submit(real, store, b)
+        cls.read_block = read_block
+        try:
+            yield
+        finally:
+            cls.read_block = real
+
+
+def job_run(rt, argv, name, launches, builds):
+    """One in-process ``launch.index.main(argv)``: its printed lines, its
+    launches added to ``launches``, each ``build_index`` it ran (rows,
+    l2nn launches) appended to ``builds``. Raises unless it returns 0."""
+    real = rt.lifecycle.build_index
+
+    def counted(vecs, tree, **kw):
+        before = rt.wrappers["l2nn"].launches
+        out = real(vecs, tree, **kw)
+        builds.append((int(vecs.shape[0]), rt.wrappers["l2nn"].launches - before))
+        return out
+
+    buf = io.StringIO()
+    rt.reset_counts()
+    rt.lifecycle.build_index = counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = rt.index_cli.main(argv)
+    finally:
+        rt.lifecycle.build_index = real
+    wall = time.perf_counter() - t0
+    for key, n in rt.counts().items():
+        launches[key] = launches.get(key, 0) + n
+    rt.reset_counts()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"index job {name}: {line}")
+    if rc != 0:
+        raise AssertionError(f"index job {name}: exit {rc}")
+    return lines, wall
+
+
+def expect_lines(lines, name, *wanted):
+    for w in wanted:
+        if not any(w in line for line in lines):
+            raise AssertionError(f"index job {name}: no line with {w!r}")
+
+
+def ids_and_leaves(idx, n):
+    """J4: the segments' ids are 0..n-1, each exactly once, and each
+    segment's leaves ascend (padding last)."""
+    ids = []
+    for seg in idx.segments:
+        lv = seg.index.leaves
+        if not bool((lv[1:] >= lv[:-1]).all()):
+            raise AssertionError(f"{seg.name}: leaves do not ascend")
+        sid = seg.index.ids
+        ids.append(sid[sid >= 0].long())
+    ids = torch.sort(torch.cat(ids)).values
+    if not torch.equal(ids, torch.arange(n, device=ids.device)):
+        raise AssertionError("the index's ids are not 0..n-1, each once")
+
+
+def job_copydays(rt, idx, rows, seed):
+    """J5: the Copydays protocol on the compacted index: 127 originals of
+    SV_DPI consecutive store rows, 7 variants searched at k = 10 (fused,
+    point-major) and scored by image votes."""
+    cd_mod = rt.copydays
+    rng = np.random.default_rng(seed + 19)
+    originals = np.sort(rng.choice(rows // SV_DPI, CD_ORIGINALS, replace=False))
+    orig_rows = (originals[:, None] * SV_DPI + np.arange(SV_DPI)).reshape(-1)
+    orig = idx.read_rows(torch.as_tensor(orig_rows, device=idx.device)).cpu().numpy()
+    cd = cd_mod.make_copydays(orig, np.repeat(originals, SV_DPI), seed=seed)
+    t0 = sync_now()
+    res = idx.search(cd.query_vecs, k=CD_K, layout="point_major", impl="fused")
+    wall = sync_now() - t0
+    if int(res.q_cap_overflow) != 0:
+        raise AssertionError("J5: q_cap overflow")
+    per, avg = cd_mod.vote_images(res.ids.cpu().numpy(), np.arange(rows) // SV_DPI,
+                                  cd.query_img, cd.query_variant,
+                                  len(cd_mod.VARIANTS))
+    recall = {name: float(r) for (name, _, _), r in zip(cd_mod.VARIANTS, per)}
+    log(f"index job J5: Copydays on the compacted index: {CD_ORIGINALS} "
+        f"originals of {SV_DPI} rows, {cd.query_vecs.shape[0]} query rows, "
+        f"k {CD_K}, fused point-major search {wall:.3f} s; recall@1 "
+        f"{json.dumps(recall)}, average {avg}")
+    if recall["crop10"] < CD_CROP10_MIN:
+        raise AssertionError(f"J5: crop10 recall@1 {recall['crop10']} < "
+                             f"{CD_CROP10_MIN}")
+    return dict(recall=recall, average=avg, search_s=wall,
+                query_rows=int(cd.query_vecs.shape[0]))
+
+
+def index_job_phase(rt, dev, seed, kernels, t_start):
+    """The paper's index-creation job on the card through its CLI: J1 the
+    crash, J2 the resume (retried failure, codes), J4's checks, J3 the
+    compaction and verification, J5 Copydays; adds each kernel's launches
+    of the job's own runs (J2, J3, J5) to ``kernels``."""
+    t_phase = time.perf_counter()
+    elapsed = t_phase - t_start
+    rows, block, cut = JOB_ROWS, JOB_BLOCK, None
+    if elapsed + JOB_BUDGET_S + JOB_AFTER_S > JOB_LATEST_END_S:
+        rows, block = JOB_CUT_ROWS, JOB_CUT_BLOCK
+        cut = (f"cut to --rows {rows} --block-rows {block}: the phase starts "
+               f"at {elapsed:.0f} s, and {JOB_LATEST_END_S} s would pass")
+    shutil.rmtree(JOB_DIR, ignore_errors=True)
+    JOB_DIR.mkdir(parents=True)
+    tail = rows - block
+    times, launches, builds = {}, {}, []
+    stack = contextlib.ExitStack()
+    try:
+        rates = disk_probe(JOB_DIR, LC_PROBE_BYTES)
+        free = shutil.disk_usage(JOB_DIR).free
+        # two block segments and the compacted one, each twice its rows
+        need = LC_FREE_FACTOR * 4 * rows * (DIM * 4 + 8)
+        log(f"index job: starts at {elapsed:.0f} s; --rows {rows} --block-rows "
+            f"{block} (blocks of {block} and {tail} rows; "
+            f"{cut or 'no cut'}); disk probe {json.dumps(rates)} B/s, "
+            f"{free / 2**30:.1f} GiB free, {need / 2**30:.1f} GiB needed")
+        if free < need:
+            raise AssertionError(f"index job: {free / 2**30:.1f} GiB free")
+        argv = job_argv(rows, block, seed, dev)
+        store = rt.VirtualStore(rows, DIM, block_rows=block, seed=seed)
+        stack.enter_context(cached_blocks(rt.VirtualStore, store, (1, 0)))
+        log("index job: this process reads the store through chip_smoke.py's "
+            "per-process block cache, blocks 1 and 0 generated in a thread "
+            "while J1's child runs (each block generated once)")
+
+        # --- J1: crash after the first commit ---
+        times["j1_crash"], child = job_crash(
+            rt, argv + ["--commit-every", "1", "--inject-failures"])
+        for line in child:
+            log(f"index job J1 (child): {line}")
+        idx = rt.Index.open(str(JOB_DIR), device=dev)
+        cursor = idx.meta.get("ingest") or {}
+        if (idx.rows, idx.n_segments, cursor.get("next_block")) != (block, 1, 1):
+            raise AssertionError(f"J1: {idx.rows} rows, {idx.n_segments} "
+                                 f"segments, cursor {cursor}")
+        del idx
+        log(f"index job J1: SIGKILLed after v1 was published in "
+            f"{times['j1_crash']:.1f} s; Index.open: {block} rows, 1 segment, "
+            f"next_block 1")
+
+        # --- J2: the resume, a retried injected failure, codes ---
+        lines, times["j2_resume"] = job_run(
+            rt, argv + ["--commit-every", "1", "--inject-failures", "--codes"],
+            "J2", launches, builds)
+        expect_lines(lines, "J2", "ingest: resuming this store at block 1/2",
+                     "index job: 1/1 append waves",
+                     "1 failed attempts (retried)",
+                     f"indexed {tail} descriptors == remaining corpus size OK",
+                     "codes: trained")
+
+        # --- J4 (first half): the resumed segment against a build of the
+        # same block at another wave size; ids and leaves ---
+        idx = rt.Index.open(str(JOB_DIR), device=dev)
+        ids_and_leaves(idx, rows)
+        seg = idx.segments[-1].index
+        blk = store.read_block(1)
+        t0 = sync_now()
+        before = rt.wrappers["l2nn"].launches
+        other = rt.build_index(
+            torch.as_tensor(blk.vecs, device=dev), idx.tree,
+            ids=torch.as_tensor(blk.ids.astype(np.int32), device=dev),
+            wave_rows=1000, wire_dtype=idx.wire_dtype, device=dev)
+        other_waves = rt.wrappers["l2nn"].launches - before
+        times["j4_rebuild"] = sync_now() - t0
+        for f in ("vecs", "ids", "leaves", "offsets", "n_valid", "overflow"):
+            if not torch.equal(getattr(other, f), getattr(seg, f)):
+                raise AssertionError(f"J4: {f} of the 1000-row-wave build "
+                                     "differ from the job's segment")
+        if dev.type == "cuda" and other_waves != -(-tail // 1000):
+            raise AssertionError(f"J4: {other_waves} waves at 1000 rows")
+        del seg, other
+        # integer rows and centroids make every fp32 sum exact, which hides
+        # a batch-size-dependent summation order: the same block and tree
+        # moved off the integer grid must build alike at both wave sizes
+        g = torch.Generator(device=dev).manual_seed(seed + 23)
+
+        def off_grid(t):
+            return t + torch.rand(t.shape, generator=g, device=dev) - 0.5
+
+        real_tree = rt.VocabTree(levels=tuple(off_grid(lv) for lv in idx.tree.levels))
+        xr = off_grid(torch.as_tensor(blk.vecs, device=dev))
+        ids = torch.as_tensor(blk.ids.astype(np.int32), device=dev)
+        built = [rt.build_index(xr, real_tree, ids=ids, wave_rows=w,
+                                wire_dtype=torch.float32, device=dev)
+                 for w in (4096, 1000)]
+        for f in ("vecs", "ids", "leaves", "offsets", "n_valid", "overflow"):
+            if not torch.equal(getattr(built[0], f), getattr(built[1], f)):
+                raise AssertionError(f"J4: real-valued {f} differ between "
+                                     "4096- and 1000-row waves")
+        del idx, blk, real_tree, xr, ids, built
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- J3: compaction and verification ---
+        trace = JOB_DIR.parent / "index_job_trace.json"
+        metrics = JOB_DIR.parent / "index_job_metrics.json"
+        lines, times["j3_compact_verify"] = job_run(
+            rt, argv + ["--compact", "--verify-queries", str(JOB_VERIFY),
+                        "--trace-out", str(trace), "--metrics-out",
+                        str(metrics)], "J3", launches, builds)
+        expect_lines(lines, "J3", "ingest: resuming this store at block 2/2",
+                     "compacted -> ", "q_cap_overflow 0", f"trace -> {trace}",
+                     f"metrics registry -> {metrics}")
+        verify = next(ln for ln in lines if ln.startswith("verify:"))
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        spans = sorted({e["name"] for e in events if e.get("ph") == "X"})
+        if "index.compact" not in spans:
+            raise AssertionError(f"J3: the trace holds {spans}")
+        with open(metrics) as f:
+            if "index.compacts" not in json.dumps(json.load(f)):
+                raise AssertionError("J3: no index.compacts in the metrics")
+        trace.unlink()
+        metrics.unlink()
+        idx = rt.Index.open(str(JOB_DIR), device=dev)
+        if idx.n_segments != 1 or idx.rows != rows:
+            raise AssertionError(f"J3: {idx.n_segments} segments, "
+                                 f"{idx.rows} rows")
+        ids_and_leaves(idx, rows)
+        log(f"index job J3: one segment of {rows} rows; {verify}; the trace "
+            f"read back ({len(events)} events: {', '.join(spans)})")
+
+        # --- J4 (second half): the builds' waves ---
+        for n, waves in builds:
+            if dev.type == "cuda" and waves != -(-n // 4096):
+                raise AssertionError(f"J4: a build of {n} rows ran {waves} "
+                                     "l2nn launches")
+        ref_waves = {n: n // rt.largest_divisor_leq(n, 4096)
+                     for n, _ in builds}
+        log(f"index job J4: the resumed segment equals a build of the "
+            f"regenerated block at 1000-row waves ({other_waves} waves) bit "
+            f"for bit, and so do that block's builds at 4096- and 1000-row "
+            f"waves moved off the integer grid (rows and tree); ids "
+            f"0..{rows - 1} each once, leaves ascending; "
+            f"builds (rows, waves): {builds}; the reference's snapped waves "
+            f"(largest_divisor_leq, not run): {ref_waves}; l2nn launched "
+            f"once a build wave")
+
+        # --- J5: Copydays ---
+        rt.reset_counts()
+        t0 = time.perf_counter()
+        cd = job_copydays(rt, idx, rows, seed)
+        times["j5_copydays"] = time.perf_counter() - t0
+        for key, n in rt.counts().items():
+            launches[key] = launches.get(key, 0) + n
+        rt.reset_counts()
+        del idx
+    finally:
+        stack.close()
+        shutil.rmtree(JOB_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    times["phase"] = time.perf_counter() - t_phase
+    rows_of = {r["name"]: r for r in kernels}
+    for name in LC_KERNELS:
+        if launches.get(name):
+            rows_of[name]["index_job_launches"] = launches[name]
+    if dev.type == "cuda" and launches.get("l2nn", 0) <= 0:
+        raise AssertionError("index job: l2nn never launched")
+    stats = dict(rows=rows, block=block, cut=cut, start_s=elapsed,
+                 launches={k: v for k, v in launches.items() if v},
+                 builds=builds, copydays=cd, times=times,
+                 budget_s=JOB_BUDGET_S)
+    log(f"index job: {json.dumps(stats)}")
+    log(f"index job: phase {times['phase']:.1f} s against a budget of "
+        f"{JOB_BUDGET_S} s")
+    return stats
+
+
 def lm_pairs(sq: int, skv: int, window: int) -> int:
     """Unmasked (query, key) pairs of one head of causal attention with the
     query offset skv - sq and an optional window."""
@@ -2691,7 +3078,13 @@ class Port:
         )
         from repro_torch.data import synth
         from repro_torch.data.batches import lm_batch
+        from repro_torch.core.engine.plan import largest_divisor_leq
+        from repro_torch.data import copydays
+        from repro_torch.data.store import VirtualStore
+        from repro_torch.index import lifecycle
+        from repro_torch.index.manifest import latest as manifest_latest
         from repro_torch.index.manifest import list_versions
+        from repro_torch.launch import index as index_cli
         from repro_torch.kernels import _build, fp32_bound
         from repro_torch.kernels.adcscan.ops import adc_topk
         from repro_torch.kernels.adcscan.ref import adc_topk_ref
@@ -2707,7 +3100,7 @@ class Port:
         from repro_torch.models import transformer as tfm
         from repro_torch.models.module import init_params
 
-        self.build_tree = repro_torch.build_tree
+        self.build_tree, self.VocabTree = repro_torch.build_tree, repro_torch.VocabTree
         self.build_index = repro_torch.build_index
         self.batch_search = repro_torch.batch_search
         self.tree_assign = repro_torch.tree_assign
@@ -2717,6 +3110,9 @@ class Port:
         self.resolve_model, self.snap_to_bucket = resolve_model, snap_to_bucket
         self.leaf_slab, self.routed_capacity = leaf_slab, routed_capacity
         self.manifest_versions = list_versions
+        self.manifest_latest, self.lifecycle = manifest_latest, lifecycle
+        self.index_cli, self.copydays = index_cli, copydays
+        self.VirtualStore, self.largest_divisor_leq = VirtualStore, largest_divisor_leq
         self.build_lookup = build_lookup
         self.synth = synth
         self.build = _build
@@ -2828,6 +3224,7 @@ def main(argv=None) -> int:
     k3 = next(kr for kr in kernels if kr["name"] == "l2nn")
     k3.update(trace_build(rt, args, dev, sizes, tree, build_wall))
     del tree
+    index_job_phase(rt, dev, args.seed, kernels, t_start)
     log(f"before the LM phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     lm = run_lm_path(rt, args, dev)
     check_lm_path(rt, lm)

@@ -6,10 +6,13 @@ point-major or the query-routed layout, or ``"auto"`` through the cost
 model (``core.engine.costmodel``). ``Index`` is the paper's growing
 collection: ``create -> append -> commit -> open -> delete -> compact ->
 search`` over immutable on-disk segments, in the JAX package's directory
-format, with ``ShardedIndex`` to scatter a search over its segments. The
-compressed-codes path trains a ``codes.ProductQuantizer`` on the index,
-encodes its rows, scans the codes (``search_with_lookup`` with a
-``scan_codes`` plan) and reranks the survivors exactly
+format, with ``ShardedIndex`` to scatter a search over its segments;
+``python -m repro_torch.launch.index`` grows one from a descriptor store
+as the paper's job does (one append wave a block under
+``distributed.wavescheduler.WaveScheduler``, resumable from the ingest
+cursor). The compressed-codes path trains a ``codes.ProductQuantizer`` on
+the index, encodes its rows, scans the codes (``search_with_lookup`` with
+a ``scan_codes`` plan) and reranks the survivors exactly
 (``codes.rerank_exact``), or ``Index.enable_codes`` then
 ``Index.search(layout="scan_codes")``. The model side serves a dense decoder LM
 (``models.transformer``: ``prefill`` then ``decode_step``). Every entry

@@ -16,7 +16,7 @@ import math
 import torch
 
 from repro_torch.core import route as route_lib
-from repro_torch.core.engine.plan import largest_divisor_leq, round_up
+from repro_torch.core.engine.plan import round_up
 from repro_torch.core.tree import VocabTree, tree_assign
 from repro_torch.device import resolve
 
@@ -58,13 +58,14 @@ def routing_capacity(rows_per_shard: int, n_shards: int,
 
 
 def _assign_in_waves(tree: VocabTree, vecs: torch.Tensor, wave_rows: int) -> torch.Tensor:
-    """Map phase: leaf assignment microbatched into waves (bounds the
-    gather working set of deep tree levels)."""
-    n = vecs.shape[0]
-    if n % wave_rows != 0:
-        raise ValueError(f"shard rows {n} not divisible by wave_rows {wave_rows}")
+    """Map phase: leaf assignment microbatched into waves of ``wave_rows``
+    rows, the last one ragged (it holds the remainder); waves bound the
+    gather working set of deep tree levels. Assignment is row by row, so
+    the wave size does not change the leaves."""
+    if wave_rows < 1:
+        raise ValueError(f"wave_rows must be positive; got {wave_rows}")
     return torch.cat([tree_assign(tree, vecs[s:s + wave_rows])
-                      for s in range(0, n, wave_rows)])
+                      for s in range(0, vecs.shape[0], wave_rows)])
 
 
 def build_index(
@@ -82,8 +83,10 @@ def build_index(
     ``tree`` must live on ``device``. With one shard the send capacity is
     ``capacity_factor`` times the rows, so the index holds that many rows,
     the surplus ``LEAF_SENTINEL`` padding at the tail -- the reference's
-    shape. ``wave_rows`` snaps to the largest divisor of the row count not
-    above it (default 4096); every wave size gives the same leaves.
+    shape. Rows are assigned in waves of ``wave_rows`` (default 4096) and
+    a ragged last wave of the remainder, so a row count off the wave grid
+    still runs ceil(n / wave_rows) waves; every wave size gives the same
+    index, bit for bit.
     """
     dev = resolve(device)
     vecs = torch.as_tensor(vecs, device=dev)
@@ -95,7 +98,7 @@ def build_index(
     if tree.device != dev:
         raise ValueError(f"tree on {tree.device}, build on {dev}")
     n_leaves = tree.n_leaves
-    wave_rows = largest_divisor_leq(n, wave_rows or 4096)
+    wave_rows = wave_rows or 4096
     capacity = routing_capacity(n, n_shards, capacity_factor)
     leaves_per_shard = n_leaves // n_shards
     # --- map: assignment in waves ------------------------------------------

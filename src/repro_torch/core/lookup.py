@@ -18,7 +18,11 @@ from repro_torch.core.tree import VocabTree, child_norms, descend, tree_assign
 from repro_torch.kernels.l2nn.ops import l2_nearest
 
 # Queries per beam-descent chunk in probe_leaves (bounds the gathered
-# (rows, beam, f, d) children). Rows are independent of each other.
+# (rows, beam, f, d) children). Every chunk runs at exactly this many rows
+# (the last one padded): the beam's products, like tree level 1's
+# (``core/tree.py``, ``CHUNK_ROWS``), would otherwise sum in an order
+# cuBLAS picks by the row count, and a real-valued query's probes would
+# depend on how many queries share its call.
 PROBE_CHUNK = 4096
 
 
@@ -91,8 +95,14 @@ def probe_leaves(tree: VocabTree, queries: torch.Tensor, probes: int) -> torch.T
     if probes == 1:
         return tree_assign(tree, queries)[:, None]
     qf = queries.float().contiguous()
-    return torch.cat([_probe_chunk(tree, qf[s:s + PROBE_CHUNK], probes)
-                      for s in range(0, qf.shape[0], PROBE_CHUNK)])
+    out = []
+    for s in range(0, qf.shape[0], PROBE_CHUNK):
+        q = qf[s:s + PROBE_CHUNK]
+        m = q.shape[0]
+        if m < PROBE_CHUNK:
+            q = torch.cat([q, q.new_zeros((PROBE_CHUNK - m, q.shape[1]))])
+        out.append(_probe_chunk(tree, q, probes)[:m])
+    return torch.cat(out)
 
 
 def build_lookup(tree: VocabTree, queries: torch.Tensor, *,

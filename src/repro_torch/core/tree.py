@@ -25,9 +25,11 @@ from repro_torch.device import resolve
 from repro_torch.kernels.l2nn.ops import l2_nearest
 
 # Rows per batched product of a deeper level: bounds the (rows, f, d) gather
-# (1 GiB at f = 256, d = 128). Assignment is row-independent, so the chunk
-# size does not change the leaves.
-CHUNK_ROWS = 8192
+# (512 MiB at f = 256, d = 128). Every product runs at exactly this many
+# rows (a short chunk is padded): cuBLAS picks its algorithm, and so the
+# order of each dot product's sum, by the batch size, so on real-valued
+# rows a leaf would otherwise depend on the wave size of the call.
+CHUNK_ROWS = 4096
 
 
 @dataclasses.dataclass
@@ -68,15 +70,20 @@ def child_norms(lvl: torch.Tensor) -> torch.Tensor:
 def descend(xf: torch.Tensor, lvl: torch.Tensor, cn: torch.Tensor,
             node: torch.Tensor) -> torch.Tensor:
     """Child path ``node * f + argmin_j (||c_j||^2 - 2 x.c_j)`` over the
-    children of each row's ``node``, in chunks of :data:`CHUNK_ROWS`."""
+    children of each row's ``node``, in chunks of :data:`CHUNK_ROWS`, the
+    last one padded to that size: every row's arithmetic is the same
+    whatever the number of rows of the call."""
     f = lvl.shape[1]
     out = torch.empty_like(node)
     for s in range(0, xf.shape[0], CHUNK_ROWS):
-        nd = node[s:s + CHUNK_ROWS]
-        gathered = lvl[nd].float()  # (c, f, d)
-        d2 = cn[nd] - 2.0 * torch.einsum("nd,nfd->nf", xf[s:s + CHUNK_ROWS],
-                                         gathered)
-        out[s:s + CHUNK_ROWS] = nd * f + torch.argmin(d2, dim=1)
+        x, nd = xf[s:s + CHUNK_ROWS], node[s:s + CHUNK_ROWS]
+        m = x.shape[0]
+        if m < CHUNK_ROWS:
+            x = torch.cat([x, x.new_zeros((CHUNK_ROWS - m, x.shape[1]))])
+            nd = torch.cat([nd, nd.new_zeros((CHUNK_ROWS - m,))])
+        gathered = lvl[nd].float()  # (CHUNK_ROWS, f, d)
+        d2 = cn[nd] - 2.0 * torch.einsum("nd,nfd->nf", x, gathered)
+        out[s:s + m] = nd[:m] * f + torch.argmin(d2[:m], dim=1)
     return out
 
 

@@ -1,1 +1,3 @@
-"""Persistence shared by the index lifecycle: the checkpoint format."""
+"""The job level of the index pipeline: the checkpoint format, the wave
+scheduler (retries, wave statistics, checkpoint/resume) and deterministic
+failure injection."""

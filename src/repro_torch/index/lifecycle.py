@@ -221,6 +221,7 @@ class Index:
         self._version = version
         self._next_id = int(next_id)
         self._user_meta = dict(meta or {})  # carried in every manifest
+        self._meta_dirty = False
         self._views: tuple[DistributedIndex, ...] | None = None
         self._mem_seq = 0  # segment naming for ephemeral (dir-less) indexes
         self._lock = threading.RLock()
@@ -484,6 +485,15 @@ class Index:
         )
         return out
 
+    def stats(self) -> dict:
+        """:attr:`meta` with each segment's :meth:`Segment.stats` and the
+        names of the staged segments."""
+        return dict(
+            self.meta,
+            segments=[s.stats() for s in self.segments],
+            staged=list(self.staged_segments),
+        )
+
     def _tree_meta(self) -> dict:
         return {
             "n_leaves": int(self.tree.n_leaves),
@@ -575,7 +585,8 @@ class Index:
           vecs: ``(n, dim)`` descriptor rows (numpy or a tensor; float32).
           ids: explicit non-negative descriptor ids; default is the next
             contiguous range of the id space.
-          wave_rows: assignment wave size (default: auto-snapped).
+          wave_rows: assignment wave size (default 4096; the last wave
+            holds the remainder).
           capacity_factor: routing headroom for skewed leaves.
 
         Raises:
@@ -650,6 +661,14 @@ class Index:
             self._stamp += 1
         return seg.name
 
+    def update_meta(self, **kw) -> None:
+        """Stage user-metadata updates (e.g. an ingest cursor); durable at
+        the next :meth:`commit` alongside whatever else is staged."""
+        with self._lock:
+            self._user_meta.update(kw)
+            self._meta_dirty = True
+            self._stamp += 1
+
     def delete(self, ids) -> int:
         """Tombstone descriptor ids (staged; durable after :meth:`commit`).
         Absent or already-deleted ids are ignored. Returns how many ids
@@ -686,7 +705,7 @@ class Index:
           OSError: the durable write failed; the handle stays staged, so a
             retried ``commit()`` publishes.
         """
-        if not (self._staged or self._tombstones_dirty
+        if not (self._staged or self._tombstones_dirty or self._meta_dirty
                 or self._shard_plan_dirty or self._codes_dirty
                 or self.calibration.dirty):
             return self._version
@@ -718,6 +737,7 @@ class Index:
             self._staged = []
             self._shard_plan = plan
             self._tombstones_dirty = False
+            self._meta_dirty = False
             self._shard_plan_dirty = False
             self._codes_dirty = False
             self.calibration.mark_clean()
@@ -856,6 +876,7 @@ class Index:
             self._shard_plan_dirty = False
             self._tombstones = new_tombstones
             self._tombstones_dirty = False
+            self._meta_dirty = False
             self._codes = new_codes
             self._codes_paths = new_codes_paths
             self._codes_dirty = False

@@ -66,13 +66,41 @@ def test_build_index_real_valued_bf16_wire(corpus):
     _assert_index_equal(ji, ti)
 
 
-@pytest.mark.parametrize("wave_rows", [None, 100, 512, 2048])
+@pytest.mark.parametrize("wave_rows", [None, 100, 512, 2048, 1000, 4096])
 def test_wave_size_does_not_change_the_index(corpus, wave_rows):
     x, _, tt = corpus
     ref = tib.build_index(x, tt, device="cpu")
     ti = tib.build_index(x, tt, wave_rows=wave_rows, device="cpu")
     for f in FIELDS:
         assert torch.equal(getattr(ref, f), getattr(ti, f)), f
+
+
+@pytest.mark.parametrize("n", [4099, 8191])
+def test_off_grid_rows_build_in_ragged_waves(corpus, n, monkeypatch):
+    """A row count off the 4,096-row wave grid (4,099 is prime) runs
+    ceil(n / 4096) waves, the last one ragged, and builds bit for bit the
+    reference's index (whose waves snap to a divisor of n: one row a wave
+    at 4,099) and the port's own build at one row a wave."""
+    _, jt, tt = corpus
+    x, _ = synth.sample_descriptors(n, 32, seed=n, n_centers=40)
+    ji = jib.build_index(jnp.asarray(x), jt, _mesh(), wire_dtype=jnp.float32)
+    calls = []
+    real = tib.tree_assign
+
+    def counted(tree, rows):
+        calls.append(rows.shape[0])
+        return real(tree, rows)
+
+    monkeypatch.setattr(tib, "tree_assign", counted)
+    ti = tib.build_index(x, tt, wire_dtype=torch.float32, device="cpu")
+    assert calls == [4096, n - 4096]
+    _assert_index_equal(ji, ti)
+    calls.clear()
+    one = tib.build_index(x, tt, wave_rows=1, wire_dtype=torch.float32,
+                          device="cpu")
+    assert len(calls) == n
+    for f in FIELDS:
+        assert torch.equal(getattr(one, f), getattr(ti, f)), f
 
 
 def test_build_index_custom_ids_and_capacity(corpus):
@@ -141,3 +169,23 @@ def test_cuda_build_index_matches_reference(corpus, cuda, wire):
     for f in FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(ji, f)),
                                       getattr(ti, f).cpu().numpy(), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_cuda_off_grid_build_matches_cpu(corpus, cuda):
+    """4,099 rows (prime) on the card: two waves, the last ragged, the same
+    index as the CPU build and as the card's build at 1,000-row waves."""
+    _, jt, tt = corpus
+    x, _ = synth.sample_descriptors(4099, 32, seed=4099, n_centers=40)
+    tree_c = interop.tree_from_numpy([np.asarray(lvl) for lvl in jt.levels],
+                                     device=cuda)
+    cpu = tib.build_index(x, tt, wire_dtype=torch.float32, device="cpu")
+    from repro_torch.kernels.l2nn.ops import l2_nearest
+    before = l2_nearest.launches
+    gpu = tib.build_index(x, tree_c, wire_dtype=torch.float32, device=cuda)
+    assert l2_nearest.launches - before == 2
+    other = tib.build_index(x, tree_c, wave_rows=1000, wire_dtype=torch.float32,
+                            device=cuda)
+    for f in FIELDS:
+        assert torch.equal(getattr(cpu, f), getattr(gpu, f).cpu()), f
+        assert torch.equal(getattr(other, f), getattr(gpu, f)), f

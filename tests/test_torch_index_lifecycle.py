@@ -183,6 +183,56 @@ def test_directories_hold_identical_bytes(both):
                 assert zlib.crc32(raw.tobytes()) == meta["crc32"]
 
 
+def _jsonable(x):
+    return json.loads(json.dumps(x, default=lambda v: v.item()))
+
+
+def test_stats_match_reference(both):
+    """``stats()`` (meta and each segment's stats) on each directory, read
+    by either package; the norm stats within 1e-12."""
+    _, _, jd, _, td = both
+    for d in (jd, td):
+        ji, ti = JIndex.open(d, mesh=_mesh()), Index.open(d, device="cpu")
+        _close_json(_jsonable(ji.stats()), _jsonable(ti.stats()), d)
+
+
+CURSOR = {"sig": {"seed": 0, "rows": 4000, "dim": DIM, "block_rows": 1000},
+          "next_block": 2, "base_id": 0}
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_update_meta_commit_publishes_cursor(corpus, tmp_path, writer):
+    """A commit that stages only metadata bumps the version and writes the
+    manifest; the other package reads the cursor back; a second commit
+    with nothing staged writes nothing."""
+    x, jt, tt, _ = corpus
+    d = str(tmp_path / "idx")
+    if writer == "port":
+        w = Index.create(tt, d, device="cpu", extra={"corpus_seed": 0})
+    else:
+        w = JIndex.create(jt, d, mesh=_mesh(), extra={"corpus_seed": 0})
+    w.append(x[:100])
+    assert w.stats()["staged"] == ["seg_000001"]
+    assert w.commit() == 1
+    assert w.stats()["staged"] == []
+    w.update_meta(ingest=CURSOR)
+    assert w.staged_segments == ()
+    assert w.commit() == 2 and w.commit() == 2
+    assert manifest_lib.list_versions(d) == [0, 1, 2]
+    for r in (Index.open(d, device="cpu"), JIndex.open(d, mesh=_mesh())):
+        assert r.version == 2 and r.rows == 100
+        assert r.meta["ingest"] == CURSOR and r.meta["corpus_seed"] == 0
+    # the reader stages the next cursor and the writer's package reads it
+    r = Index.open(d, device="cpu") if writer != "port" else JIndex.open(
+        d, mesh=_mesh())
+    nxt = dict(CURSOR, next_block=3)
+    r.update_meta(ingest=nxt)
+    assert r.commit() == 3
+    back = (Index.open(d, device="cpu") if writer == "port"
+            else JIndex.open(d, mesh=_mesh()))
+    assert back.version == 3 and back.meta["ingest"] == nxt
+
+
 # ---------------------------------------------------------------------------
 # the reference's invariants, on the port
 # ---------------------------------------------------------------------------

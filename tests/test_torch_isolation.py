@@ -14,6 +14,7 @@ import repro_torch
 from repro_torch import interop
 from repro_torch.configs.lm import GEMMA3_4B_SMOKE
 from repro_torch.device import resolve
+from repro_torch.launch import index as index_cli
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import init_params
@@ -41,6 +42,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.serving.persist, repro_torch.serving.session\n"
         "import repro_torch.serving.sharded, repro_torch.serving.slo\n"
         "import repro_torch.serving.trace, repro_torch.launch.serve\n"
+        "import repro_torch.launch.index, repro_torch.distributed.wavescheduler\n"
+        "import repro_torch.distributed.failure, repro_torch.data.copydays\n"
+        "import repro_torch.configs.sift100m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -74,7 +78,7 @@ def _no_cuda():
                                    "transformer_params_from_numpy",
                                    "Index.create", "Index.open",
                                    "SearchSession.load_or_build",
-                                   "launch.serve"])
+                                   "launch.serve", "launch.index"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -98,6 +102,8 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
             _cpu_index_dir(tree, tmp_path), build_fn=None),
         "launch.serve": lambda: serve.main(["--rows", "64", "--dim", "4",
                                             "--images", "8"]),
+        "launch.index": lambda: index_cli.main(["--rows", "64", "--dim", "4",
+                                                "--block-rows", "32"]),
         "transformer_params_from_numpy": lambda: interop.transformer_params_from_numpy(
             dict(embed=cpu_params["embed"].numpy(),
                  final_norm=cpu_params["final_norm"].numpy(),

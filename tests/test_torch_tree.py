@@ -57,6 +57,49 @@ def test_tree_assign_chunking_gives_same_leaves(trees, monkeypatch):
         full.numpy(), ttree.tree_assign(tt, torch.as_tensor(x)).numpy())
 
 
+@pytest.mark.parametrize("rows", [1, 100, 257, 3000])
+def test_descend_runs_every_product_at_one_size(trees, monkeypatch, rows):
+    """However many rows a call has, each batched product of a deeper
+    level runs at ``CHUNK_ROWS`` rows (the last chunk padded), so cuBLAS
+    sums every row's dot products in one order; the leaves stay the
+    reference's."""
+    x, jt, tt = trees
+    monkeypatch.setattr(ttree, "CHUNK_ROWS", 256)
+    sizes = []
+    real = torch.einsum
+
+    def einsum(eq, *ops):
+        if eq == "nd,nfd->nf":
+            sizes.append(ops[0].shape[0])
+        return real(eq, *ops)
+
+    monkeypatch.setattr(torch, "einsum", einsum)
+    got = ttree.tree_assign(tt, torch.as_tensor(x[:rows])).numpy()
+    assert sizes and set(sizes) == {256}
+    assert len(sizes) == -(-rows // 256) * (len(tt.levels) - 1)
+    np.testing.assert_array_equal(got, np.asarray(j_tree_assign(jt, jnp.asarray(x[:rows]))))
+
+
+@pytest.mark.parametrize("rows", [1, 70, 3000])
+def test_probe_chunks_run_at_one_size(trees, monkeypatch, rows):
+    """``probe_leaves`` runs every beam chunk at ``PROBE_CHUNK`` rows (the
+    last one padded); the probes stay the reference's."""
+    x, jt, tt = trees
+    q = x[:rows] + 1.0
+    monkeypatch.setattr(tlookup, "PROBE_CHUNK", 64)
+    sizes = []
+    real = tlookup._probe_chunk
+
+    def chunk(tree, qf, probes):
+        sizes.append(qf.shape[0])
+        return real(tree, qf, probes)
+
+    monkeypatch.setattr(tlookup, "_probe_chunk", chunk)
+    got = tlookup.probe_leaves(tt, torch.as_tensor(q), 2).numpy()
+    assert set(sizes) == {64} and len(sizes) == -(-rows // 64)
+    np.testing.assert_array_equal(got, np.asarray(j_probe_leaves(jt, jnp.asarray(q), 2)))
+
+
 def test_tree_properties_match(trees):
     _, jt, tt = trees
     assert tt.fanouts == jt.fanouts
@@ -196,3 +239,33 @@ def test_cuda_build_tree_structure(cuda):
     assert tt.fanouts == (16, 8) and tt.device.type == "cuda"
     leaves = ttree.tree_assign(tt, torch.as_tensor(x, device=cuda))
     assert ((leaves >= 0) & (leaves < tt.n_leaves)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_real_valued_leaves_do_not_depend_on_the_call_size(cuda):
+    """Real-valued rows and centroids (no exact fp32 sums): assigning in
+    waves of 4096, 1000 or 3 rows gives the same leaves on the card,
+    ``probe_leaves`` column 0 equals them (P4), and every probe is the
+    same whether the queries come in one call or in many."""
+    x = torch.as_tensor(_corpus(20000, 128, seed=5, n_centers=256), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = ttree.build_tree(x, (64, 64), generator=torch.Generator().manual_seed(1),
+                            device=cuda)
+    tree = ttree.VocabTree(levels=tuple(
+        lvl + torch.rand(lvl.shape, generator=g, device=cuda) - 0.5
+        for lvl in tree.levels))
+    xr = x + torch.rand(x.shape, generator=g, device=cuda) - 0.5
+
+    def waves(w):
+        return torch.cat([ttree.tree_assign(tree, xr[s:s + w])
+                          for s in range(0, xr.shape[0], w)])
+
+    ref = waves(4096)
+    for w in (1000, 3, 20000):
+        assert torch.equal(waves(w), ref), w
+    probes = tlookup.probe_leaves(tree, xr, 2)
+    assert torch.equal(probes[:, 0], ref)
+    for w in (1000, 3):  # every probe, not only column 0 (P4)
+        split = torch.cat([tlookup.probe_leaves(tree, xr[s:s + w], 2)
+                           for s in range(0, 6000, w)])
+        assert torch.equal(split, probes[:6000]), w
