@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main path on NVIDIA GPUs (one suffices).
 
     python3 chip_smoke.py [--seed N]
 
@@ -152,7 +152,37 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      gains each kernel's launches in J2, J3 and J5 (the child's are not
      counted). If the script would pass 1,050 s, the job is cut to
      ``--rows 2097149 --block-rows 1048576`` and says so;
-  7. LM serving path, after the search phases' tensors are dropped: gemma3-4b
+  7. shards (both jobs over a ``DeviceMesh``), after the index job: the
+     main path's 2^24 rows and 2^15 queries made again from ``--seed``,
+     its tree and the codes path's codebooks; a one-shard index of them
+     and its searches are the reference. Mesh A, four shards on the one
+     card, and mesh B, one shard a card (S = 4, or 2 on a machine of two
+     or three cards), where the machine has two cards or more. Before each
+     build it prints the largest (source, destination) row count, read off
+     the one-shard index, against the routing capacity. Gates: routing
+     overflow 0 and ``n_valid`` summing to the rows; each shard's leaves
+     ascend and its rows equal, leaf by leaf and in order, the one-shard
+     index's rows of its leaf range; the K1 sweep, K2 at probes 1 and 2,
+     query-routed K1 tiles (``p_cap`` pinned at 2^18, routing headroom
+     4 x S: every shard routes the whole table, ROADMAP R5), the K4 sweep
+     and K5, each codes search followed by ``rerank_exact``, bit-identical
+     (ids and distances) to the one-shard's, ``q_cap_overflow`` equal,
+     ``pairs`` equal (query-routed: S times the one shard's); on every
+     device of the mesh K1, K2, K3, K4 and K5 launched. Then a short
+     ``Index`` over the last mesh (two appends of a quarter of the corpus,
+     2^22 rows, in this
+     checkout's git-ignored ``build/shards_index``, removed at the end),
+     ``commit``, ``Index.open``: its probes-2 fused search equals a
+     one-shard ``Index`` of the same rows (ids differing only inside exact
+     ties), and ``ShardedIndex(n_shards=2)`` equals it. Prints each mesh's
+     build and search walls beside the one shard's, peak memory a card,
+     launches by kernel and card, the build's assignment, route and sort
+     walls, and on mesh B each card's busy time and first and last event
+     in a traced K1 sweep against the span over every card. The kernels line gains each
+     kernel's launches over the meshes. Past 930 s its corpus is cut to
+     2^23 rows (the short ``Index`` to two appends of 2^21), and it says
+     so;
+  8. LM serving path, after the search phases' tensors are dropped: gemma3-4b
      at full width and depth (34 layers, bf16 weights drawn on the card from
      ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
      with ``attn_impl="chunked"`` (flashattn in every layer), then 32 greedy
@@ -271,6 +301,23 @@ JOB_CRASH_WAIT_S = 300  # how long J1 waits for the first commit
 CD_ORIGINALS = 127  # the paper's Copydays originals
 CD_K = 10
 CD_CROP10_MIN = 0.9  # tests/test_system.py's bar for the mildest variant
+# the shards phase (both jobs over a mesh; after the index job)
+SH_SHARDS = 4  # mesh A: four shards on the one card
+SH_CUT_ROWS = 2**23  # its corpus past SH_LATEST_START_S
+SH_LATEST_START_S = 930  # the uncut phase takes about 55 s
+SH_BUDGET_S = 120
+SH_LC_SHARE = 4  # the short Index's two appends: a quarter of the corpus each
+# the query-routed point slab, pinned alike at every shard count: what
+# plan() gives the one-shard index of 2^24 rows (its query tiles then
+# never overflow), and no more than a shard holds at S = 4
+SH_P_CAP = 2**18
+# the query-routed routing headroom: every shard routes the whole lookup
+# table (ROADMAP R5), so a (source, destination) pair must hold the
+# destination's whole share: the default 4.0 at one shard, times S
+SH_Q_FACTOR = 4.0 * SH_SHARDS
+SH_DIR = Path(__file__).resolve().parent / "build" / "shards_index"
+SH_KERNELS = ("l2topk", "fusedscan", "l2nn", "adcscan", "fusedadc")
+
 SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS,
              fanouts=FANOUTS, k=K, q_cap=Q_CAP, block_rows=BLOCK_ROWS,
              k1_waves=K1_WAVES, n_sample=N_SAMPLE, lc_appends=LC_APPENDS,
@@ -409,18 +456,24 @@ def make_corpus(rt, n: int, seed: int, dev, mixture):
     return out
 
 
+def make_queries(corpus, n: int, seed: int):
+    """Copy-detection queries: ``n`` indexed descriptors under a small
+    distortion (each coordinate moved by -4..4, kept in [0, 255]: still
+    integers), drawn from ``seed``."""
+    g = torch.Generator().manual_seed(seed + 1)
+    src = torch.randint(0, corpus.shape[0], (n,), generator=g)
+    noise = torch.randint(-4, 5, (n, DIM), generator=g)
+    dev = corpus.device
+    return (corpus[src.to(dev)] + noise.to(dev)).clamp(0, 255).contiguous()
+
+
 def run_main_path(rt, args, dev, sizes):
     """Drive build_tree -> build_index -> batch_search; return what the
     checks and the kernel phase need."""
     mix = rt.synth.make_mixture(256, DIM, seed=args.seed)
     t0 = sync_now()
     corpus = make_corpus(rt, sizes["index_rows"], args.seed, dev, mix)
-    # copy-detection queries: indexed descriptors under a small distortion
-    # (each coordinate moved by -4..4, kept in [0, 255]: still integers)
-    g = torch.Generator().manual_seed(args.seed + 1)
-    src = torch.randint(0, sizes["index_rows"], (sizes["n_queries"],), generator=g)
-    noise = torch.randint(-4, 5, (sizes["n_queries"], DIM), generator=g)
-    queries = (corpus[src.to(dev)] + noise.to(dev)).clamp(0, 255).contiguous()
+    queries = make_queries(corpus, sizes["n_queries"], args.seed)
     log(f"data: {sizes['index_rows']} index rows, {sizes['n_queries']} queries "
         f"in {sync_now() - t0:.3f} s (host generation)")
 
@@ -1501,11 +1554,12 @@ def query_tile_entry(rt, idx, queries, launches, sizes):
     q_total = rt.lookup_q_total(p, n)
     lk = rt.pad_lookup(lk, q_total)
     cap = rt.routed_capacity(p, q_total)
-    routed = rt.route.route_by_leaf(lk.vecs, lk.qids, lk.leaves, n_shards=1,
-                                    leaves_per_shard=seg.n_leaves, capacity=cap,
-                                    wire_dtype=p.wire_dtype)
-    qv, _, ql, _, n_valid = rt.route.cluster_sort(routed, leaf_base=0,
-                                                  leaves_per_shard=seg.n_leaves)
+    (routed,) = rt.route.route_by_leaf(
+        [lk.vecs], [lk.qids], [lk.leaves], n_shards=1,
+        leaves_per_shard=seg.n_leaves, capacity=cap, wire_dtype=p.wire_dtype,
+        mesh=rt.DeviceMesh((lk.vecs.device,)))
+    qv, _, ql, _, n_valid = rt.route.cluster_sort(
+        routed, leaf_base=0, leaves_per_shard=seg.n_leaves, dtype=lk.vecs.dtype)
     starts = rt.leaf_slab(seg.offsets[0], ql[::p.q_tile], n_entries=seg.n_leaves,
                           total_rows=seg.rows, cap=p.p_cap).start
     n_real = -(-int(n_valid) // p.q_tile)
@@ -2776,6 +2830,348 @@ def index_job_phase(rt, dev, seed, kernels, t_start):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the shards phase (both jobs over a mesh of devices)
+# ---------------------------------------------------------------------------
+
+
+def sh_route_forecast(rt, index, n_shards, rows):
+    """The largest (source, destination) row count an S-shard build of the
+    corpus will route, read off the one-shard index (row ids are corpus
+    rows, so a row's source is its block), against the send capacity."""
+    ok = index.ids >= 0
+    src = torch.div(index.ids[ok].long(), rows // n_shards, rounding_mode="floor")
+    dst = torch.div(index.leaves[ok].long(), index.n_leaves // n_shards,
+                    rounding_mode="floor")
+    counts = torch.bincount(src * n_shards + dst, minlength=n_shards ** 2)
+    cap = rt.routing_capacity(rows // n_shards, n_shards, 2.0)
+    return int(counts.max()), cap
+
+
+def sh_same_rows(one, mesh_index):
+    """Raise unless each shard's leaves ascend (P3) and its valid rows are,
+    leaf by leaf and in order, the one-shard index's rows of its leaf
+    range. Returns the rows compared."""
+    off = one.offsets[0].long()
+    lps = mesh_index.leaves_per_shard
+    n = 0
+    for s, part in enumerate(mesh_index.parts):
+        if not bool((part.leaves[1:] >= part.leaves[:-1]).all()):
+            raise AssertionError(f"shards: shard {s}'s leaves do not ascend")
+        lo, hi = int(off[s * lps]), int(off[(s + 1) * lps])
+        m = int(part.offsets[0, lps])
+        if m != hi - lo or m != int(part.n_valid[0]):
+            raise AssertionError(f"shards: shard {s} holds {m} rows, the "
+                                 f"one-shard index {hi - lo} for its leaves")
+        for f in ("vecs", "ids", "leaves"):
+            if not torch.equal(getattr(part, f)[:m].to(one.device),
+                               getattr(one, f)[lo:hi]):
+                raise AssertionError(f"shards: shard {s}'s {f} differ")
+        n += m
+    return n
+
+
+def sh_searches(rt, index, tree, queries, pq, codes, sizes, dev):
+    """The phase's five searches of ``index``: (name, result, wall s)."""
+    k, out = sizes["k"], []
+    rows_kw = dict(q_cap=sizes["q_cap"], block_rows=sizes["block_rows"])
+    for name, impl, probes in (("sweep_k1", "pallas", 1),
+                               ("fused_k2", "fused", 1),
+                               ("fused_k2_p2", "fused", 2)):
+        t0 = sync_now()
+        res = rt.batch_search(index, tree, queries, k, probes=probes,
+                              impl=impl, device=dev, **rows_kw)
+        out.append((name, res, sync_now() - t0))
+    n = queries.shape[0]
+    t0 = sync_now()
+    plan = rt.make_plan(rows=index.rows, n_leaves=index.n_leaves, n_queries=n,
+                        n_shards=index.n_shards, k=k, layout="query_routed",
+                        impl="pallas", p_cap=SH_P_CAP,
+                        query_capacity_factor=SH_Q_FACTOR)
+    res = rt.search_with_lookup(index, rt.build_lookup(tree, queries, probes=1),
+                                plan, n_queries=n)
+    out.append(("routed_k1", res, sync_now() - t0))
+    reader = rt.IndexRowReader(index)
+    for name, impl in (("codes_k4", "pallas"), ("codes_k5", "fused")):
+        t0 = sync_now()
+        lookup = rt.build_lookup(tree, queries, probes=1)
+        plan = rt.make_plan(
+            rows=index.rows, n_leaves=index.n_leaves, n_queries=n,
+            n_shards=index.n_shards, k=k, probes=1, layout="scan_codes",
+            impl=impl, code_m=pq.m, code_bits=pq.bits, **rows_kw)
+        cand = rt.search_with_lookup(index, lookup, plan, n_queries=n,
+                                     codes=codes, codebooks=pq.codebooks)
+        ids, dists = rt.rerank_exact(reader, queries, cand.ids, k)
+        res = rt.SearchResult(ids=ids, dists=dists, pairs=cand.pairs,
+                              q_cap_overflow=cand.q_cap_overflow)
+        out.append((name, res, sync_now() - t0))
+    return out
+
+
+def sh_busy_by_device(fn):
+    """{device index: (busy s, first s, last s)} of one traced call of
+    ``fn``, and the span s over every card: busy is the card's kernels'
+    and copies' own time; first and last are its first event's start and
+    its last event's end, counted from the earliest event on any card (the
+    profiler's start-up is in none). A card whose first event comes only
+    as the one before it goes quiet ran in turn with it; the shard tables'
+    copies to the first card end every card's span."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+    busy, first, last = {}, {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            d = e.device_index
+            busy[d] = busy.get(d, 0.0) + e.self_device_time_total / 1e6
+            first[d] = min(first.get(d, e.time_range.start), e.time_range.start)
+            last[d] = max(last.get(d, e.time_range.end), e.time_range.end)
+    t0 = min(first.values())
+    cards = {d: (busy[d], (first[d] - t0) / 1e6, (last[d] - t0) / 1e6)
+             for d in sorted(busy)}
+    return cards, (max(last.values()) - t0) / 1e6
+
+
+def sh_timed_build(rt, corpus, tree, mesh):
+    """``build_index`` over ``mesh`` with the shuffle (``route_by_leaf``)
+    and the cluster sorts timed alone, every device of the mesh
+    synchronised around each: (index, wall s, {assign, route, sort} s)."""
+    real_route, real_sort = rt.route.route_by_leaf, rt.route.cluster_sort
+    spent = dict(route=0.0, sort=0.0)
+
+    def synced():
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        return time.perf_counter()
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t0 = synced()
+            out = fn(*a, **kw)
+            spent[key] += synced() - t0
+            return out
+        return call
+
+    rt.route.route_by_leaf = timed("route", real_route)
+    rt.route.cluster_sort = timed("sort", real_sort)
+    try:
+        t0 = synced()
+        index = rt.build_index(corpus, tree, wire_dtype=torch.bfloat16, mesh=mesh)
+        total = synced() - t0
+    finally:
+        rt.route.route_by_leaf, rt.route.cluster_sort = real_route, real_sort
+    return index, total, dict(assign=total - spent["route"] - spent["sort"],
+                              **spent)
+
+
+def sh_mesh_run(rt, label, mesh, corpus, tree, queries, pq, one, sizes, dev):
+    """Build and search ``corpus`` over ``mesh``; hold every gate of the
+    phase against the one-shard ``one`` (a dict of its index and search
+    results); return this mesh's numbers."""
+    S = mesh.n_shards
+    rows = corpus.shape[0]
+    worst, cap = sh_route_forecast(rt, one["index"], S, rows)
+    log(f"shards {label}: {S} shards on {[str(d) for d in mesh.devices]}; the "
+        f"largest (source, destination) row count {worst} against the "
+        f"capacity {cap}")
+    for d in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    rt.reset_counts()
+    index, t_build, split = sh_timed_build(rt, corpus, tree, mesh)
+    if int(index.overflow) != 0:
+        raise AssertionError(f"shards {label}: routing overflow "
+                             f"{int(index.overflow)}")
+    n_valid = [int(v) for v in index.n_valid.tolist()]
+    if sum(n_valid) != rows:
+        raise AssertionError(f"shards {label}: n_valid {n_valid} sums to "
+                             f"{sum(n_valid)}, not {rows}")
+    t0 = sync_now()
+    compared = sh_same_rows(one["index"], index)
+    t_check = sync_now() - t0
+    t0 = sync_now()
+    codes = tuple(pq.encode(p.vecs) for p in index.parts)
+    t_encode = sync_now() - t0
+    walls, pairs = {}, {}
+    for name, res, wall in sh_searches(rt, index, tree, queries, pq, codes,
+                                       sizes, dev):
+        ref = one["results"][name]
+        if not (torch.equal(res.ids, ref.ids) and torch.equal(res.dists, ref.dists)):
+            raise AssertionError(f"shards {label} {name}: not bit-identical to "
+                                 "one shard")
+        if int(res.q_cap_overflow) != int(ref.q_cap_overflow):
+            raise AssertionError(f"shards {label} {name}: q_cap_overflow "
+                                 f"{int(res.q_cap_overflow)} against "
+                                 f"{int(ref.q_cap_overflow)}")
+        factor = S if name == "routed_k1" else 1  # R5
+        if float(res.pairs) != float(ref.pairs) * factor:
+            raise AssertionError(f"shards {label} {name}: pairs "
+                                 f"{float(res.pairs)} against "
+                                 f"{float(ref.pairs)} x {factor}")
+        walls[name], pairs[name] = wall, float(res.pairs)
+    launches = {name: rt.wrappers[name].launches for name in SH_KERNELS}
+    by_device = {name: {f"cuda:{d}": n for d, n in
+                        sorted(rt.wrappers[name].by_device.items())}
+                 for name in SH_KERNELS}
+    for name in SH_KERNELS:
+        for d in mesh.distinct:
+            if rt.wrappers[name].by_device[d.index] <= 0:
+                raise AssertionError(f"shards {label}: {name} never launched "
+                                     f"on {d}")
+    rt.reset_counts()
+    peak = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+            for d in mesh.distinct}
+    stats = dict(shards=S, devices=[str(d) for d in mesh.devices],
+                 route_worst=worst, capacity=cap, n_valid=n_valid,
+                 rows_compared=compared, rows_check_s=t_check,
+                 build_s=t_build, build_split_s=split, encode_s=t_encode,
+                 search_s=walls, pairs=pairs, launches=launches,
+                 launches_by_device=by_device, peak_gib=peak)
+    if len(mesh.distinct) > 1:
+        # the K1 sweep traced: each card's busy time and first and last
+        # event against the joint span say whether one host thread kept
+        # the cards busy at once
+        cards, joint = sh_busy_by_device(lambda: rt.batch_search(
+            index, tree, queries, sizes["k"], impl="pallas", device=dev,
+            q_cap=sizes["q_cap"], block_rows=sizes["block_rows"]))
+        stats["sweep_trace"] = dict(
+            joint_span_s=joint, wall_untraced_s=walls["sweep_k1"],
+            **{f"{key}_s": {f"cuda:{d}": c[j] for d, c in cards.items()}
+               for j, key in enumerate(("busy", "first", "last"))})
+    del index, codes
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"shards {label}: {json.dumps(stats)}")
+    log(f"shards {label}: overflow 0; rows equal to one shard's leaf by leaf; "
+        f"K1 sweep, K2 (probes 1 and 2), K1 query tiles, K4 and K5 with "
+        f"rerank bit-identical to one shard; pairs equal (query-routed "
+        f"{S} x, R5); q_cap_overflow equal")
+    return stats
+
+
+def sh_index_check(rt, mesh, corpus, tree, queries, sizes, dev):
+    """A short ``Index`` over ``mesh``: two appends, commit, open; its
+    probes-2 search against a one-shard ``Index`` of the same rows, and a
+    two-shard ``ShardedIndex`` against its own search."""
+    k = sizes["k"]
+    shutil.rmtree(SH_DIR, ignore_errors=True)
+    SH_DIR.mkdir(parents=True)
+    times = {}
+    try:
+        t0 = sync_now()
+        idx = rt.Index.create(tree, str(SH_DIR), mesh=mesh,
+                              wire_dtype=torch.bfloat16)
+        one = rt.Index.create(tree, None, device=dev, wire_dtype=torch.bfloat16)
+        n = corpus.shape[0] // SH_LC_SHARE
+        for a in range(2):
+            rows = corpus[a * n:(a + 1) * n]
+            idx.append(rows)
+            one.append(rows)
+        idx.commit()
+        times["grow_s"] = sync_now() - t0
+        del idx
+        t0 = sync_now()
+        idx = rt.Index.open(str(SH_DIR), mesh=mesh)
+        times["open_s"] = sync_now() - t0
+        kw = dict(k=k, probes=2, layout="point_major", impl="fused")
+        t0 = sync_now()
+        got = idx.search(queries, **kw)
+        times["search_s"] = sync_now() - t0
+        want = one.search(queries, **kw)
+        differ = tie_only_differences(got, want, k)
+        sub = rt.shard_submeshes(mesh, 2)
+        sh = rt.ShardedIndex(idx, n_shards=2)
+        t0 = sync_now()
+        sres = sh.search(queries, **kw)
+        times["sharded_s"] = sync_now() - t0
+        same_result(sres, got, "shards: ShardedIndex(n_shards=2)")
+        stats = dict(segments=[s.n_shards for s in idx.segments],
+                     rows=2 * n, ids_differing_in_ties=differ,
+                     disk_gib=dir_bytes(SH_DIR) / 2**30,
+                     submeshes=[[str(d) for d in m.devices] for m in sub],
+                     times=times)
+        log(f"shards Index: {json.dumps(stats)}")
+        log(f"shards Index: two appends of {n} rows over "
+            f"{mesh.n_shards} shards, commit, open: probes-2 search equal to a "
+            f"one-shard Index of the same rows ({differ} ids differ inside "
+            "exact ties); ShardedIndex(n_shards=2) equal to the unsharded search")
+        return stats
+    finally:
+        shutil.rmtree(SH_DIR, ignore_errors=True)
+
+
+def shards_phase(rt, args, dev, tree, pq, kernels, t_start):
+    """Both jobs over S shards (``build_index``/``batch_search`` with
+    ``mesh=``), held bit for bit against a one-shard index built in the
+    phase from the same corpus: mesh A, four shards on the one card, and
+    mesh B, one shard a card, where the machine has two cards or more;
+    then a short ``Index`` over the mesh and a ``ShardedIndex`` on it.
+    Adds each kernel's launches of the mesh runs to ``kernels``."""
+    t_phase = time.perf_counter()
+    elapsed = t_phase - t_start
+    rows, cut = INDEX_ROWS, None
+    if elapsed > SH_LATEST_START_S:
+        rows = SH_CUT_ROWS
+        cut = (f"cut to {rows} rows: the phase starts at {elapsed:.0f} s, "
+               f"past {SH_LATEST_START_S} s")
+    mix = rt.synth.make_mixture(256, DIM, seed=args.seed)
+    corpus = make_corpus(rt, rows, args.seed, dev, mix)
+    queries = make_queries(corpus, N_QUERIES, args.seed)
+    log(f"shards: starts at {elapsed:.0f} s; {rows} rows ({cut or 'no cut'}), "
+        f"{N_QUERIES} queries, fanouts {FANOUTS}, k {K}")
+    sizes = dict(SIZES, index_rows=rows)
+    # the one-shard index and its searches: the phase's reference
+    index, t_one, split = sh_timed_build(rt, corpus, tree, rt.DeviceMesh((dev,)))
+    codes = pq.encode(index.vecs)
+    one = dict(index=index, results={}, walls={})
+    for name, res, wall in sh_searches(rt, index, tree, queries, pq, codes,
+                                       sizes, dev):
+        one["results"][name], one["walls"][name] = res, wall
+    del codes
+    log(f"shards one shard: build {t_one} s (split: {json.dumps(split)}); "
+        f"searches {json.dumps(one['walls'])}")
+    meshes = [("mesh A", rt.DeviceMesh((dev,) * SH_SHARDS))]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        s_b = 4 if n_cards >= 4 else 2
+        meshes.append(("mesh B", rt.DeviceMesh(tuple(
+            torch.device("cuda", d) for d in range(s_b)))))
+    else:
+        log("shards mesh B: not run (one card)")
+    stats, launches = {}, dict.fromkeys(SH_KERNELS, 0)
+    for label, mesh in meshes:
+        st = sh_mesh_run(rt, label, mesh, corpus, tree, queries, pq, one,
+                         sizes, dev)
+        stats[label] = st
+        for name in SH_KERNELS:
+            launches[name] += st["launches"][name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    del one, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    label, mesh = meshes[-1]
+    rt.reset_counts()
+    stats["index"] = sh_index_check(rt, mesh, corpus, tree, queries, sizes, dev)
+    rt.reset_counts()
+    del corpus, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows_of = {r["name"]: r for r in kernels}
+    for name in SH_KERNELS:
+        rows_of[name]["shards_launches"] = launches[name]
+    phase_s = time.perf_counter() - t_phase
+    log(f"shards: phase {phase_s:.1f} s against a budget of {SH_BUDGET_S} s; "
+        f"launches {json.dumps(launches)}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# the LM phase
+# ---------------------------------------------------------------------------
+
+
 def lm_pairs(sq: int, skv: int, window: int) -> int:
     """Unmasked (query, key) pairs of one head of causal attention with the
     query offset skv - sq and an optional window."""
@@ -3071,6 +3467,8 @@ class Port:
         from repro_torch.core.engine.plan import snap_to_bucket
         from repro_torch.core.engine.tilescan import count_pairs, fold_topk, leaf_slab
         from repro_torch.core.lookup import build_lookup
+        from repro_torch.core.index_build import routing_capacity
+        from repro_torch.distributed.meshutil import shard_submeshes
         from repro_torch.core.search import (
             lookup_q_total,
             pad_lookup,
@@ -3102,6 +3500,10 @@ class Port:
 
         self.build_tree, self.VocabTree = repro_torch.build_tree, repro_torch.VocabTree
         self.build_index = repro_torch.build_index
+        self.DeviceMesh, self.SearchResult = repro_torch.DeviceMesh, repro_torch.SearchResult
+        self.ShardedIndex = repro_torch.ShardedIndex
+        self.shard_submeshes = shard_submeshes
+        self.routing_capacity = routing_capacity
         self.batch_search = repro_torch.batch_search
         self.tree_assign = repro_torch.tree_assign
         self.Index, self.obs, self.route = repro_torch.Index, obs, route
@@ -3147,6 +3549,7 @@ class Port:
     def reset_counts(self):
         for fn in self.wrappers.values():
             fn.launches = 0
+            fn.by_device.clear()
             fn.wide_launches = 0
         fa = self.flash_attention.variant_launches
         for name in fa:
@@ -3218,18 +3621,21 @@ def main(argv=None) -> int:
     serving_cli(dev)
 
     tree, build_wall = run["tree"], run["times"]["build_index"]
+    pq = run["codes"]["pq"]  # the shards phase's codebooks
     del run  # the search phases' tensors (the dense phase peaks at 41 GiB)
     gc.collect()
     torch.cuda.empty_cache()
     k3 = next(kr for kr in kernels if kr["name"] == "l2nn")
     k3.update(trace_build(rt, args, dev, sizes, tree, build_wall))
-    del tree
     index_job_phase(rt, dev, args.seed, kernels, t_start)
+    shards_phase(rt, args, dev, tree, pq, kernels, t_start)
+    del tree, pq
     log(f"before the LM phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     lm = run_lm_path(rt, args, dev)
     check_lm_path(rt, lm)
     kernels.append(lm_kernel_check(rt, lm, args.seed))
     trace_lm(rt, lm)
+    log(f"script: {time.perf_counter() - t_start:.1f} s to here")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

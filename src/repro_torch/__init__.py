@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of the vocabulary-tree indexing and batch search
-system (paper sections 2.3-2.4), for one NVIDIA H100.
+system (paper sections 2.3-2.4), for NVIDIA H100 cards.
 
 The main path is ``build_tree -> build_index -> batch_search``, at the
 point-major or the query-routed layout, or ``"auto"`` through the cost
@@ -14,7 +14,11 @@ cursor). The compressed-codes path trains a ``codes.ProductQuantizer`` on
 the index, encodes its rows, scans the codes (``search_with_lookup`` with
 a ``scan_codes`` plan) and reranks the survivors exactly
 (``codes.rerank_exact``), or ``Index.enable_codes`` then
-``Index.search(layout="scan_codes")``. The model side serves a dense decoder LM
+``Index.search(layout="scan_codes")``. Both jobs, and ``Index``, run over
+the S shards of a ``DeviceMesh`` (``mesh=local_mesh()``: one shard a
+visible card; a device may repeat, and its shards then run in turn): one
+process drives every shard, the shuffle is device-to-device copies, and
+each shard scans on its own card. The model side serves a dense decoder LM
 (``models.transformer``: ``prefill`` then ``decode_step``). Every entry
 point runs on the card unless the caller passes ``device="cpu"``; on a
 CUDA tensor the hot loops go through hand-written CUDA kernels
@@ -28,8 +32,9 @@ This package imports torch and numpy only.
 
 from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact  # noqa: F401
 from repro_torch.core.engine import SearchPlan, SearchResult, plan  # noqa: F401
-from repro_torch.core.index_build import DistributedIndex, build_index  # noqa: F401
+from repro_torch.core.index_build import DistributedIndex, MeshIndex, build_index  # noqa: F401
 from repro_torch.core.lookup import LookupTable, build_lookup, probe_leaves  # noqa: F401
 from repro_torch.core.search import batch_search, search_with_lookup  # noqa: F401
 from repro_torch.core.tree import VocabTree, build_tree, tree_assign  # noqa: F401
 from repro_torch.index import Index, ShardedIndex, ShardPlan  # noqa: F401
+from repro_torch.distributed.meshutil import DeviceMesh, local_mesh  # noqa: F401

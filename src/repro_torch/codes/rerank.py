@@ -13,7 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.index_build import DistributedIndex
+from repro_torch.core.index_build import (
+    DistributedIndex,
+    MeshIndex,
+    index_ids,
+    index_rows,
+)
 from repro_torch.core.sentinels import INVALID_ID
 
 #: query rows per chunk of the distance pass: bounds the (rows, R, d)
@@ -22,16 +27,18 @@ RERANK_CHUNK = 1 << 10
 
 
 class IndexRowReader:
-    """``read_rows`` over a :class:`DistributedIndex`: descriptor ids ->
-    their rows, by an id -> shard-row map built once on the index's device
-    (ids are unique; padding and tombstones carry id -1 and are not in it).
+    """``read_rows`` over a :class:`DistributedIndex` or a
+    :class:`MeshIndex`: descriptor ids -> their rows, by an id -> row map
+    built once on the index's (first) device (ids are unique; padding and
+    tombstones carry id -1 and are not in it). A MeshIndex's shards each
+    send the rows asked of them to the first device.
     """
 
-    def __init__(self, index: DistributedIndex):
-        ids = index.ids.long()
+    def __init__(self, index: DistributedIndex | MeshIndex):
+        ids = index_ids(index).long()
         live = torch.nonzero(ids >= 0)[:, 0]
         n = int(ids.max()) + 1 if live.numel() else 0
-        self.vecs = index.vecs
+        self.index = index
         # one spare slot at the end, where every id outside [0, n) looks
         self.row_of = torch.full((n + 1,), -1, dtype=torch.long,
                                  device=ids.device)
@@ -48,7 +55,7 @@ class IndexRowReader:
         rows = self.row_of[torch.where((ids >= 0) & (ids < n), ids, n)]
         if bool((rows < 0).any()):
             raise IndexError("read_rows: an id is not in the index")
-        return self.vecs[rows]
+        return index_rows(self.index, rows)
 
 
 def rerank_exact(read_rows, queries, cand_ids, k: int):

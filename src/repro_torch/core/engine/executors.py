@@ -1,6 +1,15 @@
-"""Search executors (paper section 2.4) on one GPU.
+"""Search executors (paper section 2.4), on one device or over a mesh.
 
-Point-major: the shard sweeps its cluster-sorted index rows in waves of
+An index of S shards (a :class:`~repro_torch.core.index_build.MeshIndex`)
+runs each shard's scan on that shard's device, against its copy of the
+lookup table (built once on the first device, copied once per call to
+each other device); the ``(Q, width)`` k-NN tables of the shards are
+gathered to the first device -- ``S * Q * width * 8`` bytes -- and merged
+there, and ``pairs`` and the overflow are summed there (the JAX package
+reshards the tables over Q instead). A one-shard ``DistributedIndex`` is
+the mesh of its own device.
+
+Point-major: each shard sweeps its cluster-sorted index rows in waves of
 ``block_rows`` against the lookup table; the slab of queries colliding with
 a tile is contiguous (both sides leaf-sorted), and a running ``(rows, k)``
 best table is folded per wave, then merged with one top-k. The JAX
@@ -18,7 +27,10 @@ build uses; the identity on one shard) and are cluster-sorted; then each
 tile of ``q_tile`` rows reads the one ``p_cap``-row point slab that starts
 at its first leaf, in place, through ``l2topk.l2_topk`` (K1 with the
 slab's start on the device), and the rows are scattered back to their
-slots. No running table and no cross-shard merge.
+slots. No running table and no cross-shard merge. As in the JAX package,
+every shard routes the whole (replicated) lookup table, so an owner shard
+receives S copies of each of its rows, scans them all and counts their
+pairs S times; the scatter keeps one (ROADMAP R5).
 
 Codes (``plan.layout="scan_codes"``): the same two shapes over uint8 PQ
 code rows under the asymmetric distance -- a wave sweep through
@@ -42,6 +54,7 @@ from repro_torch.core.distance import sq_norms, topk_lex
 from repro_torch.core.engine import tilescan
 from repro_torch.core.engine.plan import SearchPlan, round_up
 from repro_torch.core.lookup import LookupTable
+from repro_torch.distributed import collectives
 from repro_torch.core.sentinels import (
     INVALID_ID,
     LEAF_SENTINEL,
@@ -98,11 +111,12 @@ def pad_lookup(lookup: LookupTable, q_total: int) -> LookupTable:
 
 def _merge_shard_tables(plan, lookup, best_d, best_i, pairs, overflow, *,
                         q_total, n_shards, width, add_q_norms):
-    """Merge per-shard ``(S, Q, width)`` k-NN tables into a SearchResult:
-    one per-row top-k over the shards' candidates, the deferred ``||q||^2``
-    added back, rows scattered to their flat slots by ``qids``, and probe
-    groups merged. Shared by both executors, so the merge is op for op the
-    same across impls."""
+    """Merge per-shard ``(S, Q, width)`` k-NN tables, gathered on the first
+    device, into a SearchResult: one per-row top-k over the shards'
+    candidates (ties to the lower shard, then the lower list position, as
+    ``jax.lax.top_k``), the deferred ``||q||^2`` added back, rows scattered
+    to their flat slots by ``qids``, and probe groups merged. Shared by
+    every executor, so the merge is op for op the same across impls."""
     all_d = best_d.permute(1, 0, 2).reshape(q_total, n_shards * width)
     all_i = best_i.permute(1, 0, 2).reshape(q_total, n_shards * width)
     merged_d, sel = topk_lex(all_d, width)
@@ -197,57 +211,77 @@ def routed_capacity(plan: SearchPlan, q_total: int, n_shards: int = 1) -> int:
 
 
 def routed_accounting(offsets, qleaves, starts, *, q_tile: int, p_cap: int,
-                      n_entries: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      n_entries: int, base: int = 0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(pairs, overflow) of a query-routed sweep, exact int64, for every
-    tile at once: a lookup row of local leaf ``L`` meets the point rows
-    ``[offsets[L], offsets[L+1])`` inside its tile's slab ``[start, start
-    + p_cap)``, which is what ``count_pairs`` counts on the slab; the
-    overflow is ``slab_overflow`` of each tile's last real leaf."""
-    lv = qleaves.long()
+    tile at once: a lookup row of local leaf ``L`` (its leaf less the
+    shard's ``base``) meets the point rows ``[offsets[L], offsets[L+1])``
+    inside its tile's slab ``[start, start + p_cap)``, which is what
+    ``count_pairs`` counts on the slab; the overflow is ``slab_overflow``
+    of each tile's last real leaf."""
+    lv = torch.where(qleaves == LEAF_SENTINEL, -1, qleaves.long() - base)
     ok = (lv >= 0) & (lv < n_entries)
     lc = lv.clamp(0, n_entries - 1)
     s = starts.repeat_interleave(q_tile)
     lo = torch.maximum(offsets[lc].long(), s)
     hi = torch.minimum(offsets[lc + 1].long(), s + p_cap)
     pairs = torch.where(ok, (hi - lo).clamp(min=0), 0).sum()
-    last = tilescan.last_valid_leaf(qleaves.reshape(-1, q_tile))
+    last = tilescan.last_valid_leaf(qleaves.reshape(-1, q_tile), base=base)
     overflow = tilescan.slab_overflow(
         offsets, last, tilescan.Slab(starts, p_cap), n_entries=n_entries).sum()
     return pairs, overflow
 
 
-def _query_routed_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
+def _query_routed_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total,
+                     n_shards=1):
     """Query-routed executor: route the lookup rows to the shard owning
     their leaf, cluster-sort them, and answer each ``q_tile`` tile from
     its ``p_cap``-row point slab (K1 reading the slab in place).
 
-    Only the tiles holding real rows are scanned -- one host sync for
-    their count; the others (routing padding, ``LEAF_SENTINEL``) match no
-    point and would add nothing to the ids, distances, pairs or overflow.
+    Only the tiles holding real rows are scanned -- one host sync a shard
+    for their count, after every shard's routing is queued; the others
+    (routing padding, ``LEAF_SENTINEL``) match no point and would add
+    nothing to the ids, distances, pairs or overflow.
     """
     q_tile, p_cap, k = plan.q_tile, plan.p_cap, plan.k
-    lps = n_leaves  # one shard owns every leaf
-    q_cap_shard = routed_capacity(plan, q_total)
+    if n_leaves % n_shards:
+        raise ValueError(f"{n_leaves=} must divide over {n_shards} shards")
+    lps = n_leaves // n_shards
+    q_cap_shard = routed_capacity(plan, q_total, n_shards)
     if p_cap > shard_rows:
         raise ValueError(f"{p_cap=} must be <= {shard_rows=}")
     if k > p_cap:
         raise ValueError(f"{k=} must be <= {p_cap=}")
 
-    def pipeline(index, lookup: LookupTable) -> SearchResult:
-        vecs, leaves, ids = index.vecs, index.leaves, index.ids
-        offsets = index.offsets[0]
-        dev = vecs.device
+    def route(index, lookup):
+        """Each shard's cluster-sorted routed rows ``(vecs, qids, leaves,
+        n_valid)`` on its device, and the routing drops."""
+        lks = _broadcast_lookup(lookup, index.mesh)
+        # every shard routes the whole replicated table (R5)
         routed = route_lib.route_by_leaf(
-            lookup.vecs, lookup.qids, lookup.leaves, n_shards=1,
-            leaves_per_shard=lps, capacity=q_cap_shard,
-            wire_dtype=plan.wire_dtype)
-        qv_all, qids_all, qlf_all, _, n_valid = route_lib.cluster_sort(
-            routed, leaf_base=0, leaves_per_shard=lps)
+            [lk.vecs for lk in lks], [lk.qids for lk in lks],
+            [lk.leaves for lk in lks], n_shards=n_shards,
+            leaves_per_shard=lps, capacity=q_cap_shard // n_shards,
+            wire_dtype=plan.wire_dtype, mesh=index.mesh)
+        sorted_ = []
+        for part, r in zip(index.parts, routed):
+            qv, qids, qlf, _, n_valid = route_lib.cluster_sort(
+                r, leaf_base=part.leaf_base, leaves_per_shard=lps,
+                dtype=lookup.vecs.dtype)
+            sorted_.append((qv, qids, qlf, n_valid))
+        return sorted_, routed[0].overflow
+
+    def scan(part, qv_all, qids_all, qlf_all, n_valid):
+        """One shard's tiles: ``(cand_d, cand_i, slots, pairs, overflow)``
+        of its ``n_real`` real routed rows, on its device."""
+        vecs, leaves, ids = part.vecs, part.leaves, part.ids
+        offsets, base = part.offsets[0], part.leaf_base
+        dev = vecs.device
         # each tile's point slab starts at its first leaf's run, on the device
         starts = tilescan.leaf_slab(
-            offsets, qlf_all[::q_tile], n_entries=lps, total_rows=shard_rows,
-            cap=p_cap).start
-        n_real = -(-int(n_valid) // q_tile) * q_tile  # real rows sort first
+            offsets, qlf_all[::q_tile] - base, n_entries=lps,
+            total_rows=shard_rows, cap=p_cap).start
+        n_real = -(-n_valid // q_tile) * q_tile  # real rows sort first
         cand_d = torch.empty((n_real, k), dtype=torch.float32, device=dev)
         cand_i = torch.empty((n_real, k), dtype=torch.int32, device=dev)
         for w, qs in enumerate(range(0, n_real, q_tile)):
@@ -262,18 +296,33 @@ def _query_routed_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
         cand_d = (torch.where(cand_i >= 0, cand_d, torch.inf)
                   + sq_norms(qv_all[:n_real])[:, None])
         pairs, overflow = routed_accounting(
-            offsets, qlf_all, starts, q_tile=q_tile, p_cap=p_cap, n_entries=lps)
+            offsets, qlf_all, starts, q_tile=q_tile, p_cap=p_cap,
+            n_entries=lps, base=base)
+        return cand_d, cand_i, qids_all[:n_real].long(), pairs, overflow
+
+    def pipeline(index, lookup: LookupTable) -> SearchResult:
+        mesh = index.mesh
+        sorted_, route_overflow = route(index, lookup)
+        counts = [int(nv) for *_, nv in sorted_]  # one sync a shard
+        outs = [scan(part, qv, qids, qlf, n)
+                for part, (qv, qids, qlf, _), n in zip(index.parts, sorted_, counts)]
+        dev = mesh.first
         # one scatter back to flat slot order (each lookup row was answered
-        # by exactly one tile), then merge each query's probe rows
-        slots = qids_all[:n_real].long()
-        real = slots >= 0
+        # by its owner shard only, every copy alike), then merge each
+        # query's probe rows
         out_d = torch.full((q_total, k), torch.inf, device=dev)
         out_i = torch.full((q_total, k), INVALID_ID, dtype=torch.int32, device=dev)
-        out_d[slots[real]] = cand_d[real]
-        out_i[slots[real]] = cand_i[real]
+        for cand_d, cand_i, slots, _, _ in outs:
+            cand_d, cand_i, slots = (t.to(dev, non_blocking=True)
+                                     for t in (cand_d, cand_i, slots))
+            real = slots >= 0
+            out_d[slots[real]] = cand_d[real]
+            out_i[slots[real]] = cand_i[real]
         out_d, out_i = tilescan.merge_probe_groups(out_d, out_i, plan.probes)
+        pairs = collectives.psum([o[3] for o in outs], mesh)
+        overflow = collectives.psum([o[4] for o in outs], mesh)
         return SearchResult(ids=out_i, dists=out_d, pairs=pairs.float(),
-                            q_cap_overflow=(overflow + routed.overflow).to(torch.int32))
+                            q_cap_overflow=(overflow + route_overflow).to(torch.int32))
 
     return pipeline
 
@@ -297,15 +346,31 @@ def _point_major_fused_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
     return _dense_pipeline(plan, shard_fn, q_total=q_total)
 
 
-def _run_shard(plan, shard_fn, index, lookup, *args, q_total, width,
-               add_q_norms) -> SearchResult:
-    """One shard: its rows are the whole index. ``shard_fn(index, lookup,
-    *args)`` gives its ``(q_total, width)`` tables, which keep a leading
-    shard axis for the merge."""
-    best_d, best_i, pairs, overflow = shard_fn(index, lookup, *args)
+def _broadcast_lookup(lookup: LookupTable, mesh) -> list[LookupTable]:
+    """The lookup table on every shard's device, one copy per distinct
+    device (the JAX package's replicated ``P()`` operand)."""
+    fields = [collectives.broadcast(t, mesh) for t in
+              (lookup.vecs, lookup.qids, lookup.leaves, lookup.offsets)]
+    return [LookupTable(*f) for f in zip(*fields)]
+
+
+def _run_shards(plan, shard_fn, index, lookup, *args, q_total, width,
+                add_q_norms) -> SearchResult:
+    """Every shard's scan on its device, then the merge on the first.
+    ``shard_fn(part, lookup, *args)`` gives a shard's ``(q_total, width)``
+    tables, pair count and overflow; each of ``args`` is a sequence of one
+    tensor per shard. One host thread issues the shards in turn, each
+    shard's work queued on its device before the next shard's."""
+    mesh = index.mesh
+    lookups = _broadcast_lookup(lookup, mesh)
+    outs = [shard_fn(part, lk, *(a[s] for a in args))
+            for s, (part, lk) in enumerate(zip(index.parts, lookups))]
+    best_d, best_i, pairs, overflow = (
+        collectives.gather([o[j] for o in outs], mesh) for j in range(4))
     return _merge_shard_tables(
-        plan, lookup, best_d[None], best_i[None], pairs, overflow,
-        q_total=q_total, n_shards=1, width=width, add_q_norms=add_q_norms)
+        plan, lookups[0], best_d, best_i, pairs.sum(), overflow.sum(),
+        q_total=q_total, n_shards=mesh.n_shards, width=width,
+        add_q_norms=add_q_norms)
 
 
 def _dense_pipeline(plan, shard_fn, *, q_total):
@@ -313,8 +378,8 @@ def _dense_pipeline(plan, shard_fn, *, q_total):
     merge adds back the deferred ``||q||^2``."""
 
     def pipeline(index, lookup: LookupTable) -> SearchResult:
-        return _run_shard(plan, shard_fn, index, lookup, q_total=q_total,
-                          width=plan.k, add_q_norms=True)
+        return _run_shards(plan, shard_fn, index, lookup, q_total=q_total,
+                           width=plan.k, add_q_norms=True)
 
     return pipeline
 
@@ -383,6 +448,17 @@ def _scan_codes_fused_fn(plan: SearchPlan, *, n_leaves, shard_rows, q_total):
     return _codes_pipeline(plan, shard_fn, q_total=q_total)
 
 
+def _shard_codes(index, codes) -> tuple[torch.Tensor, ...]:
+    """An index's PQ codes as one ``(rows, m)`` tensor per shard: a tensor
+    for a one-shard index, a sequence of them for a MeshIndex."""
+    if isinstance(codes, torch.Tensor):
+        codes = (codes,)
+    codes = tuple(codes)
+    if len(codes) != index.n_shards:
+        raise ValueError(f"{len(codes)} code tables for {index.n_shards} shards")
+    return codes
+
+
 def _codes_pipeline(plan, shard_fn, *, q_total):
     """``(index, lookup, codes, codebooks) -> SearchResult`` around a codes
     ``shard_fn``: the per-row LUTs are built once, and the merge adds no
@@ -390,14 +466,21 @@ def _codes_pipeline(plan, shard_fn, *, q_total):
     m, n_centers = plan.code_m, 1 << plan.code_bits
 
     def pipeline(index, lookup: LookupTable, codes, codebooks) -> SearchResult:
-        if codes.shape != (index.rows, m) or codes.dtype != torch.uint8:
-            raise ValueError(f"codes must be ({index.rows}, {m}) uint8, got "
-                             f"{tuple(codes.shape)} {codes.dtype}")
-        lut = _build_adc_lut(lookup.vecs, codebooks, q_total=q_total, m=m,
-                             n_centers=n_centers)
-        return _run_shard(plan, shard_fn, index, lookup, codes,
-                          lut.view(q_total, m, n_centers), q_total=q_total,
-                          width=plan.rerank, add_q_norms=False)
+        codes = _shard_codes(index, codes)
+        for part, c in zip(index.parts, codes):
+            if (c.shape != (part.rows, m) or c.dtype != torch.uint8
+                    or c.device != part.device):
+                raise ValueError(f"codes must be ({part.rows}, {m}) uint8 on "
+                                 f"{part.device}, got {tuple(c.shape)} "
+                                 f"{c.dtype} on {c.device}")
+        # built once on the index's first device, then copied to the others
+        lut = _build_adc_lut(lookup.vecs.to(index.device), codebooks,
+                             q_total=q_total, m=m,
+                             n_centers=n_centers).view(q_total, m, n_centers)
+        luts = collectives.broadcast(lut, index.mesh)
+        return _run_shards(plan, shard_fn, index, lookup, codes, luts,
+                           q_total=q_total, width=plan.rerank,
+                           add_q_norms=False)
 
     return pipeline
 
@@ -411,27 +494,38 @@ _FUSED_BUILDERS = {"point_major": _point_major_fused_fn,
 
 def make_executor(plan: SearchPlan, *, n_leaves: int, shard_rows: int,
                   q_total: int, n_shards: int = 1):
-    """Build the ``(index, lookup) -> SearchResult`` pipeline.
+    """Build the ``(index, lookup) -> SearchResult`` pipeline for an index
+    of ``n_shards`` shards of ``shard_rows`` rows each (a one-shard
+    ``DistributedIndex`` or a ``MeshIndex``). The lookup table lives on
+    the index's first device, and so does the result.
 
     ``q_total`` is the *padded lookup row* count (``n_queries * probes``
     rounded up); it must be a multiple of ``plan.probes``. Output tables
     have ``q_total // plan.probes`` rows.
 
     The ``scan_codes`` pipeline takes two more arguments --
-    ``(index, lookup, codes, codebooks)``, the index's ``(rows, m)`` uint8
-    codes and the ``(m, C, dsub)`` codebooks on its device -- and its rows
+    ``(index, lookup, codes, codebooks)``: the index's ``(rows, m)`` uint8
+    codes (one such tensor per shard, on its device, for a MeshIndex) and
+    the ``(m, C, dsub)`` codebooks on the first device -- and its rows
     hold ``plan.rerank`` *approximate* ADC candidates per query, which the
     caller reranks exactly.
     """
     plan = plan.resolved()
-    if n_shards != 1:
-        raise NotImplementedError(
-            "the executors run on one shard; multiple GPUs are ROADMAP M13")
     if q_total % plan.probes:
         raise ValueError(f"{q_total=} must be a multiple of {plan.probes=}")
     builders = _FUSED_BUILDERS if plan.impl == "fused" else _LAYOUT_BUILDERS
     if plan.layout not in builders:
         raise ValueError(f"impl={plan.impl!r} is not supported for layout "
                          f"{plan.layout!r}")
-    return builders[plan.layout](plan, n_leaves=n_leaves,
-                                 shard_rows=shard_rows, q_total=q_total)
+    kw = dict(n_shards=n_shards) if plan.layout == "query_routed" else {}
+    pipeline = builders[plan.layout](plan, n_leaves=n_leaves,
+                                     shard_rows=shard_rows, q_total=q_total,
+                                     **kw)
+
+    def run(index, lookup, *args):
+        if index.n_shards != n_shards or index.rows != n_shards * shard_rows:
+            raise ValueError(f"executor for {n_shards} x {shard_rows} rows, "
+                             f"index of {index.n_shards} shards, {index.rows} rows")
+        return pipeline(index, lookup, *args)
+
+    return run

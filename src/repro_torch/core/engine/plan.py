@@ -35,12 +35,9 @@ from repro_torch.core.engine.costmodel import (
     PlanShapes,
 )
 from repro_torch.device import dtype_name
+from repro_torch.distributed.meshutil import round_up  # noqa: F401  (re-exported)
 
 IMPLS = ("xla", "pallas", "fused", "auto")
-
-
-def round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def largest_divisor_leq(n: int, cap: int) -> int:
@@ -248,6 +245,7 @@ def plan(
     q_cap: int | None = None,
     q_tile: int | None = None,
     p_cap: int | None = None,
+    query_capacity_factor: float = 4.0,
     dim: int = 0,
     rerank: int | None = None,
     code_m: int | None = None,
@@ -275,8 +273,9 @@ def plan(
         tuned block size of the calibration store, if it has one of its
         own backend, unless ``block_rows`` is pinned.
       block_rows/q_cap/q_tile/p_cap: pin a budget instead of deriving it
-        (the query-routed shuffle's wire dtype and routing headroom keep
-        the reference's defaults, :class:`SearchPlan`'s).
+        (the query-routed shuffle's wire dtype keeps the reference's
+        default, :class:`SearchPlan`'s); ``query_capacity_factor``:
+        routing headroom for hot shards.
       dim: descriptor dimension (0 = unknown), for the codes pricing.
       rerank: ADC survivors per query for ``scan_codes`` (default
         :func:`default_rerank`); code_m/code_bits: the PQ codes' shape.
@@ -300,7 +299,8 @@ def plan(
     shard_rows = max(1, rows // max(1, n_shards))
     q_rows = max(1, n_queries * probes)  # probe-expanded lookup rows
     base = dict(k=k, probes=probes, block_rows=block_rows, q_cap=q_cap,
-                q_tile=q_tile, p_cap=p_cap)
+                q_tile=q_tile, p_cap=p_cap,
+                query_capacity_factor=query_capacity_factor)
     shapes = dict(shard_rows=shard_rows, n_leaves=n_leaves, q_rows=q_rows,
                   n_shards=n_shards)
     store = (calibration if calibration is not None

@@ -1,12 +1,12 @@
-"""Cluster routing: the paper's shuffle phase, on one GPU.
+"""Cluster routing: the paper's shuffle phase, across the shards of a mesh.
 
 Hadoop's copy-merge-sort shuffle (map outputs keyed by cluster id, delivered
 to the reducer owning that key) becomes, per shard:
 
   1. destination = owner shard of the row's leaf  (contiguous leaf ranges)
   2. capacity-padded counting sort into per-destination send buffers
-  3. the exchange (the wire) -- the identity on one shard; the leading
-     shard axis is kept so a multi-GPU port swaps in ``all_to_all_single``
+  3. the exchange (the wire): ``collectives.all_to_all`` between the
+     shards' devices -- the identity on one shard
   4. local sort of received rows by leaf  (the reduce-side merge-sort)
 
 A shard can send at most ``capacity`` rows to any destination; rows beyond
@@ -21,6 +21,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.sentinels import LEAF_SENTINEL
+from repro_torch.distributed import collectives
+from repro_torch.distributed.meshutil import DeviceMesh
 
 
 class CountingLayout(NamedTuple):
@@ -67,31 +69,18 @@ def scatter_to_slots(layout: CountingLayout, x: torch.Tensor, n_dest: int,
 class Routed(NamedTuple):
     """Per-shard received rows after the exchange (padded, mask via leaf)."""
 
-    vecs: torch.Tensor  # (n_dest*capacity, d) float32
+    vecs: torch.Tensor  # (n_dest*capacity, d) in the wire dtype
     ids: torch.Tensor  # (n_dest*capacity,) global row ids; -1 invalid
     leaves: torch.Tensor  # (n_dest*capacity,) leaf ids; LEAF_SENTINEL invalid
     overflow: torch.Tensor  # () rows dropped on the send side
 
 
-def route_by_leaf(
-    vecs: torch.Tensor,
-    ids: torch.Tensor,
-    leaves: torch.Tensor,
-    *,
-    n_shards: int,
-    leaves_per_shard: int,
-    capacity: int,
-    wire_dtype=torch.bfloat16,
-) -> Routed:
-    """Shuffle rows to the shard owning their leaf. One shard only: the
-    exchange is the identity (a multi-GPU port replaces it with
-    ``torch.distributed.all_to_all_single``)."""
-    if n_shards != 1:
-        raise NotImplementedError(
-            "route_by_leaf runs on one shard; multiple GPUs are ROADMAP M13")
+def _send_buffers(vecs, ids, leaves, *, n_shards, leaves_per_shard, capacity,
+                  wire_dtype):
+    """One source shard's capacity-padded send buffers ``(vecs, ids,
+    leaves)``, each ``(n_shards * capacity, ...)``, and its drop count."""
     dest = torch.div(leaves, leaves_per_shard, rounding_mode="floor").to(torch.int32)
     layout = counting_layout(dest, n_shards, capacity)
-
     send_vecs = scatter_to_slots(layout, vecs.to(wire_dtype), n_shards, capacity)
     send_ids = scatter_to_slots(layout, ids.to(torch.int32), n_shards, capacity,
                                 fill=-1)
@@ -103,23 +92,60 @@ def route_by_leaf(
         n_shards, capacity)
     send_leaves = torch.where(slot_used > 0, send_leaves, LEAF_SENTINEL)
     send_ids = torch.where(slot_used > 0, send_ids, -1)
-    # the wire: identity on one shard
-    return Routed(
-        vecs=send_vecs.to(vecs.dtype),
-        ids=send_ids,
-        leaves=send_leaves,
-        overflow=layout.overflow,
-    )
+    return send_vecs, send_ids, send_leaves, layout.overflow
 
 
-def cluster_sort(routed: Routed, *, leaf_base: int, leaves_per_shard: int):
+def route_by_leaf(
+    vecs,
+    ids,
+    leaves,
+    *,
+    n_shards: int,
+    leaves_per_shard: int,
+    capacity: int,
+    mesh: DeviceMesh,
+    wire_dtype=torch.bfloat16,
+):
+    """Shuffle rows to the shard owning their leaf, over the ``n_shards``
+    shards of ``mesh``.
+
+    ``vecs``, ``ids`` and ``leaves`` are sequences of one tensor per shard,
+    shard ``s``'s on ``mesh.devices[s]``, and the result is one
+    :class:`Routed` per shard, on its device: the ``n_shards * capacity``
+    rows it received, source shard by source shard, their vectors still in
+    ``wire_dtype`` (``cluster_sort(..., dtype=)`` widens a shard's rows as
+    it sorts them, so S shards never hold every row widened at once). Each
+    one's ``overflow`` is the drop count summed over the sources, on the
+    mesh's first device. On one shard the exchange is the identity.
+    """
+    if mesh.n_shards != n_shards:
+        raise ValueError(f"{n_shards=} on a mesh of {mesh.n_shards}")
+    sends = [_send_buffers(v, i, lf, n_shards=n_shards,
+                           leaves_per_shard=leaves_per_shard,
+                           capacity=capacity, wire_dtype=wire_dtype)
+             for v, i, lf in zip(vecs, ids, leaves)]
+    overflow = collectives.psum([snd[3] for snd in sends], mesh)
+    # the wire; each field's send buffers are freed once it has crossed
+    recv = []
+    for j in range(3):
+        recv.append(collectives.all_to_all([snd[j] for snd in sends], mesh))
+        sends = [snd[:j] + (None,) + snd[j + 1:] for snd in sends]
+    return [Routed(vecs=rv, ids=ri, leaves=rl, overflow=overflow)
+            for rv, ri, rl in zip(*recv)]
+
+
+def cluster_sort(routed: Routed, *, leaf_base: int, leaves_per_shard: int,
+                 dtype: torch.dtype | None = None):
     """Reduce-side merge: sort received rows by leaf, build CSR offsets.
 
     Returns (vecs, ids, leaves, offsets, n_valid) where offsets has length
-    ``leaves_per_shard + 1`` over *local* leaf ids.
+    ``leaves_per_shard + 1`` over *local* leaf ids; ``vecs`` in ``dtype``
+    when it is given (the payload widened after the sort: the same values).
     """
     order = torch.argsort(routed.leaves, stable=True)
     vecs = routed.vecs[order]
+    if dtype is not None:
+        vecs = vecs.to(dtype)
     ids = routed.ids[order]
     leaves = routed.leaves[order]
     n_valid = (leaves != LEAF_SENTINEL).sum().to(torch.int32)

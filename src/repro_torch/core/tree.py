@@ -61,6 +61,14 @@ class VocabTree:
         return self.levels[0].device
 
 
+def tree_on(tree: VocabTree, device: torch.device) -> VocabTree:
+    """``tree`` on ``device``: itself when it is there, else a copy -- the
+    broadcast of the tree to a mesh's devices."""
+    if tree.device == device:
+        return tree
+    return VocabTree(levels=tuple(lvl.to(device) for lvl in tree.levels))
+
+
 def child_norms(lvl: torch.Tensor) -> torch.Tensor:
     """(nodes, f) squared norms of a deeper level's children."""
     lf = lvl.float()

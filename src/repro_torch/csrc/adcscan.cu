@@ -52,6 +52,9 @@
 // through a candidate buffer (adc_block_select), not by 8 warps' lists:
 // over the shard, filling and merging 8 lists of k = 128 cost far more
 // than the distances.
+//
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; it sets its shared-memory size on every launch.
 #include "common.cuh"
 
 using namespace rt;

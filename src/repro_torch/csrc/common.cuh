@@ -50,6 +50,17 @@ constexpr int DENSE_KCAP = 64;  // largest k of K1 and K2 (kernels/l2topk/ops.py
 constexpr int ADC_KCAP = 128;   // largest k of K4 and K5: the rerank depth
 constexpr unsigned FULL = 0xffffffffu;
 
+// Function attributes and occupancy are per device, and a launch runs on
+// the current device (the wrapper makes its tensors' device current). A
+// launcher that sets or reads them once keeps one slot per device,
+// indexed by current_device(), which is -1 past MAX_DEVICES.
+constexpr int MAX_DEVICES = 64;
+inline int current_device() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= MAX_DEVICES) return -1;
+  return d;
+}
+
 __device__ __forceinline__ bool lex_less(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
 }

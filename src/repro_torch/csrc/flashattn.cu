@@ -35,6 +35,9 @@
 // tile, which the diagonal guarantees, exactly as in the TPU kernel; keys
 // past Skv load as 0, so nothing non-finite enters. expf and IEEE division
 // (no fast math).
+//
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; it sets its shared-memory size on every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -47,6 +47,9 @@
 // Sq * G load as 0. q, k and v are read through their (B, S, H) strides:
 // every row must be 16-byte aligned (the wrapper checks). expf and IEEE
 // division (no fast math).
+//
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; it sets its shared-memory size on every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

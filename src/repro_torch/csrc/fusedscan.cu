@@ -61,6 +61,9 @@
 //    tiles c, c + n, ... Without the split, the largest leaf's tile alone
 //    (about 15 MB through one SM) would take most of a millisecond.
 // The tombstone rule stays: a kept row with id < 0 is emitted as -1 / inf.
+//
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; its resident cluster count is kept per device.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -335,13 +338,16 @@ fusedscan_long_kernel(const float* __restrict__ points,
 }
 
 // The clusters of 4 blocks the card holds at once at this shared memory
-// size (cudaOccupancyMaxActiveClusters, read again only when it changes).
+// size on the current device (cudaOccupancyMaxActiveClusters, read again
+// only when it changes there).
 template <bool VEC>
 int f_clusters(int smem, int* out) {
-  static int last_smem = -1, clusters = 0;
+  static int last_smem_of[MAX_DEVICES] = {}, clusters_of[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  int &last_smem = last_smem_of[dev], &clusters = clusters_of[dev];
   if (smem != last_smem) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
+    int sms = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((sms > F_CLUSTER ? sms / F_CLUSTER : 1) * F_CLUSTER);

@@ -15,6 +15,10 @@
 // 64-row tile kernel 3.86 ms) and 0.0152 ms a build wave (0.0481 ms).
 // TF32 and wgmma stay out: the exactness contract (common.cuh) is fp32.
 //
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; its shared-memory opt-in is set once per device.
+
+//
 // Design: one block of 8 warps takes 32 rows and every centroid. Its x tile
 // is staged once (cp.async) with a row pitch of 4 (mod 8) floats; the
 // centroids stream through a double-buffered shared chunk of 256 rows x 32
@@ -235,13 +239,16 @@ l2nn_kernel(const float* __restrict__ x, const float* __restrict__ cents,
 template <bool VEC>
 int nn_launch(const float* x, const float* cents, int* out_i, float* out_d,
               int N, int C, int d, cudaStream_t st) {
-  static bool attr_set = false;  // once per instantiation, at the largest size
-  if (!attr_set) {
+  // once per instantiation and device, at the largest size
+  static bool attr_set[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         l2nn_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)nn_smem_bytes(MAX_D));
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   l2nn_kernel<VEC><<<(N + NN_TR - 1) / NN_TR, THREADS, nn_smem_bytes(d), st>>>(
       x, cents, out_i, out_d, N, C, d);

@@ -55,6 +55,10 @@
 // one-element int64 on the device; the kernel then scans the P rows from
 // that row on (a tile's point slab, whose start stays on the device) and
 // reports rows relative to it, as if it were given the slab's copy.
+//
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; its shared-memory opt-in and resident cluster count are
+// read once per device.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -243,21 +247,23 @@ l2topk_kernel(const float* __restrict__ points,
 }
 
 // The clusters the card holds at once, one block an SM: read once per
-// instantiation with cudaOccupancyMaxActiveClusters at the largest shared
+// instantiation and device with cudaOccupancyMaxActiveClusters at the largest shared
 // memory size (every size leaves room for one block an SM only). A cluster
 // lies inside one GPC, so this can be fewer than SMs / 4 (30, not 33, on
 // an H100 80GB HBM3); a grid larger than it would run its last clusters
 // as a second wave.
 template <bool VEC>
 int k1_clusters(int* out) {
-  static int clusters = 0;
+  static int clusters_of[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  int& clusters = clusters_of[dev];
   if (!clusters) {
     const int smem = (int)k1_smem_bytes(MAX_D, DENSE_KCAP);
     cudaError_t e = cudaFuncSetAttribute(
         l2topk_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
+    int sms = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((sms > K1_CLUSTER ? sms / K1_CLUSTER : 1) * K1_CLUSTER);

@@ -36,6 +36,9 @@
 // every lookup row of its leaf, from L2 after the first; a thread reads its
 // own row, so the loads are not coalesced. A simple kernel that is right:
 // its times are in PERF.md, not tuned.
+//
+// Device: launches on the current device, which the wrapper makes the
+// tensors' own; it sets its shared-memory size on every launch.
 #include "common.cuh"
 
 using namespace rt;

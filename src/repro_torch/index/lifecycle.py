@@ -49,11 +49,18 @@ from repro_torch.codes import CODES_FORMAT, ProductQuantizer, rerank_exact
 from repro_torch.core.engine.costmodel import CalibrationStore, backend_name
 from repro_torch.core.engine.executors import SearchResult
 from repro_torch.core.engine.plan import SearchPlan, plan as make_plan
-from repro_torch.core.index_build import DistributedIndex, build_index
+from repro_torch.core.index_build import (
+    DistributedIndex,
+    MeshIndex,
+    build_index,
+    index_ids,
+    index_rows,
+)
 from repro_torch.core.lookup import build_lookup
 from repro_torch.core.search import search_with_lookup
 from repro_torch.core.tree import VocabTree
-from repro_torch.device import dtype_name, resolve
+from repro_torch.device import dtype_name
+from repro_torch.distributed.meshutil import DeviceMesh, as_mesh
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.index import manifest as manifest_lib
 from repro_torch.index.manifest import Manifest
@@ -175,7 +182,8 @@ class IndexSnapshot:
 
 
 class Index:
-    """Segment-based index with a durable lifecycle, on one device."""
+    """Segment-based index with a durable lifecycle, on one device or over
+    the shards of a mesh (each segment a ``MeshIndex``)."""
 
     def __init__(
         self,
@@ -183,6 +191,7 @@ class Index:
         tree: VocabTree,
         device=None,
         *,
+        mesh: DeviceMesh | None = None,
         segments: Sequence[Segment] = (),
         tombstones: np.ndarray | None = None,
         version: int = 0,
@@ -197,7 +206,8 @@ class Index:
     ):
         self.directory = directory
         self.tree = tree
-        self.device = tree.device if device is None else resolve(device)
+        self.mesh = as_mesh(mesh, tree.device if device is None else device)
+        self.device = self.mesh.first
         self.wire_dtype = wire_dtype
         self._committed: list[Segment] = list(segments)
         self._staged: list[Segment] = []
@@ -206,7 +216,8 @@ class Index:
         # compressed-codes tier: the PQ quantizer, per-segment (rows, m)
         # uint8 codes on the device, and the paths of published code files
         self.quantizer = quantizer
-        self._codes: dict[str, torch.Tensor] = dict(codes or {})
+        # (one tensor per shard, on its device, for a segment of S shards)
+        self._codes: dict = dict(codes or {})
         self._codes_paths: dict[str, str] = dict(codes_paths or {})
         self._codes_dirty = False
         # index-scoped calibration of this device's backend; records of
@@ -230,7 +241,8 @@ class Index:
     # -- construction -------------------------------------------------------
     @classmethod
     def create(cls, tree: VocabTree, directory: str | None = None, *,
-               device="cuda", wire_dtype=torch.float32,
+               device="cuda", mesh: DeviceMesh | None = None,
+               wire_dtype=torch.float32,
                extra: dict | None = None, overwrite: bool = False) -> "Index":
         """New empty index bound to ``tree``.
 
@@ -241,6 +253,9 @@ class Index:
             ephemeral index (same API, nothing on disk).
           device: where segments live and searches run (the card by
             default; ``"cpu"`` runs the plain versions).
+          mesh: the shards' devices instead of ``device``: every segment
+            is built over them (``build_index(..., mesh=)``) and searched
+            shard by shard; the tree lives on the mesh's first device.
           wire_dtype: the routed shuffle's payload dtype for appends and
             compactions (float32, the JAX package's default, keeps grown
             indexes bit-identical to one-shot rebuilds of float rows;
@@ -253,10 +268,10 @@ class Index:
           FileExistsError: ``directory`` already holds an index and
             ``overwrite`` is False.
         """
-        dev = resolve(device)
-        if tree.device != dev:
-            raise ValueError(f"tree on {tree.device}, index on {dev}")
-        idx = cls(directory, tree, dev, wire_dtype=wire_dtype, meta=extra)
+        mesh = as_mesh(mesh, device)
+        if tree.device != mesh.first:
+            raise ValueError(f"tree on {tree.device}, index on {mesh.first}")
+        idx = cls(directory, tree, mesh=mesh, wire_dtype=wire_dtype, meta=extra)
         if directory:
             if has_index(directory) and not overwrite:
                 raise FileExistsError(
@@ -276,15 +291,17 @@ class Index:
         return idx
 
     @classmethod
-    def open(cls, directory: str, device="cuda") -> "Index":
+    def open(cls, directory: str, device="cuda",
+             mesh: DeviceMesh | None = None) -> "Index":
         """Restore the last *committed* state from ``directory`` onto
-        ``device`` (every segment and tree file crc-checked on load).
+        ``device``, or onto ``mesh`` (every segment and tree file
+        crc-checked on load).
 
         Raises:
           FileNotFoundError: no committed manifest (including the
             pre-segment ``index_ckpt/`` format, reported actionably).
-          ValueError: a segment was built for several shards (the
-            multi-GPU port, ROADMAP M13).
+          ValueError: a segment was built for another shard count than
+            the mesh's (one without ``mesh``).
         """
         m = manifest_lib.latest(directory)
         if m is None:
@@ -295,29 +312,25 @@ class Index:
                     "reads -- rebuild it (e.g. serve --rebuild, or "
                     "Index.create + append + commit)")
             raise FileNotFoundError(f"no index manifest under {directory}")
-        dev = resolve(device)
+        mesh = as_mesh(mesh, device)
+        dev = mesh.first
         tree, tree_meta = _load_tree(directory, dev)
         seg_dir = os.path.join(directory, manifest_lib.SEGMENTS_SUBDIR)
         segments = []
         for name in m.segments:
             with get_tracer().span("index.load", segment=name):
-                segments.append(Segment.load(seg_dir, name, dev))
-        for seg in segments:
-            if seg.n_shards != 1:
-                raise ValueError(
-                    f"index segment {seg.name} was built for {seg.n_shards} "
-                    "shards; this package runs one (ROADMAP M13)")
+                segments.append(Segment.load(seg_dir, name, mesh))
         wire = _WIRE_DTYPES[tree_meta.get("wire_dtype", "float32")]
         quantizer, codes, codes_paths = None, {}, {}
         if m.codes:
             quantizer = ProductQuantizer.from_json(m.codes["quantizer"])
             codes_paths = dict(m.codes.get("segments", {}))
-            codes = {name: torch.as_tensor(
-                         manifest_lib.read_codes(directory, rel), device=dev)
+            codes = {name: _place_codes(
+                         manifest_lib.read_codes(directory, rel), mesh)
                      for name, rel in codes_paths.items()
                      if name in m.segments}
         return cls(
-            directory, tree, dev, segments=segments,
+            directory, tree, mesh=mesh, segments=segments,
             tombstones=manifest_lib.read_tombstones(directory, m.tombstones),
             version=m.version, next_id=m.next_id, meta=m.meta,
             wire_dtype=wire,
@@ -327,11 +340,11 @@ class Index:
             quantizer=quantizer, codes=codes, codes_paths=codes_paths)
 
     @classmethod
-    def from_built(cls, built: DistributedIndex, tree: VocabTree, *,
+    def from_built(cls, built: DistributedIndex | MeshIndex, tree: VocabTree, *,
                    extra: dict | None = None) -> "Index":
-        """Ephemeral single-segment wrapper around an already-built
-        ``DistributedIndex`` (on the tree's device)."""
-        idx = cls.create(tree, None, device=tree.device, extra=extra)
+        """Ephemeral single-segment wrapper around an already-built index
+        (on the tree's device, or on a mesh whose first device it is)."""
+        idx = cls.create(tree, None, mesh=built.mesh, extra=extra)
         idx.append_built(built)
         idx.commit()
         return idx
@@ -422,7 +435,7 @@ class Index:
           ValueError: no indexed row, or ``dim`` is not divisible by ``m``.
         """
         segs = self.segments
-        valid = [torch.nonzero(s.index.ids >= 0)[:, 0] for s in segs]
+        valid = [torch.nonzero(index_ids(s.index) >= 0)[:, 0] for s in segs]
         counts = np.array([v.numel() for v in valid], np.int64)
         n = int(counts.sum())
         if n == 0:
@@ -436,10 +449,10 @@ class Index:
             for s, (seg, rows) in enumerate(zip(segs, valid)):
                 lo, hi = np.searchsorted(pos, starts[s:s + 2])
                 local = torch.as_tensor(pos[lo:hi] - starts[s], device=rows.device)
-                parts.append(seg.index.vecs[rows[local]].cpu().numpy())
+                parts.append(index_rows(seg.index, rows[local]).cpu().numpy())
             pq = ProductQuantizer.fit(np.concatenate(parts), m=m, bits=bits,
                                       seed=seed, iters=iters, trained_rows=n)
-            codes = {seg.name: pq.encode(seg.index.vecs) for seg in segs}
+            codes = {seg.name: _encode(pq, seg.index) for seg in segs}
         with self._lock:
             self.quantizer = pq
             self._codes = codes
@@ -470,14 +483,14 @@ class Index:
     @property
     def meta(self) -> dict:
         """User extra merged with the derived structure and size keys, as
-        the JAX package's ``Index.meta`` has them (one shard)."""
+        the JAX package's ``Index.meta`` has them."""
         out = dict(self._user_meta)
         out.update(self._tree_meta())
         out.update(
             rows=sum(s.rows for s in self.segments),
             valid_rows=sum(s.valid_rows for s in self.segments),
             live_rows=self.rows,
-            n_shards=1,
+            n_shards=self.mesh.n_shards,
             n_segments=self.n_segments,
             n_tombstones=int(len(self._tombstones)),
             next_id=self._next_id,
@@ -533,7 +546,9 @@ class Index:
                          if s.name in paths},
         }
 
-    def _write_codes(self, name: str, codes: torch.Tensor) -> str:
+    def _write_codes(self, name: str, codes) -> str:
+        if not isinstance(codes, torch.Tensor):  # one table per shard
+            codes = torch.cat([c.cpu() for c in codes])
         return manifest_lib.write_codes(self.directory, name,
                                         codes.cpu().numpy())
 
@@ -623,25 +638,26 @@ class Index:
                 vecs, self.tree,
                 ids=torch.as_tensor(ids.astype(np.int32), device=self.device),
                 wave_rows=wave_rows, capacity_factor=capacity_factor,
-                wire_dtype=self.wire_dtype, device=self.device)
-            name = self.append_built(built)
+                wire_dtype=self.wire_dtype, mesh=self.mesh)
+            # the id space advances past every id given, whatever routing
+            # dropped (ROADMAP P12)
+            name = self.append_built(built, next_id=int(ids.max()) + 1)
         reg = get_registry()
         reg.counter("index.appends").inc()
         reg.counter("index.rows_appended").inc(n)
         return name
 
-    def append_built(self, built: DistributedIndex, *, name=None) -> str:
-        """Adopt an already-built ``DistributedIndex`` (on this index's
-        device) as a staged segment."""
+    def append_built(self, built: DistributedIndex | MeshIndex, *, name=None,
+                     next_id: int | None = None) -> str:
+        """Adopt an already-built index (on this index's mesh) as a staged
+        segment. The next default id becomes at least ``next_id`` and one
+        past the segment's largest surviving id."""
         if int(built.n_leaves) != self.n_leaves:
             raise ValueError(f"built index has {built.n_leaves} leaves; tree "
                              f"has {self.n_leaves}")
-        if built.n_shards != 1:
-            raise ValueError(f"built index has {built.n_shards} shards; this "
-                             "package runs one (ROADMAP M13)")
-        if built.device != self.device:
-            raise ValueError(f"built index on {built.device}, index on "
-                             f"{self.device}")
+        if built.mesh != self.mesh:
+            raise ValueError(f"built index on {built.mesh.devices}, index on "
+                             f"{self.mesh.devices}")
         seg = Segment.from_built(name or self._next_name(), built)
         if self.directory:
             with get_tracer().span("index.save", segment=seg.name, rows=seg.rows):
@@ -650,13 +666,13 @@ class Index:
         if self.quantizer is not None:
             # the codes follow every append: encode the new segment's rows
             # (padding rows carry LEAF_SENTINEL and never match)
-            new_codes = self.quantizer.encode(seg.index.vecs)
+            new_codes = _encode(self.quantizer, seg.index)
         with self._lock:
             self._staged.append(seg)
             if new_codes is not None:
                 self._codes[seg.name] = new_codes
                 self._codes_dirty = True
-            self._next_id = max(self._next_id, seg.max_id + 1)
+            self._next_id = max(self._next_id, seg.max_id + 1, next_id or 0)
             self._views = None
             self._stamp += 1
         return seg.name
@@ -749,12 +765,13 @@ class Index:
         the device."""
         rows, ids = [], []
         for seg in victims:
-            live = seg.index.ids >= 0
+            seg_ids = index_ids(seg.index)
+            live = seg_ids >= 0
             if self._tombstones.size:
-                live &= ~tombstone_hits(seg, self._tombstones)
+                live &= ~tombstone_hits(seg_ids, self._tombstones)
             r = torch.nonzero(live)[:, 0]
             rows.append(r)
-            ids.append(seg.index.ids[r].long())
+            ids.append(seg_ids[r].long())
         all_i = torch.cat(ids) if ids else torch.empty(
             (0,), dtype=torch.int64, device=self.device)
         order = torch.argsort(all_i, stable=True)
@@ -764,7 +781,7 @@ class Index:
         at[order] = torch.arange(order.numel(), device=self.device)
         s = 0
         for seg, r in zip(victims, rows):
-            out[at[s:s + r.numel()]] = seg.index.vecs[r]
+            out[at[s:s + r.numel()]] = index_rows(seg.index, r)
             s += r.numel()
         return out, all_i[order]
 
@@ -810,7 +827,7 @@ class Index:
             merged: list[Segment] = []
         else:
             built = build_index(all_v, self.tree, ids=all_i.to(torch.int32),
-                                wire_dtype=self.wire_dtype, device=self.device)
+                                wire_dtype=self.wire_dtype, mesh=self.mesh)
             del all_v
             seg = Segment.from_built(self._next_name(), built)
             if self.directory:
@@ -850,7 +867,7 @@ class Index:
             new_codes = {name: c for name, c in self._codes.items()
                          if name not in victim_names}
             for s in merged:
-                new_codes[s.name] = self.quantizer.encode(s.index.vecs)
+                new_codes[s.name] = _encode(self.quantizer, s.index)
             new_codes_paths = {name: p for name, p in self._codes_paths.items()
                                if name not in victim_names}
             if self.directory:
@@ -994,7 +1011,7 @@ class Index:
                 continue
             hit, row = seg.find(uniq)
             hit &= ~found
-            out[hit] = seg.index.vecs[row[hit]]
+            out[hit] = index_rows(seg.index, row[hit])
             found |= hit
         if ts.size:
             found &= ~torch.isin(uniq, torch.as_tensor(ts, device=self.device))
@@ -1005,7 +1022,7 @@ class Index:
                 f"{missing[:8].tolist()}" + ("..." if missing.size > 8 else ""))
         return out[inverse]
 
-    def segment_views(self) -> tuple[DistributedIndex, ...]:
+    def segment_views(self) -> tuple[DistributedIndex | MeshIndex, ...]:
         """Per-segment indexes with tombstones masked (cached until the
         next append/delete/compact)."""
         if self._views is None:
@@ -1067,7 +1084,7 @@ class Index:
         if self.quantizer is not None and layout in ("auto", "scan_codes"):
             agg = make_plan(
                 rows=sum(v.rows for v in views), n_leaves=self.n_leaves,
-                n_queries=q, n_shards=1, k=k, probes=probes, layout=layout,
+                n_queries=q, n_shards=self.mesh.n_shards, k=k, probes=probes, layout=layout,
                 impl=impl, model=cost_model, calibration=self.calibration,
                 dim=self.dim, rerank=rerank, code_m=self.quantizer.m,
                 code_bits=self.quantizer.bits)
@@ -1107,7 +1124,8 @@ class Index:
             if use_codes:
                 p = make_plan(
                     rows=view.rows, n_leaves=self.n_leaves, n_queries=q,
-                    n_shards=1, k=k, probes=probes, layout="scan_codes",
+                    n_shards=view.n_shards, k=k, probes=probes,
+                    layout="scan_codes",
                     impl=impl, block_rows=block_rows, q_cap=q_cap,
                     model=cost_model, calibration=self.calibration,
                     dim=self.dim, rerank=rerank, code_m=self.quantizer.m,
@@ -1118,7 +1136,8 @@ class Index:
                 continue
             p = make_plan(
                 rows=view.rows, n_leaves=self.n_leaves, n_queries=q,
-                n_shards=1, k=k, probes=probes, layout=layout, impl=impl,
+                n_shards=view.n_shards, k=k, probes=probes, layout=layout,
+                impl=impl,
                 block_rows=block_rows, q_cap=q_cap, q_tile=q_tile,
                 p_cap=p_cap, model=cost_model, calibration=self.calibration)
             per.append(search_with_lookup(view, lookup, p, n_queries=q))
@@ -1141,6 +1160,24 @@ class Index:
         if len(per) == 1:
             return per[0]
         return _merge_results(per, k)
+
+
+def _encode(pq: ProductQuantizer, index):
+    """A segment's codes: ``(rows, m)`` uint8 on its device, or one such
+    table per shard, each encoded on the shard's device."""
+    if index.n_shards == 1:
+        return pq.encode(index.parts[0].vecs)
+    return tuple(pq.encode(p.vecs) for p in index.parts)
+
+
+def _place_codes(codes: np.ndarray, mesh: DeviceMesh):
+    """A stored ``(S*R, m)`` code table on the mesh: one tensor for one
+    shard, else shard ``s``'s block on its device."""
+    if mesh.n_shards == 1:
+        return torch.as_tensor(codes, device=mesh.first)
+    rows = codes.shape[0] // mesh.n_shards
+    return tuple(torch.as_tensor(codes[s * rows:(s + 1) * rows], device=dev)
+                 for s, dev in enumerate(mesh.devices))
 
 
 def _merge_results(per: Sequence[SearchResult], k: int) -> SearchResult:

@@ -12,7 +12,11 @@ applied as a mask at search time (:func:`masked_view`).
 
 The segment lives on its index's device, and so do the id index
 (:meth:`Segment.id_index`) and the masking; only per-segment stats (id
-range, norm range) live on the host.
+range, norm range) live on the host. A segment of S shards holds a
+:class:`~repro_torch.core.index_build.MeshIndex`: each shard's rows stay
+on its device, its id index lives on the first, and it is saved in the
+JAX package's global layout (``offsets`` of S rows, ``n_shards`` in its
+meta), so either package reads the other's.
 """
 
 from __future__ import annotations
@@ -24,14 +28,21 @@ import re
 import numpy as np
 import torch
 
-from repro_torch.core.index_build import DistributedIndex
+from repro_torch.core.index_build import (
+    INDEX_FIELDS,
+    DistributedIndex,
+    MeshIndex,
+    from_global,
+    index_ids,
+    to_global,
+)
 from repro_torch.distributed.checkpoint import CheckpointManager
+from repro_torch.distributed.meshutil import DeviceMesh
 
 _SEGMENT_RE = re.compile(r"^seg_(\d{6})$")
 
 #: the checkpoint names of a DistributedIndex's arrays, in the order the
 #: JAX package's pytree flattens it
-INDEX_FIELDS = ("vecs", "ids", "leaves", "offsets", "n_valid", "overflow")
 INDEX_KEYS = tuple(f"index/{i}" for i in range(len(INDEX_FIELDS)))
 
 #: rows per chunk of the norm pass (bounds its float64 temporary)
@@ -91,7 +102,7 @@ class Segment:
         segment's device, for id -> row probes. Padding ``-1`` ids sort
         first and never match a probed (non-negative) id."""
         if self._id_index is None:
-            self._id_index = torch.sort(self.index.ids.long(), stable=True)
+            self._id_index = torch.sort(index_ids(self.index).long(), stable=True)
         return self._id_index
 
     def find(self, ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,13 +123,23 @@ class Segment:
         )
 
     @classmethod
-    def from_built(cls, name: str, index: DistributedIndex) -> "Segment":
-        valid = index.ids >= 0
-        n = int(valid.sum())
+    def from_built(cls, name: str,
+                   index: DistributedIndex | MeshIndex) -> "Segment":
+        n, min_id, max_id = 0, None, -1
+        lo, hi = np.inf, -np.inf
+        for part in index.parts:  # each shard's stats on its device
+            valid = part.ids >= 0
+            m = int(valid.sum())
+            if not m:
+                continue
+            n += m
+            a, b = _norm_range(part.vecs, valid)
+            lo, hi = min(lo, a), max(hi, b)
+            mid = int(torch.where(valid, part.ids, torch.iinfo(torch.int32).max).min())
+            min_id = mid if min_id is None else min(min_id, mid)
+            max_id = max(max_id, int(part.ids.max()))
         if n:
-            min_norm, max_norm = _norm_range(index.vecs, valid)
-            min_id = int(torch.where(valid, index.ids, torch.iinfo(torch.int32).max).min())
-            max_id = int(index.ids.max())
+            min_norm, max_norm = lo, hi
         else:
             min_norm = max_norm = -1.0
             min_id = max_id = -1
@@ -128,7 +149,7 @@ class Segment:
 
     @property
     def n_shards(self) -> int:
-        return int(self.index.offsets.shape[0])
+        return int(self.index.n_shards)
 
     def stats(self) -> dict:
         return {
@@ -145,20 +166,26 @@ class Segment:
     # -- persistence --------------------------------------------------------
     def save(self, segments_dir: str) -> str:
         mgr = CheckpointManager(os.path.join(segments_dir, self.name), keep=1)
+        fields = to_global(self.index)
         return mgr.save(
             0,
-            {key: getattr(self.index, f)
-             for key, f in zip(INDEX_KEYS, INDEX_FIELDS)},
+            {key: fields[f] for key, f in zip(INDEX_KEYS, INDEX_FIELDS)},
             extra=dict(
                 self.stats(),
                 n_leaves=int(self.index.n_leaves),
-                dim=int(self.index.vecs.shape[-1]),
+                dim=int(fields["vecs"].shape[-1]),
             ),
         )
 
     @classmethod
-    def load(cls, segments_dir: str, name: str, device) -> "Segment":
-        """Restore segment ``name`` onto ``device``, every file crc-checked."""
+    def load(cls, segments_dir: str, name: str,
+             mesh: DeviceMesh) -> "Segment":
+        """Restore segment ``name`` onto ``mesh``, every file crc-checked.
+
+        Raises:
+          ValueError: the segment was built for another shard count than
+            the mesh's.
+        """
         mgr = CheckpointManager(os.path.join(segments_dir, name), keep=1)
         step = mgr.latest_step()
         if step is None:
@@ -166,13 +193,20 @@ class Segment:
                 f"segment {name} has no complete checkpoint under "
                 f"{segments_dir}"
             )
-        arrays, manifest = mgr.restore(INDEX_KEYS, step, device=device)
-        meta = manifest["extra"]
-        fields = {f: arrays[key] for key, f in zip(INDEX_KEYS, INDEX_FIELDS)}
-        fields["vecs"] = fields["vecs"].float().contiguous()
-        for f in INDEX_FIELDS[1:]:
-            fields[f] = fields[f].to(torch.int32)
-        index = DistributedIndex(**fields, n_leaves=int(meta["n_leaves"]))
+        meta = mgr.read_manifest(step)["extra"]
+        built_for = int(meta.get("n_shards", 1))
+        if built_for != mesh.n_shards:
+            raise ValueError(
+                f"index segment {name} was built for {built_for} shards; "
+                f"current mesh has {mesh.n_shards} — rebuild the index for "
+                "this mesh")
+        # one shard restores straight onto its device; S shards through
+        # the host, each shard's block to its own device
+        to = mesh.first if mesh.n_shards == 1 else None
+        arrays, _ = mgr.restore(INDEX_KEYS, step, device=to)
+        index = from_global(
+            {f: arrays[key] for key, f in zip(INDEX_KEYS, INDEX_FIELDS)},
+            n_leaves=int(meta["n_leaves"]), mesh=mesh)
         return cls(
             name=name,
             index=index,
@@ -185,10 +219,10 @@ class Segment:
         )
 
 
-def tombstone_hits(segment: Segment, tombstones: np.ndarray) -> torch.Tensor:
-    """(rows,) bool on the segment's device: the rows whose id is in the
-    sorted ``tombstones``."""
-    ids = segment.index.ids.long()
+def tombstone_hits(ids: torch.Tensor, tombstones: np.ndarray) -> torch.Tensor:
+    """(rows,) bool on ``ids``' device: the rows whose id is in the sorted
+    ``tombstones``."""
+    ids = ids.long()
     ts = torch.as_tensor(tombstones, dtype=torch.int64, device=ids.device)
     pos = torch.searchsorted(ts, ids)
     return (pos < ts.numel()) & (ts[pos.clamp(max=ts.numel() - 1)] == ids)
@@ -226,14 +260,15 @@ def dead_counts(segments, tombstones: np.ndarray) -> np.ndarray:
 TOMBSTONE_VEC = 1e15
 
 
-def masked_view(segment: Segment, tombstones: np.ndarray) -> DistributedIndex:
+def masked_view(segment: Segment, tombstones: np.ndarray
+                ) -> DistributedIndex | MeshIndex:
     """The segment's index with tombstoned rows masked out of every scan.
 
     Bit-identical to rebuilding without the dead rows: live rows'
     distances are untouched, dead rows sort behind every live candidate,
     and a selected dead row degenerates to the ``-1``/``inf`` slot an
-    absent row would have produced. The segment is copied (on its device)
-    only when a tombstone falls inside its id range.
+    absent row would have produced. The segment is copied (each shard on
+    its device) only when a tombstone falls inside its id range.
     """
     if tombstones.size == 0 or segment.valid_rows == 0:
         return segment.index
@@ -241,9 +276,13 @@ def masked_view(segment: Segment, tombstones: np.ndarray) -> DistributedIndex:
     hi = np.searchsorted(tombstones, segment.max_id, side="right")
     if lo == hi:
         return segment.index  # no tombstone inside this segment's id range
-    hit = tombstone_hits(segment, tombstones[lo:hi])
-    index = segment.index
-    vecs = index.vecs.clone()
-    vecs[hit] = TOMBSTONE_VEC
-    return dataclasses.replace(
-        index, ids=torch.where(hit, -1, index.ids).to(torch.int32), vecs=vecs)
+    parts = []
+    for part in segment.index.parts:
+        hit = tombstone_hits(part.ids, tombstones[lo:hi])
+        vecs = part.vecs.clone()
+        vecs[hit] = TOMBSTONE_VEC
+        parts.append(dataclasses.replace(
+            part, ids=torch.where(hit, -1, part.ids).to(torch.int32), vecs=vecs))
+    if len(parts) == 1:
+        return parts[0]
+    return dataclasses.replace(segment.index, parts=tuple(parts))

@@ -1,6 +1,6 @@
 """Sharded scatter-gather search: partition an :class:`Index` across shards.
 
-The JAX package's ``index/sharding.py`` on one card. :class:`ShardPlan`
+The JAX package's ``index/sharding.py``, over the index's mesh. :class:`ShardPlan`
 is an explicit, manifest-persisted mapping of the index's immutable
 segments onto N shards (its JSON is the JAX package's, so either package
 reads the other's plan), and :class:`ShardedIndex` scans each shard's
@@ -14,10 +14,15 @@ total order by ``(distance, slot)``. Each shard keeps its local top-k
 under that same order, and the top-k of a union of per-shard top-k lists
 under a total order equals the top-k of all candidates.
 
-Placement. On one card every shard shares the device and the shards scan
-in turn -- the JAX package's own one-device regime, where every shard
-shares the mesh: same results, summed time. Shards on separate GPUs wait
-for the multi-GPU port (ROADMAP M13).
+Placement. Each shard scans on its submesh
+(``meshutil.shard_submeshes``): when the index's devices split evenly
+over the shards, shard ``s`` gets its own group of devices, and its
+segments' views are placed there once (``index_build.place``: a
+segment's S parts in consecutive groups, one group a device), at
+construction and again only when the index's views change -- never per
+search. Otherwise every shard shares the whole mesh and the shards scan
+in turn: the JAX package's one-device regime, same results, summed time.
+The shards' partials are merged on the index's first device.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ from repro_torch.codes import rerank_exact
 from repro_torch.core.engine import costmodel as costmodel_lib
 from repro_torch.core.engine.executors import SearchResult
 from repro_torch.core.engine.plan import plan as make_plan
+from repro_torch.core.index_build import place
 from repro_torch.core.lookup import build_lookup
 from repro_torch.core.search import search_with_lookup
+from repro_torch.distributed.meshutil import shard_submeshes
 from repro_torch.index.segment import dead_counts
 from repro_torch.obs import get_registry
 
@@ -251,6 +258,15 @@ def _pad_cols(res: SearchResult, width: int) -> SearchResult:
     )
 
 
+def _place_codes(codes, mesh):
+    """A segment's codes (a tensor, or one a shard) placed as
+    ``index_build.place`` places its shards."""
+    if isinstance(codes, torch.Tensor):
+        return codes.to(mesh.first)
+    n, m = len(codes), mesh.n_shards
+    return tuple(c.to(mesh.devices[s * m // n]) for s, c in enumerate(codes))
+
+
 def fitted_shard_scales(index, shard_views, *, cost_model, n_queries: int,
                         k: int, probes: int, layout: str, impl: str,
                         max_scale: float = 2.0) -> list[float]:
@@ -269,12 +285,12 @@ def fitted_shard_scales(index, shard_views, *, cost_model, n_queries: int,
         try:
             probe_plans.append(make_plan(
                 rows=rows, n_leaves=index.n_leaves, n_queries=n_queries,
-                n_shards=1, k=k, probes=probes, layout=layout, impl=impl,
+                n_shards=index.mesh.n_shards, k=k, probes=probes, layout=layout, impl=impl,
                 model=cost_model, calibration=index.calibration))
         except ValueError:
             return [1.0] * len(shard_views)
         shapes.append(costmodel_lib.PlanShapes(
-            rows=rows, n_queries=n_queries, n_shards=1,
+            rows=rows, n_queries=n_queries, n_shards=index.mesh.n_shards,
             n_leaves=index.n_leaves))
     scales = iter(costmodel_lib.shard_slab_scales(
         fitted, probe_plans, shapes, max_scale=max_scale))
@@ -320,6 +336,8 @@ class ShardedIndex:
                 f"({plan.describe()} vs {len(self.segments)} segments); "
                 "re-derive with plan.rederived(index)")
         self.plan = plan
+        self.submeshes = shard_submeshes(index.mesh, plan.n_shards)
+        self._placed_for = self._placed = None
 
     @property
     def n_shards(self) -> int:
@@ -344,17 +362,37 @@ class ShardedIndex:
             return self._pin_tombstones
         return self.index.tombstones
 
-    def _codes(self, name: str):
+    def _index_codes(self, name: str):
         if self._pin_codes is not None:
             return self._pin_codes[name]
-        return self.index._codes[name]
+        return self.index._codes.get(name)
+
+    def _codes(self, name: str):
+        """A segment's codes on its shard's submesh (placed with its view)."""
+        self.shard_views()
+        return self._placed[1][name]
 
     def shard_views(self) -> list[list[tuple[int, object]]]:
-        """Per shard: ``(global_ordinal, masked DistributedIndex view)``
-        pairs in global append order."""
-        by_name = {s.name: (g, v) for g, (s, v) in enumerate(
-            zip(self.segments, self.segment_views()))}
-        return [[by_name[name] for name in shard]
+        """Per shard: ``(global_ordinal, masked view)`` pairs in global
+        append order, each view placed on the shard's submesh; placed once
+        per state of the index's views and codes."""
+        views = self.segment_views()
+        segs = self.segments
+        key = tuple(map(id, views)) + tuple(
+            id(self._index_codes(s.name)) for s in segs)
+        if self._placed_for != key:
+            shard_of = {name: s for s, names in enumerate(self.plan.assignment)
+                        for name in names}
+            placed, codes = {}, {}
+            for g, (seg, view) in enumerate(zip(segs, views)):
+                sub = self.submeshes[shard_of[seg.name]]
+                placed[seg.name] = (g, place(view, sub))
+                c = self._index_codes(seg.name)
+                if c is not None:
+                    codes[seg.name] = _place_codes(c, sub)
+            self._placed, self._placed_for = (placed, codes), key
+        placed = self._placed[0]
+        return [[placed[name] for name in shard]
                 for shard in self.plan.assignment]
 
     def _live_counts(self) -> np.ndarray:
@@ -405,7 +443,7 @@ class ShardedIndex:
         if pq is not None and layout in ("auto", "scan_codes"):
             agg = make_plan(
                 rows=sum(int(v.rows) for shard in views for _, v in shard),
-                n_leaves=idx.n_leaves, n_queries=q, n_shards=1, k=k,
+                n_leaves=idx.n_leaves, n_queries=q, n_shards=idx.mesh.n_shards, k=k,
                 probes=probes, layout=layout, impl=impl, model=cost_model,
                 calibration=idx.calibration, dim=idx.dim, rerank=rerank,
                 code_m=pq.m, code_bits=pq.bits)
@@ -428,7 +466,7 @@ class ShardedIndex:
                 if use_codes:
                     p = make_plan(
                         rows=view.rows, n_leaves=idx.n_leaves, n_queries=q,
-                        n_shards=1, k=k, probes=probes, layout="scan_codes",
+                        n_shards=view.n_shards, k=k, probes=probes, layout="scan_codes",
                         impl=impl, block_rows=block_rows, q_cap=q_cap,
                         model=cost_model, calibration=idx.calibration,
                         dim=idx.dim, rerank=rerank, code_m=pq.m,
@@ -437,7 +475,7 @@ class ShardedIndex:
                 else:
                     p = make_plan(
                         rows=view.rows, n_leaves=idx.n_leaves, n_queries=q,
-                        n_shards=1, k=k, probes=probes, layout=layout,
+                        n_shards=view.n_shards, k=k, probes=probes, layout=layout,
                         impl=impl, block_rows=block_rows, q_cap=q_cap,
                         q_tile=q_tile, p_cap=p_cap, model=cost_model,
                         calibration=idx.calibration)
@@ -446,7 +484,8 @@ class ShardedIndex:
                               else p_cap is not None)
                 if not pinned:
                     p = costmodel_lib.scale_slab_budget(
-                        p, scale, n_queries=q, shard_rows=view.rows)
+                        p, scale, n_queries=q,
+                        shard_rows=view.rows // view.n_shards)
                 kw = {}
                 if use_codes:
                     kw = dict(codes=self._codes(segs[g].name),
@@ -454,14 +493,21 @@ class ShardedIndex:
                 res = search_with_lookup(view, lookup, p, n_queries=q, **kw)
                 per_seg.append(res)
                 ordinals.append(g)
-                pairs = pairs + res.pairs
-                overflow = overflow + res.q_cap_overflow
+                pairs = pairs + res.pairs.to(idx.device)
+                overflow = overflow + res.q_cap_overflow.to(idx.device)
             if not per_seg:
                 continue  # an empty scatter leg, or every segment pruned
             if use_codes:
-                entries_by_shard.append(list(zip(ordinals, per_seg)))
+                entries_by_shard.append([
+                    (g, SearchResult(r.ids.to(idx.device), r.dists.to(idx.device),
+                                     r.pairs, r.q_cap_overflow))
+                    for g, r in zip(ordinals, per_seg)])
             else:
-                partials.append(shard_local_partial(per_seg, ordinals, k))
+                # the shard's local top-k on its submesh, then to the first
+                # device for the gather (queued, no host sync)
+                partials.append(tuple(
+                    t.to(idx.device)
+                    for t in shard_local_partial(per_seg, ordinals, k)))
         if pruned:
             get_registry().counter("index.segments_pruned").inc(pruned)
         if not (partials or entries_by_shard):

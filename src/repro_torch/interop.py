@@ -14,10 +14,16 @@ import numpy as np
 import torch
 
 from repro_torch.codes.pq import ProductQuantizer
-from repro_torch.core.index_build import DistributedIndex
+from repro_torch.core.index_build import (
+    DistributedIndex,
+    MeshIndex,
+    from_global,
+    to_global,
+)
 from repro_torch.core.lookup import LookupTable
 from repro_torch.core.tree import VocabTree
 from repro_torch.device import resolve
+from repro_torch.distributed.meshutil import DeviceMesh
 
 
 def tree_from_numpy(levels: Sequence[np.ndarray],
@@ -29,22 +35,35 @@ def tree_from_numpy(levels: Sequence[np.ndarray],
 
 def index_from_numpy(*, vecs, ids, leaves, offsets, n_valid, overflow,
                      n_leaves: int,
-                     device: str | torch.device | None = "cuda") -> DistributedIndex:
-    """Raises unless each shard's leaves are sorted ascending, the order
-    the search kernels rely on (``LEAF_SENTINEL`` padding sorts last)."""
-    dev = resolve(device)
-    shard_leaves = np.asarray(leaves, np.int64).reshape(np.shape(offsets)[0], -1)
+                     device: str | torch.device | None = "cuda",
+                     mesh: DeviceMesh | None = None
+                     ) -> DistributedIndex | MeshIndex:
+    """The reference's global arrays (``vecs (S*R, d)``, ``offsets (S,
+    L/S+1)``, ...) as an index: one shard on ``device``, or S shards on
+    ``mesh`` (default: S shards on ``device`` in turn), shard ``s``'s
+    block of rows on ``mesh.devices[s]``. Raises unless each shard's
+    leaves are sorted ascending, the order the search kernels rely on
+    (``LEAF_SENTINEL`` padding sorts last)."""
+    n_shards = np.shape(offsets)[0]
+    shard_leaves = np.asarray(leaves, np.int64).reshape(n_shards, -1)
     if (np.diff(shard_leaves, axis=1) < 0).any():
         raise ValueError("index_from_numpy: leaves must be sorted per shard")
-    return DistributedIndex(
-        vecs=torch.as_tensor(np.array(vecs, np.float32), device=dev).contiguous(),
-        ids=torch.as_tensor(np.array(ids, np.int32), device=dev),
-        leaves=torch.as_tensor(np.array(leaves, np.int32), device=dev),
-        offsets=torch.as_tensor(np.array(offsets, np.int32), device=dev),
-        n_valid=torch.as_tensor(np.array(n_valid, np.int32), device=dev),
-        overflow=torch.as_tensor(np.array(overflow, np.int32), device=dev),
-        n_leaves=int(n_leaves),
-    )
+    fields = dict(vecs=np.array(vecs, np.float32), ids=np.array(ids, np.int32),
+                  leaves=np.array(leaves, np.int32),
+                  offsets=np.array(offsets, np.int32),
+                  n_valid=np.array(n_valid, np.int32),
+                  overflow=np.array(overflow, np.int32))
+    return from_global(fields, n_leaves=n_leaves,
+                       mesh=mesh or DeviceMesh((resolve(device),) * n_shards))
+
+
+def index_to_numpy(index: DistributedIndex | MeshIndex) -> dict:
+    """The reference's global arrays of an index of any shard count
+    (``vecs (S*R, d)``, ``ids``, ``leaves``, ``offsets (S, L/S+1)``,
+    ``n_valid (S,)``, ``overflow ()``) as numpy, with ``n_leaves``."""
+    out = {f: t.cpu().numpy() for f, t in to_global(index).items()}
+    out["n_leaves"] = index.n_leaves
+    return out
 
 
 def lookup_from_numpy(*, vecs, qids, leaves, offsets,

@@ -9,11 +9,14 @@ Nothing is built when a module is imported: :func:`lib` builds on its first
 call, which only a wrapper handed a CUDA tensor makes.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises if that is not 0.
+``cudaGetLastError()``; :func:`launch` calls one with the tensor's device
+made current -- the launchers set function attributes and read occupancy
+per device, on the current one -- and raises if that is not 0.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -140,3 +143,28 @@ def ptr(t: torch.Tensor | None) -> int:
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``t``'s device, with that device current, and raise on a CUDA
+    error. ``t`` is a tensor of the launch, on the device it runs on."""
+    fn = getattr(lib(), name)
+    if t.device.index == torch.cuda.current_device():
+        check(fn(*args, stream_ptr(t)), name)  # the common case: no switch
+    else:
+        with torch.cuda.device(t.device):
+            check(fn(*args, stream_ptr(t)), name)
+
+
+def count(wrapper, t: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel, on ``t``'s device: its
+    ``launches`` and its ``by_device[device index]``."""
+    wrapper.launches += 1
+    wrapper.by_device[t.device.index] += 1
+
+
+def counters(wrapper) -> None:
+    """Give ``wrapper`` zeroed launch counters."""
+    wrapper.launches = 0
+    wrapper.by_device = collections.Counter()

@@ -66,13 +66,12 @@ def wide_adc(codes, point_leaves, skip_ids, map_ids, lut, query_leaves, k,
     out_d = torch.empty((Q, k), dtype=torch.float32, device=codes.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=codes.device)
     scratch = wide_scratch(Q, k, codes.device) or (None, None)
-    err = _build.lib().adctopk_wide_launch(
+    _build.launch(
+        "adctopk_wide_launch", codes,
         codes.data_ptr(), point_leaves.data_ptr(), _build.ptr(skip_ids),
         _build.ptr(map_ids), lut.data_ptr(), query_leaves.data_ptr(),
         _build.ptr(q_start), out_d.data_ptr(), out_i.data_ptr(),
-        *map(_build.ptr, scratch), P, Q, n_lut, m, C, k,
-        _build.stream_ptr(codes))
-    _build.check(err, "adctopk_wide_launch")
+        *map(_build.ptr, scratch), P, Q, n_lut, m, C, k)
     return out_d, out_i
 
 
@@ -124,15 +123,14 @@ def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
         Q = n_lut if q_start is None else q_rows
         out = (torch.empty((Q, k), dtype=torch.float32, device=codes.device),
                torch.empty((Q, k), dtype=torch.int32, device=codes.device))
-        err = _build.lib().adcscan_launch(
+        _build.launch(
+            "adcscan_launch", codes,
             codes.data_ptr(), point_leaves.data_ptr(), _build.ptr(point_ids),
             lut.data_ptr(), query_leaves.data_ptr(), _build.ptr(q_start),
-            out[0].data_ptr(), out[1].data_ptr(), P, Q, n_lut, m, C, k,
-            _build.stream_ptr(codes))
-        _build.check(err, "adcscan_launch")
-    adc_topk.launches += 1
+            out[0].data_ptr(), out[1].data_ptr(), P, Q, n_lut, m, C, k)
+    _build.count(adc_topk, codes)
     return out
 
 
-adc_topk.launches = 0  # every launch: K4's and the wide kernel's
+_build.counters(adc_topk)  # every launch: K4's and the wide kernel's
 adc_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)

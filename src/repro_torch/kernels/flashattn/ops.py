@@ -75,20 +75,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("flash_attention: the tensor-core kernel reads 16-byte "
                              "rows: strides must be multiples of 8 elements and "
                              "data 16-byte aligned")
-        err = _build.lib().flashattn_tc_launch(
+        _build.launch(
+            "flashattn_tc_launch", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, Hq, Hkv, hd, int(window), 1.0 / math.sqrt(hd),
-            *strides, _build.stream_ptr(q))
+            *strides)
     else:
-        err = _build.lib().flashattn_launch(
+        _build.launch(
+            "flashattn_launch", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, Hq, Hkv, hd, int(window), _DTYPES[q.dtype],
-            1.0 / math.sqrt(hd), *strides, _build.stream_ptr(q))
-    _build.check(err, f"flash_attention ({kernel})")
-    flash_attention.launches += 1
+            1.0 / math.sqrt(hd), *strides)
+    _build.count(flash_attention, q)
     flash_attention.variant_launches[kernel] += 1
     return out
 
 
-flash_attention.launches = 0  # every launch
+_build.counters(flash_attention)  # every launch
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -57,17 +57,16 @@ def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
                torch.empty((Q, k), dtype=torch.int32, device=points.device))
         # the long tiles' list: a counter (padded to 16 bytes), 4 ints a tile
         scratch = torch.empty(4 + 4 * Q, dtype=torch.int32, device=points.device)
-        err = _build.lib().fusedscan_launch(
+        _build.launch(
+            "fusedscan_launch", points,
             points.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
             queries.data_ptr(), query_leaves.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), scratch.data_ptr(), P, Q, d, k,
-            _build.stream_ptr(points))
-        _build.check(err, "fusedscan_launch")
-    fused_topk.launches += 1
+            out[1].data_ptr(), scratch.data_ptr(), P, Q, d, k)
+    _build.count(fused_topk, points)
     return out
 
 
-fused_topk.launches = 0  # every launch: K2's and the wide kernel's
+_build.counters(fused_topk)  # every launch: K2's and the wide kernel's
 fused_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
 
 
@@ -102,14 +101,14 @@ def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
         Q, _, C = lut.shape
         out = (torch.empty((Q, k), dtype=torch.float32, device=codes.device),
                torch.empty((Q, k), dtype=torch.int32, device=codes.device))
-        err = _build.lib().fusedadc_launch(
+        _build.launch(
+            "fusedadc_launch", codes,
             codes.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
             lut.data_ptr(), query_leaves.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), P, Q, m, C, k, _build.stream_ptr(codes))
-        _build.check(err, "fusedadc_launch")
-    fused_adc_topk.launches += 1
+            out[1].data_ptr(), P, Q, m, C, k)
+    _build.count(fused_adc_topk, codes)
     return out
 
 
-fused_adc_topk.launches = 0  # every launch: K5's and the wide kernel's
+_build.counters(fused_adc_topk)  # every launch: K5's and the wide kernel's
 fused_adc_topk.wide_launches = 0  # the wide kernel's (k > ADC_MAX_K)

@@ -28,12 +28,11 @@ def l2_nearest(x: torch.Tensor, centroids: torch.Tensor):
     out_d = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:
         return out_i, out_d
-    err = _build.lib().l2nn_launch(
-        x.data_ptr(), centroids.data_ptr(), out_i.data_ptr(), out_d.data_ptr(),
-        n, c, d, _build.stream_ptr(x))
-    _build.check(err, "l2nn_launch")
-    l2_nearest.launches += 1
+    _build.launch("l2nn_launch", x,
+                  x.data_ptr(), centroids.data_ptr(), out_i.data_ptr(),
+                  out_d.data_ptr(), n, c, d)
+    _build.count(l2_nearest, x)
     return out_i, out_d
 
 
-l2_nearest.launches = 0
+_build.counters(l2_nearest)

@@ -55,12 +55,12 @@ def wide_dense(points, point_leaves, map_ids, queries, query_leaves, k,
     out_d = torch.empty((Q, k), dtype=torch.float32, device=points.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=points.device)
     scratch = wide_scratch(Q, k, points.device) or (None, None)
-    err = _build.lib().l2topk_wide_launch(
+    _build.launch(
+        "l2topk_wide_launch", points,
         points.data_ptr(), point_leaves.data_ptr(), _build.ptr(map_ids),
         queries.data_ptr(), query_leaves.data_ptr(), _build.ptr(p_start),
         out_d.data_ptr(), out_i.data_ptr(), *map(_build.ptr, scratch), P, Q,
-        d, k, _build.stream_ptr(points))
-    _build.check(err, "l2topk_wide_launch")
+        d, k)
     return out_d, out_i
 
 
@@ -107,16 +107,16 @@ def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
     else:
         out = (torch.empty((Q, k), dtype=torch.float32, device=points.device),
                torch.empty((Q, k), dtype=torch.int32, device=points.device))
-        err = _build.lib().l2topk_launch(
+        _build.launch(
+            "l2topk_launch", points,
             points.data_ptr(), point_leaves.data_ptr(), queries.data_ptr(),
             query_leaves.data_ptr(), _build.ptr(p_start), out[0].data_ptr(),
-            out[1].data_ptr(), P, Q, d, k, _build.stream_ptr(points))
-        _build.check(err, "l2topk_launch")
-    l2_topk.launches += 1
+            out[1].data_ptr(), P, Q, d, k)
+    _build.count(l2_topk, points)
     return out
 
 
-l2_topk.launches = 0  # every launch: K1's and the wide kernel's
+_build.counters(l2_topk)  # every launch: K1's and the wide kernel's
 l2_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
 
 

@@ -56,6 +56,11 @@ def _nbytes(slab) -> int:
     return sum(t.numel() * t.element_size() for t in slab)
 
 
+def _shards(view) -> tuple:
+    """A view's shards: a ``MeshIndex``'s parts, else the view itself."""
+    return getattr(view, "parts", (view,))
+
+
 class HotLeafCache:
     """Hot-leaf slab cache + routing memo, with hit accounting.
 
@@ -109,10 +114,10 @@ class HotLeafCache:
     def attach_index(self, views, n_leaves: int) -> None:
         """Point the cache at ``views``: the segments' leaf-sorted indexes
         in segment order (anything with ``vecs``/``ids``/``leaves`` on one
-        device, leaves ascending; padding leaves past ``n_leaves`` are never
-        reached). Nothing is copied here: each segment's leaf runs are
+        device, or a ``MeshIndex`` of such shards; leaves ascending per
+        shard; padding leaves past ``n_leaves`` are never reached). Nothing is copied here: each shard's leaf runs are
         located once (``searchsorted``), and a leaf's rows are gathered on
-        the device when it is admitted.
+        the index's first device when it is admitted.
 
         Re-attaching (a serving session refresh after the index grew or
         rows were deleted) drops every admitted slab and memo: a stale
@@ -123,9 +128,9 @@ class HotLeafCache:
         self._memo.clear()
         self._views = tuple(views)
         self._starts = [
-            torch.searchsorted(v.leaves, torch.arange(
-                n_leaves + 1, dtype=v.leaves.dtype, device=v.leaves.device)
-            ).cpu().numpy()
+            [torch.searchsorted(p.leaves, torch.arange(
+                n_leaves + 1, dtype=p.leaves.dtype, device=p.leaves.device)
+            ).cpu().numpy() for p in _shards(v)]
             for v in self._views
         ]
 
@@ -133,17 +138,21 @@ class HotLeafCache:
         """Leaf ``leaf``'s rows of every segment, segment-major, each
         segment's run in row order: (vecs, ids, segment ordinals, leaf
         column), on the index's device."""
-        parts = [(g, v, int(st[leaf]), int(st[leaf + 1]))
-                 for g, (v, st) in enumerate(zip(self._views, self._starts))]
-        parts = [(g, v, lo, hi) for g, v, lo, hi in parts if hi > lo]
-        v0 = self._views[0]
+        # a leaf lives in one shard of each segment
+        parts = [(g, p, int(st[leaf]), int(st[leaf + 1]))
+                 for g, (v, sts) in enumerate(zip(self._views, self._starts))
+                 for p, st in zip(_shards(v), sts)]
+        parts = [(g, p, lo, hi) for g, p, lo, hi in parts if hi > lo]
+        v0 = _shards(self._views[0])[0]
         if not parts:
             return (v0.vecs.new_zeros((0, v0.vecs.shape[1]), dtype=torch.float32),
                     v0.ids.new_zeros((0,), dtype=torch.int32),
                     v0.ids.new_zeros((0,), dtype=torch.int32),
                     v0.ids.new_zeros((0,), dtype=torch.int32))
-        vecs = torch.cat([v.vecs[lo:hi].float() for _, v, lo, hi in parts])
-        ids = torch.cat([v.ids[lo:hi].to(torch.int32) for _, v, lo, hi in parts])
+        dev = v0.vecs.device
+        vecs = torch.cat([p.vecs[lo:hi].float().to(dev) for _, p, lo, hi in parts])
+        ids = torch.cat([p.ids[lo:hi].to(dev, torch.int32)
+                         for _, p, lo, hi in parts])
         segs = torch.cat([torch.full((hi - lo,), g, dtype=torch.int32,
                                      device=vecs.device)
                           for g, _, lo, hi in parts])

@@ -149,7 +149,8 @@ def make_bucket_runtime(
         if rerank_override is not None:
             kw["rerank"] = rerank_override
         return make_plan(rows=view.rows, n_leaves=n_leaves, n_queries=bucket,
-                         n_shards=1, k=k, probes=probes, layout=layout,
+                         n_shards=view.n_shards, k=k, probes=probes,
+                         layout=layout,
                          impl=impl, model=cost_model, calibration=calibration,
                          **kw)
 
@@ -164,11 +165,13 @@ def make_bucket_runtime(
                       for p, view in zip(base_plans, segments)]
     plans, q_totals, execs = [], [], []
     for base_p, view in zip(base_plans, segments):
+        ns = view.n_shards
         p = scale_slab_budget(base_p, slab_scale, n_queries=bucket,
-                              shard_rows=view.rows)
-        q_total = lookup_q_total(p, bucket, 1)
-        execs.append(make_executor(p, n_leaves=n_leaves, shard_rows=view.rows,
-                                   q_total=q_total))
+                              shard_rows=view.rows // ns)
+        q_total = lookup_q_total(p, bucket, ns)
+        execs.append(make_executor(p, n_leaves=n_leaves,
+                                   shard_rows=view.rows // ns, q_total=q_total,
+                                   n_shards=ns))
         plans.append(p)
         q_totals.append(q_total)
     primary = max(range(len(plans)), key=lambda i: segments[i].rows)
@@ -177,7 +180,7 @@ def make_bucket_runtime(
     if emit_slots:
         slot_row = torch.cat([
             torch.arange(g * width, g * width + width, dtype=torch.int32)
-            for g in ordinals]).to(segments[0].vecs.device)
+            for g in ordinals]).to(segments[0].device)
 
     def merge(outs, leaves):
         if len(outs) == 1 and not emit_slots:
@@ -211,7 +214,7 @@ def make_bucket_runtime(
         q_total=max(q_totals), fn=pipeline,
         # calibration keys on the UNSCALED plans: what a later plan()
         # consult derives, before any slab scaling
-        plan_rows=tuple((bp, int(v.rows), 1)
+        plan_rows=tuple((bp, int(v.rows), v.n_shards)
                         for bp, v in zip(base_plans, segments)),
         rerank=r if use_codes else None, builds=len(execs))
 
@@ -341,7 +344,8 @@ class SearchSession:
             agg = make_plan(
                 rows=sum(int(v.rows) for v in self._segments),
                 n_leaves=self.index.n_leaves, n_queries=self.buckets[-1],
-                n_shards=1, k=self.k, probes=self.probes, layout=layout,
+                n_shards=self.index.mesh.n_shards, k=self.k,
+                probes=self.probes, layout=layout,
                 impl=impl, model=cost_model,
                 calibration=self.index.calibration, dim=self.index.dim,
                 rerank=rerank, code_m=pq.m, code_bits=pq.bits)

@@ -20,9 +20,11 @@ serving layer over a :class:`~repro_torch.index.ShardedIndex`:
     query bytes and records routing post-gather; the micro-batcher
     coalesces above the session exactly as in the unsharded case.
 
-On one card every shard shares the device and the shards run in turn (the
-JAX package's one-device regime: same results, summed time). Shards on
-separate GPUs wait for the multi-GPU port (ROADMAP M13).
+Placement is the ``ShardedIndex``'s: when the index's mesh splits evenly
+over the shards, each shard's rungs run on its own submesh (its own
+cards), and its partials come to the index's first device for the
+gather; otherwise every shard shares the mesh and the shards run in turn
+(the JAX package's one-device regime: same results, summed time).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from repro_torch.core.engine import (
     snap_to_bucket,
 )
 from repro_torch.core.engine.costmodel import plan_signature, signature_key
+from repro_torch.core.engine.executors import SearchResult
 from repro_torch.index.sharding import (
     ShardedIndex,
     ShardPlan,
@@ -131,12 +134,14 @@ class ShardedSearchSession(SearchSession):
         shard_views = self.sharded.shard_views()
         self._shard_codes = {}
         if self._use_codes:
-            # device codes by global segment ordinal; each shard's rung
-            # sees only its own segments' codes
+            # device codes by global segment ordinal, placed on the shard's
+            # submesh with its views; each shard's rung sees only its own
+            # segments' codes
+            segs = self.sharded.segments
             for si, shard in enumerate(shard_views):
                 if shard:
-                    self._shard_codes[si] = tuple(self._codes_dev[g]
-                                                  for g, _ in shard)
+                    self._shard_codes[si] = tuple(
+                        self.sharded._codes(segs[g].name) for g, _ in shard)
         self._runtimes = {}
         for b in self.buckets:
             scales = self._shard_scales(shard_views, b)
@@ -259,7 +264,14 @@ class ShardedSearchSession(SearchSession):
         and the codebook table)."""
         extra = (() if rt.rerank is None
                  else (self._shard_codes[si], self._codebooks_dev))
-        return rt.fn(views, self.tree, buf, n_valid, *extra)
+        res, leaves, slots = rt.fn(views, self.tree, buf, n_valid, *extra)
+        # a shard on its own submesh answers there: its partial comes to
+        # the index's first device for the gather (queued, no host sync)
+        if res.ids.device != self.device:
+            res = SearchResult(*(t.to(self.device) for t in (
+                res.ids, res.dists, res.pairs, res.q_cap_overflow)))
+            slots = slots.to(self.device)
+        return res, leaves.to(self.device), slots
 
     def _execute(self, queries: np.ndarray, *, n_images: int | None = None):
         """Scatter one micro-batch to every shard, gather-merge the

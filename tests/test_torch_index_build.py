@@ -21,6 +21,7 @@ from repro_torch.core import index_build as tib
 from repro_torch.core import route as troute
 from repro_torch.core.sentinels import LEAF_SENTINEL
 from repro_torch.data import synth
+from repro_torch.distributed.meshutil import DeviceMesh
 
 FIELDS = ("vecs", "ids", "leaves", "offsets", "n_valid", "overflow")
 
@@ -145,9 +146,12 @@ def test_route_drops_and_counts_overflow(corpus):
 
 def test_route_rejects_several_shards():
     z = torch.zeros((4, 2))
-    with pytest.raises(NotImplementedError):
-        troute.route_by_leaf(z, torch.arange(4), torch.zeros(4, dtype=torch.int32),
-                             n_shards=2, leaves_per_shard=1, capacity=8)
+    # several shards route only over a mesh of as many
+    with pytest.raises(ValueError, match="mesh"):
+        troute.route_by_leaf([z], [torch.arange(4)],
+                             [torch.zeros(4, dtype=torch.int32)], n_shards=2,
+                             leaves_per_shard=1, capacity=8,
+                             mesh=DeviceMesh((torch.device("cpu"),)))
 
 
 @pytest.fixture

@@ -45,6 +45,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.launch.index, repro_torch.distributed.wavescheduler\n"
         "import repro_torch.distributed.failure, repro_torch.data.copydays\n"
         "import repro_torch.configs.sift100m\n"
+        "import repro_torch.distributed.meshutil, repro_torch.distributed.collectives\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -78,7 +79,8 @@ def _no_cuda():
                                    "transformer_params_from_numpy",
                                    "Index.create", "Index.open",
                                    "SearchSession.load_or_build",
-                                   "launch.serve", "launch.index"])
+                                   "launch.serve", "launch.index",
+                                   "local_mesh"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -104,6 +106,7 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
                                             "--images", "8"]),
         "launch.index": lambda: index_cli.main(["--rows", "64", "--dim", "4",
                                                 "--block-rows", "32"]),
+        "local_mesh": lambda: repro_torch.local_mesh(),
         "transformer_params_from_numpy": lambda: interop.transformer_params_from_numpy(
             dict(embed=cpu_params["embed"].numpy(),
                  final_norm=cpu_params["final_norm"].numpy(),

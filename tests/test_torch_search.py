@@ -27,6 +27,7 @@ from repro_torch.core import lookup as tlookup
 from repro_torch.core.engine import tilescan as tts
 from repro_torch.core.engine.executors import _leaf_pair_count, pad_lookup
 from repro_torch.data import synth
+from repro_torch.distributed.meshutil import DeviceMesh
 
 # the engine packages export a function named plan, so fetch the modules
 jplan = importlib.import_module("repro.core.engine.plan")
@@ -258,8 +259,10 @@ def test_query_routed_accounting_equals_per_tile_sums(world):
     from repro_torch.core.engine.executors import routed_accounting
 
     lk = tlookup.build_lookup(tt, torch.as_tensor(q), probes=2)
-    routed = troute.route_by_leaf(lk.vecs, lk.qids, lk.leaves, n_shards=1,
-                                  leaves_per_shard=tt.n_leaves, capacity=512)
+    (routed,) = troute.route_by_leaf(
+        [lk.vecs], [lk.qids], [lk.leaves], n_shards=1,
+        leaves_per_shard=tt.n_leaves, capacity=512,
+        mesh=DeviceMesh((torch.device("cpu"),)))
     _, _, qlf, _, _ = troute.cluster_sort(routed, leaf_base=0,
                                           leaves_per_shard=tt.n_leaves)
     q_tile, p_cap, offsets = 32, 96, ti.offsets[0]
@@ -458,6 +461,13 @@ def test_cuda_sweep_and_fused_agree_at_wide_k(world, cuda, probes, k):
 def test_make_executor_rejects_several_shards():
     from repro_torch.core.engine import make_executor
 
-    p = tplan.plan(rows=64, n_leaves=4, n_queries=4, n_shards=1, k=1)
-    with pytest.raises(NotImplementedError, match="M13"):
-        make_executor(p, n_leaves=4, shard_rows=32, q_total=p.q_cap, n_shards=2)
+    # an executor of two shards runs a MeshIndex of two, and refuses a
+    # one-shard index (tests/test_torch_sharded_build.py runs S > 1)
+    p = tplan.plan(rows=64, n_leaves=4, n_queries=4, n_shards=2, k=1)
+    fn = make_executor(p, n_leaves=4, shard_rows=32, q_total=p.q_cap, n_shards=2)
+    one = interop.index_from_numpy(
+        vecs=np.zeros((64, 2), np.float32), ids=np.arange(64),
+        leaves=np.zeros(64), offsets=np.zeros((1, 5)), n_valid=[64],
+        overflow=0, n_leaves=4, device="cpu")
+    with pytest.raises(ValueError, match="executor for 2 x 32 rows"):
+        fn(one, None)
