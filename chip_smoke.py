@@ -52,7 +52,10 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      waves of the dense sweep (its bound counts only what their same-leaf
      pairs need), is timed again with every lookup leaf moved past the
      index's leaves (its floor) and on the wave with the most pairs alone,
-     and the dense sweep's trace must show one l2topk kernel a wave.
+     and the dense sweep's trace must show one l2topk kernel a wave (the
+     K1 and K4 sweeps are traced over the index's first 2^22 rows, 1,024
+     waves, against that sweep's untraced wall: the profiler's host-side
+     recording of all 8,192 waves took some 150 s a sweep).
      adcscan runs 64 waves of the codes sweep as the sweep calls it (the
      wave's sorted leaves and ids, the whole LUT table, the slab start on
      the device), one of them again with tombstones, and is timed once more
@@ -128,7 +131,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      4194304`` at the sift100m widths (d 128, fanouts 256 x 256, a 2^20-row
      tree sample), two blocks of 2^22 rows, the second 4,194,301 rows, off
      the 4,096-row wave grid, in this checkout's git-ignored
-     ``build/index_job`` (disk probed first, removed at the end). J1: the
+     ``build/index_job`` (disk probed first, removed at the end). The CLI
+     runs with ``--device cuda``, so it builds its index on ``local_mesh()``
+     (one shard a visible card; J2 and J3 check that it did). J1: the
      CLI as a subprocess with ``--commit-every 1 --inject-failures``,
      SIGKILLed once the port's manifest reader sees version 1 carrying
      block 0's cursor; ``Index.open`` must show one segment of 2^22 rows and
@@ -137,7 +142,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      one append wave after one failed attempt (the injector's (1, 0)),
      index 4,194,301 rows and train codes. J4: the ids are 0..n-1 once each
      and every segment's leaves ascend; J2's segment equals, bit for bit, a
-     build of the regenerated block at 1,000-row waves, and that block
+     build of the regenerated block at 1,000-row waves, block 0's segment
+     (J1's child's) equals a one-shard build of block 0 on the card, and
+     that block
      and the tree moved off the integer grid (where fp32 sums are not
      exact) build alike at 4,096- and 1,000-row waves; every build of the
      job ran l2nn once a 4,096-row wave, ceil(n / 4096) waves (printed
@@ -152,8 +159,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      gains each kernel's launches in J2, J3 and J5 (the child's are not
      counted). If the script would pass 1,050 s, the job is cut to
      ``--rows 2097149 --block-rows 1048576`` and says so;
-  7. shards (both jobs over a ``DeviceMesh``), after the index job: the
-     main path's 2^24 rows and 2^15 queries made again from ``--seed``,
+  7. shards (both jobs over a ``DeviceMesh``), after the index job: half
+     the main path's rows, 2^23 (``scripts/shards_phase.py`` runs all
+     2^24), and its 2^15 queries made again from ``--seed``,
      its tree and the codes path's codebooks; a one-shard index of them
      and its searches are the reference. Mesh A, four shards on the one
      card, and mesh B, one shard a card (S = 4, or 2 on a machine of two
@@ -179,9 +187,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      launches by kernel and card, the build's assignment, route and sort
      walls, and on mesh B each card's busy time and first and last event
      in a traced K1 sweep against the span over every card. The kernels line gains each
-     kernel's launches over the meshes. Past 930 s its corpus is cut to
-     2^23 rows (the short ``Index`` to two appends of 2^21), and it says
-     so;
+     kernel's launches over the meshes. At 2^23 rows the short ``Index``
+     takes two appends of 2^21;
   8. LM serving path, after the search phases' tensors are dropped: gemma3-4b
      at full width and depth (34 layers, bf16 weights drawn on the card from
      ``--seed``) serves 4 prompts of 2048 tokens (``lm_batch``): ``prefill``
@@ -206,7 +213,42 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      peak memory, a profiler breakdown of one prefill and one decode step,
      and flashattn's time at layer 5's shape beside the CUDA-core kernel's
      on the same bf16 inputs, its plain version's,
-     ``scaled_dot_product_attention``'s and its bound.
+     ``scaled_dot_product_attention``'s and its bound;
+  9. MoE serving path, after the LM phase's tensors are dropped:
+     moonshot-v1-16b-a3b at full width (d 2048, 16 heads of 128, 64
+     experts top-6, expert d_ff 1408, vocab 163,840; bf16 weights drawn on
+     the card from ``--seed``, a layer at a time), the same traffic as the
+     LM phase with ``attn_impl="chunked"``. Timed at the deepest depth
+     whose predicted peak stays under 75 GiB (48 layers, 27.72 B
+     parameters): prefill tokens/s, decode ms a step, ``moe_drops`` at the
+     configuration's capacity factor (1.25), peak memory; every K6 launch
+     of the prefill on the tensor-core kernel at hd 128. Checked at 8
+     layers (the same draw's first layers), at capacity factor 16, where
+     every expert takes every token and no row can drop: (a) the chunked
+     prefill against the full-attention one and (b) each decode step
+     against ``forward``, both within twice the bf16 model's own rounding
+     error (its full-attention prefill against the same weights in fp32;
+     each run of a pair carries that error). The
+     second run of each pair, and the fp32 one, run the first run's expert
+     picks (a pick that flips at a near tie would otherwise send one token,
+     and through attention its successors, down another path), and record
+     their own: the share of tokens whose own picks differ is printed, and
+     every pick that differs must be a near tie (the gap between the k-th
+     and (k+1)-th router logit within twice the largest router-logit move
+     that the bf16 model's own rounding makes at that layer; its ratio to
+     the fp32 bound of the router product alone is printed); (c) the routed
+     variant over four shards of the card against the global one: the
+     picks bit-identical, the logits within that error, and both
+     variants' drops at the configuration's factor (the routed count by
+     the reference's rule, beside the rows it really dropped); (d) layer
+     0's expert outputs of 256 tokens against float64 given the card's
+     picks and gates, within a first-order bound of the bf16 roundings,
+     which a variant with a wrong expert breaks; (e) K6 against its plain
+     version on layer 0's q, k, v within ``attention_bf16_tol``, and
+     timed beside ``scaled_dot_product_attention`` and its bound;
+ 10. the port's examples as subprocesses on the card:
+     ``examples/torch_quickstart.py`` and ``examples/torch_copydays_eval.py``
+     (crop10 recall@1 at least 0.9).
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -221,6 +263,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import signal
@@ -247,6 +290,7 @@ N_CHECK = 256  # queries checked against brute force
 K1_WAVES = 64  # distinct waves the l2topk kernel is timed over
 N_SAMPLE = 256  # lookup rows the fusedscan output is checked on
 CHUNK_POINTS = 2**20  # point rows per chunk of the sampled plain version
+TRACE_SHARE = 8  # the traced K1 and K4 sweeps cover the index's first 1/8
 N_REAL_WAVES = 8  # l2topk waves of the real-valued check
 # csrc/fusedscan.cu: rows of a group tile, runs split across a cluster past
 F_G, F_LONG = 8, 4096
@@ -280,7 +324,7 @@ SV_CACHE_REQUESTS = 512  # paced requests of the cache step
 SV_CACHE_LEAVES = 8192  # the cache step's capacity (hot leaves hold about 400 KiB)
 SV_REPLAYS = 8  # dispatched batches replayed through Index.search
 SV_SUBSET = 256  # requests of the sharded and codes checks
-SV_CAL_DISPATCHES = 2  # recorded dispatches of each calibrating session
+SV_CAL_DISPATCHES = 1  # recorded dispatches of each calibrating session
 SV_TRACE = Path(__file__).resolve().parent / "build" / "serving_trace.json"
 SV_CLI = ("--rows", "200000", "--dim", "128", "--images", "2000", "--fanout",
           "32", "32", "--trace", "zipf", "--requests", "500")
@@ -303,8 +347,8 @@ CD_K = 10
 CD_CROP10_MIN = 0.9  # tests/test_system.py's bar for the mildest variant
 # the shards phase (both jobs over a mesh; after the index job)
 SH_SHARDS = 4  # mesh A: four shards on the one card
-SH_CUT_ROWS = 2**23  # its corpus past SH_LATEST_START_S
-SH_LATEST_START_S = 930  # the uncut phase takes about 55 s
+SH_CUT_ROWS = 2**23  # its corpus here (scripts/shards_phase.py: 2^24)
+SH_LATEST_START_S = 930  # past it the phase runs at SH_CUT_ROWS whatever it was given
 SH_BUDGET_S = 120
 SH_LC_SHARE = 4  # the short Index's two appends: a quarter of the corpus each
 # the query-routed point slab, pinned alike at every shard count: what
@@ -333,10 +377,22 @@ LM_BATCH = 4
 LM_PROMPT = 2048
 LM_DECODE = 32
 LM_CHECK_LAYERS = (0, 5)  # one local (window 1024), one global layer
+MOE_BUDGET_S = 90
+MOE_PEAK_LIMIT_GIB = 75.0  # the timed model's depth is cut to stay under it
+MOE_CHECK_LAYERS = 8  # the checks' depth (its fp32 copy is about 18 GB)
+MOE_CHECK_CF = 16.0  # the checks' capacity factor: every expert takes every token
+MOE_SHARDS = 4  # (c): the routed variant over four shards of the one card
+MOE_ORACLE_TOKENS = 256  # (d): layer 0's tokens held against float64
+
+
+T0 = time.perf_counter()  # the script's start, for the lines' time stamps
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of output, after the seconds since the script started
+    (a JSON object stays a line of its own)."""
+    print(msg if msg.startswith("{") else
+          f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def sync_now() -> float:
@@ -2390,17 +2446,41 @@ def lc_oneshot(rt, idx, run, sizes, ids, keep=False):
     return dict(pallas=search("pallas", 1), fused_p2=search("fused", 2))
 
 
+def leaf_prefix(index, rows: int):
+    """The leaf-sorted index's first ``rows`` rows as an index of their
+    own (the leaves past them hold no rows): a sweep of it runs the main
+    path's plan over ``rows / block_rows`` of its waves."""
+    ids = index.ids[:rows]
+    return dataclasses.replace(
+        index, vecs=index.vecs[:rows], ids=ids, leaves=index.leaves[:rows],
+        offsets=index.offsets.clamp(max=rows),
+        n_valid=(ids >= 0).sum().to(index.n_valid.dtype).reshape(index.n_valid.shape))
+
+
+def traced_wall(fn):
+    """(device events, busy s, untraced wall s) of ``fn``: timed once, then
+    traced."""
+    t0 = sync_now()
+    fn()
+    wall = sync_now() - t0
+    ev, busy = device_trace(fn)
+    return ev, busy, wall
+
+
 def trace_sweep(rt, run, sizes):
-    """Trace one dense sweep (``batch_search`` impl="pallas"), log its top
-    device operations against the main-path run's wall time and return
-    ({l2topk kernel: [device ms, launches]}, device busy s)."""
-    index = run["index"]
-    ev, busy = device_trace(lambda: rt.batch_search(
-        index, run["tree"], run["queries"], sizes["k"], q_cap=sizes["q_cap"],
-        block_rows=sizes["block_rows"], impl="pallas", device=index.device))
-    log_trace("pallas", ev, busy, run["times"]["pallas"], 5)
-    return {e.key: [e.self_device_time_total / 1e3, e.count]
-            for e in ev if "l2topk" in e.key}, busy
+    """Trace one dense sweep (``batch_search`` impl="pallas") over the
+    index's first 1 / TRACE_SHARE (the profiler's host-side recording of
+    the whole 8,192-wave sweep took 150 s), log its top device operations
+    against the same sweep's untraced wall time and return ({l2topk
+    kernel: [device ms, launches]}, device busy s, wall s, waves)."""
+    sub = leaf_prefix(run["index"], run["index"].rows // TRACE_SHARE)
+    ev, busy, wall = traced_wall(lambda: rt.batch_search(
+        sub, run["tree"], run["queries"], sizes["k"], q_cap=sizes["q_cap"],
+        block_rows=sizes["block_rows"], impl="pallas", device=sub.device))
+    log_trace(f"pallas (the first {sub.rows} index rows)", ev, busy, wall, 5)
+    return ({e.key: [e.self_device_time_total / 1e3, e.count]
+             for e in ev if "l2topk" in e.key}, busy, wall,
+            sub.rows // sizes["block_rows"])
 
 
 def trace_searches(rt, run, sizes):
@@ -2410,35 +2490,38 @@ def trace_searches(rt, run, sizes):
     codes = run["codes"]
     # the sweep's K1 launches: one l2topk_kernel a wave and no other
     # l2topk kernel
-    k1, busy = trace_sweep(rt, run, sizes)
+    k1, busy, wall, n_waves = trace_sweep(rt, run, sizes)
     n = sum(c for _, c in k1.values())
-    n_waves = index.rows // sizes["block_rows"]
     if n != n_waves or any("l2topk_kernel" not in key for key in k1):
         raise AssertionError(f"dense sweep trace: l2topk kernels "
                              f"{sorted(k1)} x{n} for {n_waves} waves")
     run["sweep_trace"] = dict(
         sweep_trace_ms=sum(ms for ms, _ in k1.values()), sweep_trace_launches=n,
-        sweep_busy_s=busy, sweep_wall_s=run["times"]["pallas"])
+        sweep_busy_s=busy, sweep_wall_s=wall, sweep_trace_waves=n_waves,
+        sweep_trace_share=1 / TRACE_SHARE)
 
     def dense(impl, probes):
         rt.batch_search(index, tree, queries, sizes["k"], probes=probes,
                         q_cap=sizes["q_cap"], block_rows=sizes["block_rows"],
                         impl=impl, device=index.device)
 
-    def scan_codes(impl, probes):
+    def scan_codes(impl, probes, rows=index.rows):
         r = codes["results"][impl if probes == 1 else "fused_p2"]
         lookup = rt.build_lookup(tree, queries, probes=probes)
-        rt.search_with_lookup(index, lookup, r["plan"],
-                              n_queries=queries.shape[0], codes=codes["codes"],
+        rt.search_with_lookup(leaf_prefix(index, rows), lookup, r["plan"],
+                              n_queries=queries.shape[0],
+                              codes=codes["codes"][:rows],
                               codebooks=codes["pq"].codebooks)
 
+    # the codes sweep over the index's first 1 / TRACE_SHARE, as the dense one
+    sub_rows = index.rows // TRACE_SHARE
+    ev, busy, wall = traced_wall(lambda: scan_codes("pallas", 1, sub_rows))
+    log_trace(f"codes pallas (the first {sub_rows} index rows)", ev, busy, wall, 5)
     for name, search, impl, probes, wall, key, kernel in (
             ("fused", dense, "fused", 1, run["times"]["fused"], "fused_trace",
              "fusedscan"),
             ("fused p2", dense, "fused", 2, run["times"]["fused_p2"], "fused_trace_p2",
              "fusedscan"),
-            ("codes pallas", scan_codes, "pallas", 1, codes["times"]["pallas"], None,
-             None),
             ("codes fused", scan_codes, "fused", 1, codes["times"]["fused"],
              "fused_codes_trace", "adcscan"),
             ("codes fused p2", scan_codes, "fused", 2, codes["times"]["fused_p2"],
@@ -2579,15 +2662,24 @@ def job_run(rt, argv, name, launches, builds):
         builds.append((int(vecs.shape[0]), rt.wrappers["l2nn"].launches - before))
         return out
 
-    buf = io.StringIO()
+    real_mesh = rt.meshutil.local_mesh
+
+    def local_mesh(device="cuda"):
+        mesh = real_mesh(device)
+        meshes.append(mesh)
+        return mesh
+
+    buf, meshes = io.StringIO(), []
     rt.reset_counts()
     rt.lifecycle.build_index = counted
+    rt.meshutil.local_mesh = local_mesh
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
             rc = rt.index_cli.main(argv)
     finally:
         rt.lifecycle.build_index = real
+        rt.meshutil.local_mesh = real_mesh
     wall = time.perf_counter() - t0
     for key, n in rt.counts().items():
         launches[key] = launches.get(key, 0) + n
@@ -2597,6 +2689,12 @@ def job_run(rt, argv, name, launches, builds):
         log(f"index job {name}: {line}")
     if rc != 0:
         raise AssertionError(f"index job {name}: exit {rc}")
+    asked = argv[argv.index("--device") + 1]
+    if len(meshes) != 1 or meshes[0] != real_mesh(asked):
+        raise AssertionError(f"index job {name}: the CLI built {meshes}, not "
+                             "local_mesh()")
+    log(f"index job {name}: the CLI ran on local_mesh(): "
+        f"{meshes[0].n_shards} shard(s) on {[str(d) for d in meshes[0].devices]}")
     return lines, wall
 
 
@@ -2732,6 +2830,18 @@ def index_job_phase(rt, dev, seed, kernels, t_start):
         if dev.type == "cuda" and other_waves != -(-tail // 1000):
             raise AssertionError(f"J4: {other_waves} waves at 1000 rows")
         del seg, other
+        # block 0's segment, built by J1's child on local_mesh(), against a
+        # one-shard build of the block on the card (the --device path)
+        blk0 = store.read_block(0)
+        first = rt.build_index(
+            torch.as_tensor(blk0.vecs, device=dev), idx.tree,
+            ids=torch.as_tensor(blk0.ids.astype(np.int32), device=dev),
+            wire_dtype=idx.wire_dtype, device=dev)
+        for f in ("vecs", "ids", "leaves", "offsets", "n_valid", "overflow"):
+            if not torch.equal(getattr(first, f), getattr(idx.segments[0].index, f)):
+                raise AssertionError(f"J4: {f} of block 0's segment differ from a "
+                                     "one-shard build of the block")
+        del first, blk0
         # integer rows and centroids make every fp32 sum exact, which hides
         # a batch-size-dependent summation order: the same block and tree
         # moved off the integer grid must build alike at both wave sizes
@@ -2792,7 +2902,9 @@ def index_job_phase(rt, dev, seed, kernels, t_start):
                      for n, _ in builds}
         log(f"index job J4: the resumed segment equals a build of the "
             f"regenerated block at 1000-row waves ({other_waves} waves) bit "
-            f"for bit, and so do that block's builds at 4096- and 1000-row "
+            f"for bit, block 0's segment (J1's child, on local_mesh()) a "
+            f"one-shard build of block 0 on the card, and that block's "
+            f"builds at 4096- and 1000-row "
             f"waves moved off the integer grid (rows and tree); ids "
             f"0..{rows - 1} each once, leaves ascending; "
             f"builds (rows, waves): {builds}; the reference's snapped waves "
@@ -3101,7 +3213,7 @@ def sh_index_check(rt, mesh, corpus, tree, queries, sizes, dev):
         shutil.rmtree(SH_DIR, ignore_errors=True)
 
 
-def shards_phase(rt, args, dev, tree, pq, kernels, t_start):
+def shards_phase(rt, args, dev, tree, pq, kernels, t_start, rows=INDEX_ROWS):
     """Both jobs over S shards (``build_index``/``batch_search`` with
     ``mesh=``), held bit for bit against a one-shard index built in the
     phase from the same corpus: mesh A, four shards on the one card, and
@@ -3110,7 +3222,7 @@ def shards_phase(rt, args, dev, tree, pq, kernels, t_start):
     Adds each kernel's launches of the mesh runs to ``kernels``."""
     t_phase = time.perf_counter()
     elapsed = t_phase - t_start
-    rows, cut = INDEX_ROWS, None
+    cut = None if rows == INDEX_ROWS else f"{rows} of the main path's {INDEX_ROWS} rows"
     if elapsed > SH_LATEST_START_S:
         rows = SH_CUT_ROWS
         cut = (f"cut to {rows} rows: the phase starts at {elapsed:.0f} s, "
@@ -3439,6 +3551,529 @@ def trace_lm(rt, lm):
                                  f"x{e.count}" for e in top))
 
 
+# ---------------------------------------------------------------------------
+# the MoE phase (moonshot-v1-16b-a3b: global and routed dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_params(rt, cfg, seed: int, dev, n_layers: int):
+    """bf16 weights of ``cfg``'s first ``n_layers`` layers, drawn on the
+    card from ``seed``: each layer of each stacked weight from a generator
+    of its own, so a shallower model holds a deeper one's first layers, and
+    the fp32 draw takes one layer's room at a time."""
+    specs, dt = cfg.param_specs(), cfg.compute_dtype
+
+    def gen(j, i):
+        return torch.Generator(device=dev).manual_seed(seed * 1_000_003 + j * 1009 + i)
+
+    out = {"embed": rt.init_one(specs["embed"], gen(0, 0), dev, dt),
+           "final_norm": rt.init_one(specs["final_norm"], gen(1, 0), dev, dt),
+           "layers": {}}
+    for j, (name, spec) in enumerate(sorted(specs["layers"].items())):
+        one = dataclasses.replace(spec, shape=spec.shape[1:], axes=spec.axes[1:])
+        t = torch.empty((n_layers,) + tuple(spec.shape[1:]), dtype=dt, device=dev)
+        for i in range(n_layers):
+            t[i] = rt.init_one(one, gen(j + 2, i), dev, dt)
+        out["layers"][name] = t
+    return out
+
+
+def moe_peak_gib(rt, cfg, n_layers: int, batch: int, prompt: int, max_seq: int
+                 ) -> float:
+    """The timed run's device memory, predicted: the bf16 weights, the
+    prefill's fp32 logits and the fp32 embedding its lm head reads, the KV
+    cache, and one layer's dispatch buffers (with 2 GiB of slack)."""
+    D, V, E, Fe = cfg.d_model, cfg.vocab_size, cfg.moe.n_experts, cfg.moe.d_ff
+    per_layer = (cfg.param_count() - V * D - D) // cfg.n_layers
+    T = batch * prompt
+    cap = rt.tfm.moe_capacity_for(cfg, T)
+    byt = (2 * (V * D + D + n_layers * per_layer) + 4 * T * V + 4 * V * D
+           + 2 * 2 * n_layers * batch * max_seq * cfg.kv_dim
+           + 2 * E * cap * (D + 3 * Fe) + 2 * T * cfg.moe.top_k * D * 3)
+    return byt / 2**30 + 2.0
+
+
+@contextlib.contextmanager
+def moe_recorder(rt, calls, force=None):
+    """Every router call of the model (``transformer._route``) appends to
+    ``calls`` its own picks as sorted sets ``(T, k)`` and in order, its
+    gates, its fp32 router logits, the gap between each token's k-th and
+    (k+1)-th logit, and the fp32 bound of the router product at those two
+    experts (Higham's gamma_D times sum_d |x_d w_de|). With ``force`` (one
+    ``(T, k)`` tensor of experts a call, in call order) the layer runs those
+    experts, gated by the softmax of this run's logits at them: two runs
+    then route every token alike, and their hidden states differ by
+    rounding alone, while each run's own picks are still recorded."""
+    real = rt.tfm._route
+
+    def route(x2d, router, k):
+        flat_e, gates = real(x2d, router, k)
+        logits = rt.tfm.router_logits(x2d, router)
+        vals, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+        mag = x2d.double().abs() @ router.double().abs()  # (T, E)
+        edge = order[:, k - 1:k + 1]
+        bnd = rt.fp32_gamma(x2d.shape[1]) * mag.gather(1, edge).max(1).values
+        picks = flat_e.view(-1, k)
+        calls.append(dict(picks=torch.sort(picks, 1).values, order=picks,
+                          gates=gates, gap=(vals[:, k - 1] - vals[:, k]).double(),
+                          bound=bnd, logits=logits))
+        if force is not None:
+            given = force[len(calls) - 1].to(torch.int64)
+            gates = torch.softmax(logits.gather(1, given), dim=-1)
+            flat_e = given.reshape(-1).to(torch.int32)
+        return flat_e, gates
+
+    rt.tfm._route = route
+    try:
+        yield calls
+    finally:
+        rt.tfm._route = real
+
+
+def moe_layers(calls, n_layers, shards=1):
+    """The recorded calls as one record a layer (a routed run's S shard
+    calls a layer joined, shard by shard, as the global run's rows)."""
+    if len(calls) != n_layers * shards:
+        raise AssertionError(f"moe: {len(calls)} router calls for {n_layers} "
+                             f"layers x {shards} shards")
+    out = []
+    for i in range(n_layers):
+        part = calls[i * shards:(i + 1) * shards]
+        out.append({key: torch.cat([c[key] for c in part]) for key in part[0]})
+    return out
+
+
+def moe_agreement(ref, run, what, tau):
+    """``run`` routed every token as ``ref`` did (forced picks): the share
+    of tokens whose own picks in ``run`` differ from ``ref``'s in some
+    layer. Every such pick must be a near tie: the gap between the k-th and
+    (k+1)-th router logit, in ``ref`` or in ``run``, within ``2 *
+    tau[layer]``, the largest move of a router logit that the bf16 model's
+    own rounding makes at that layer (each of the two logits may move that
+    far). Returns (share, the largest gap of a differing pick over 2 tau,
+    and over the fp32 bound of the router product alone)."""
+    differ = torch.zeros(ref[0]["picks"].shape[0], dtype=torch.bool,
+                         device=ref[0]["picks"].device)
+    worst = worst_fp32 = 0.0
+    for la, lb, t in zip(ref, run, tau):
+        other = (la["picks"] != lb["picks"]).any(1)
+        differ |= other
+        if bool(other.any()):
+            gap = torch.minimum(la["gap"], lb["gap"])[other]
+            bnd = torch.maximum(la["bound"], lb["bound"])[other]
+            worst = max(worst, float(gap.max()) / (2 * t))
+            worst_fp32 = max(worst_fp32, float((gap / bnd).max()))
+    if worst > 1.0:
+        raise AssertionError(f"moe {what}: a pick differs with a gap of {worst} x "
+                             f"twice the bf16 model's own router-logit error: not "
+                             f"a near tie")
+    return float(differ.float().mean()), worst, worst_fp32
+
+
+def routed_rows_dropped(rt, layers, cfg, n_tokens, n_shards):
+    """The rows a routed run really dropped, from its recorded picks: on
+    the send side (past ``cap`` rows to one destination, in row order) and
+    on the owner (past ``cap2`` rows of one of its experts). The routed
+    variant's own count, the reference's rule, subtracts the owner's empty
+    slots from its owner-side overflow and floors the result at 0, so an
+    owner's drops mostly read as 0 there (ROADMAP R6)."""
+    cap, cap2 = rt.tfm.routed_capacities(cfg, n_tokens, n_shards)
+    E = cfg.moe.n_experts
+    e_loc = E // n_shards
+    send = owner = 0
+    for rec in layers:
+        e = rec["order"].reshape(n_shards, -1).long()
+        onehot = torch.nn.functional.one_hot(e // e_loc, n_shards)
+        rank = (onehot.cumsum(1) - 1).gather(2, (e // e_loc)[..., None])[..., 0]
+        fits = rank < cap
+        send += int((~fits).sum())
+        if e_loc > 1:
+            cnt = torch.bincount(e[fits], minlength=E)
+            owner += int((cnt - cap2).clamp_min(0).sum())
+    return dict(send=send, owner=owner, cap=cap, cap2=cap2)
+
+
+def moe_prefill(rt, params, cfg, prompts, max_seq, dev, *, cf=None, mesh=None,
+                force=None):
+    """One prefill with its router calls recorded (and, with ``force``, the
+    given picks run); returns (logits, cache, per-layer records, drops)."""
+    aux, calls = {}, []
+    with moe_recorder(rt, calls, force):
+        logits, cache = rt.tfm.prefill(params, cfg, prompts, max_seq, device=dev,
+                                       capacity_factor=cf, mesh=mesh, aux=aux)
+    shards = mesh.n_shards if mesh is not None and cfg.moe_impl == "routed" else 1
+    return logits, cache, moe_layers(calls, cfg.n_layers, shards), int(aux["moe_drops"])
+
+
+def moe_oracle(rt, x, layer, rec, out, cfg, n_tokens):
+    """(d): layer 0's MoE output of ``n_tokens`` tokens against float64,
+    given the card's own picks and gates: y = sum_j g_j W_down[e_j]
+    (silu(x W_gate[e_j]) * (x W_up[e_j])), with a first-order bound of the
+    bf16 roundings (each product's output, silu, the product of the two,
+    the final sum; the gates in bf16 on both sides) and the fp32 sums'
+    gamma terms. Returns the largest error
+    over its bound, and the same for a broken variant (each token's
+    last pick replaced by its (k+1)-th expert), which must exceed 1."""
+    ub, k = 2.0**-8, cfg.moe.top_k
+    D, Fe = cfg.d_model, cfg.moe.d_ff
+    gD, gF = rt.fp32_gamma(D), rt.fp32_gamma(Fe)
+    xs = x[:n_tokens].double()
+    order = rec["order"][:n_tokens].long()
+    gates = rec["gates"][:n_tokens].to(torch.bfloat16).double()
+
+    def evaluate(experts):
+        y = torch.zeros((n_tokens, D), dtype=torch.float64, device=x.device)
+        err, mag = torch.zeros_like(y), torch.zeros_like(y)
+        for e in torch.unique(experts).tolist():
+            t, j = torch.nonzero(experts == e, as_tuple=True)
+            wg = layer["w_gate"][e].double()
+            wu = layer["w_up"][e].double()
+            wd = layer["w_down"][e].double()
+            xe = xs[t]
+            a, b = xe @ wg, xe @ wu
+            ea = gD * (xe.abs() @ wg.abs()) + ub * a.abs()
+            eb = gD * (xe.abs() @ wu.abs()) + ub * b.abs()
+            sa = a * torch.sigmoid(a)
+            es = 1.1 * ea + ub * sa.abs()
+            h = sa * b
+            eh = sa.abs() * eb + b.abs() * es + ub * h.abs()
+            ye = h @ wd
+            ey = eh @ wd.abs() + gF * (h.abs() @ wd.abs()) + ub * ye.abs()
+            g = gates[t, j][:, None]
+            y.index_add_(0, t, g * ye)
+            err.index_add_(0, t, g * ey)
+            mag.index_add_(0, t, g * ye.abs())
+        # the gate sum: fp32 over k terms, then one rounding to bf16
+        return y, err + rt.fp32_gamma(k) * mag + ub * y.abs()
+
+    y, err = evaluate(order)
+    got = out[:n_tokens].double()
+    ratio = float(((got - y).abs() / err).max())
+    broken = order.clone()
+    broken[:, -1] = rec["next"][:n_tokens]
+    yb, _ = evaluate(broken)
+    broken_ratio = float(((got - yb).abs() / err).max())
+    return ratio, broken_ratio
+
+
+def moe_phase(rt, args, dev, kernels, t_start):
+    """moonshot-v1-16b-a3b at full width on the card: timed at the deepest
+    depth that fits (48 layers) through prefill and greedy decode (one
+    more of each traced), then checked at 8 layers: (a) chunked against
+    full-attention prefill, (b) each decode step against ``forward``, (c) global against routed
+    dispatch over four shards of the card, (d) layer 0's expert outputs
+    against float64, (e) K6 at hd 128 on the tensor-core kernel, held and
+    timed on layer 0's q, k, v. Adds K6's MoE launches and times to its
+    kernels-line row."""
+    t_phase = time.perf_counter()
+    full = dataclasses.replace(rt.lm.MOONSHOT_V1_16B, attn_impl="chunked")
+    max_seq = LM_PROMPT + LM_DECODE
+    depth = full.n_layers
+    while (moe_peak_gib(rt, full, depth, LM_BATCH, LM_PROMPT, max_seq)
+           > MOE_PEAK_LIMIT_GIB):
+        depth -= 1
+    cfg = dataclasses.replace(full, n_layers=depth)
+    cut = None if depth == full.n_layers else f"{depth} of {full.n_layers} layers"
+    predicted = moe_peak_gib(rt, full, depth, LM_BATCH, LM_PROMPT, max_seq)
+    prompts = torch.as_tensor(
+        rt.lm_batch(LM_BATCH, LM_PROMPT, cfg.vocab_size, seed=args.seed)["tokens"],
+        device=dev)
+    t0 = sync_now()
+    params = moe_params(rt, cfg, args.seed, dev, depth)
+    t_init = sync_now() - t0
+    log(f"moe: starts at {t_phase - t_start:.0f} s; {full.name} at {depth} layers "
+        f"({cut or 'full depth, no cut'}), {cfg.param_count()} parameters "
+        f"({cfg.active_param_count()} active a token), drawn on the card in "
+        f"{t_init:.3f} s; {LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_DECODE} "
+        f"decode steps; peak predicted {predicted:.1f} GiB")
+    _, wc = rt.tfm.prefill(params, cfg, prompts[:1, :64], 65, device=dev)
+    rt.tfm.decode_step(params, cfg, prompts[:1, :1], wc, 64, device=dev)
+    del wc
+
+    # --- timed: the served run at the configuration's capacity factor ---
+    torch.cuda.reset_peak_memory_stats()
+    rt.reset_counts()
+    aux = {}
+    t0 = sync_now()
+    logits, cache = rt.tfm.prefill(params, cfg, prompts, max_seq, device=dev, aux=aux)
+    t_prefill = sync_now() - t0
+    nxt = logits[:, -1:].argmax(-1)
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    t0 = sync_now()
+    for t in range(LM_DECODE):
+        dl, cache = rt.tfm.decode_step(params, cfg, nxt, cache, LM_PROMPT + t,
+                                       device=dev)
+        nxt = dl[:, -1:].argmax(-1)
+    t_decode = sync_now() - t0
+    finite &= bool(torch.isfinite(dl).all())
+    launches = rt.counts()
+    rt.reset_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    drops = int(aux["moe_drops"])
+    flops = rt.lm.lm_model_flops(cfg, LM_BATCH, LM_PROMPT, "prefill")
+    timed = dict(layers=depth, cut=cut, prefill_s=t_prefill,
+                 prefill_tokens_s=LM_BATCH * LM_PROMPT / t_prefill,
+                 prefill_tflops=flops / t_prefill / 1e12,
+                 decode_ms_step=t_decode / LM_DECODE * 1e3, moe_drops=drops,
+                 capacity=rt.tfm.moe_capacity_for(cfg, LM_BATCH * LM_PROMPT),
+                 peak_gib=peak, peak_predicted_gib=predicted,
+                 launches={k: v for k, v in launches.items() if v})
+    log(f"moe timed: {json.dumps(timed)}")
+    if shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size) or not finite:
+        raise AssertionError(f"moe: prefill logits {shape}, finite {finite}")
+    if (launches["flashattn"] != depth or launches["flashattn.tensor_core"] != depth
+            or launches["flashattn.cuda_core"] != 0):
+        raise AssertionError(f"moe (e): the prefill's K6 launches did not all go to "
+                             f"the tensor-core kernel: {json.dumps(launches)}")
+    # where a prefill's and a decode step's device time goes (one more each)
+    for name, wall, fn in (
+            ("prefill", t_prefill, lambda: rt.tfm.prefill(params, cfg, prompts,
+                                                          max_seq, device=dev)),
+            ("decode step", t_decode / LM_DECODE, lambda: rt.tfm.decode_step(
+                params, cfg, nxt, cache, LM_PROMPT, device=dev))):
+        ev, busy = device_trace(fn)
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+        log(f"trace moe {name}: device busy {busy} s of {wall} s wall (idle share "
+            f"{1 - busy / wall}); {sum(e.count for e in ev)} kernels; top device "
+            "time: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3} ms "
+                                 f"x{e.count}" for e in top))
+    del params, cache, dl, nxt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- checked at 8 layers (the same draw's first layers), at a
+    # capacity factor where nothing drops ---
+    torch.cuda.reset_peak_memory_stats()
+    c8 = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS)
+    p8 = moe_params(rt, c8, args.seed, dev, MOE_CHECK_LAYERS)
+    cf, n = MOE_CHECK_CF, LM_DECODE + 1
+    captured = {}
+    real_fa, real_ffn = rt.tfm.flash_attention, rt.tfm._moe_ffn
+
+    def capture_fa(q, k, v, *, window):
+        captured.setdefault("qkv", (q.clone(), k.clone(), v.clone(), window))
+        return real_fa(q, k, v, window=window)
+
+    def capture_ffn(x2d, layer, c, capacity):
+        out = real_ffn(x2d, layer, c, capacity)
+        captured.setdefault("ffn", (x2d.clone(), out[0].clone()))
+        return out
+
+    rt.tfm.flash_attention, rt.tfm._moe_ffn = capture_fa, capture_ffn
+    try:
+        lc, cache, rc, d_c = moe_prefill(rt, p8, c8, prompts, max_seq, dev, cf=cf)
+    finally:
+        rt.tfm.flash_attention, rt.tfm._moe_ffn = real_fa, real_ffn
+    # (b) decode from this cache, then forward over prompt + generated
+    steps, gen, rd = [], [], []
+    nxt = lc[:, -1:].argmax(-1)
+    for t in range(LM_DECODE):
+        gen.append(nxt)
+        calls = []
+        with moe_recorder(rt, calls):
+            dl, cache = rt.tfm.decode_step(p8, c8, nxt, cache, LM_PROMPT + t, device=dev)
+        rd.append(moe_layers(calls, MOE_CHECK_LAYERS))
+        steps.append(dl[:, 0])
+        nxt = dl[:, -1:].argmax(-1)
+    del cache
+    served = torch.cat([lc[:, -1:], torch.stack(steps, 1)], 1)  # (B, 33, V)
+    S_all = LM_PROMPT + LM_DECODE
+    # the served run's records, token for token as forward's: the prompt
+    # from the prefill, each generated position from its decode step
+    served_rec = []
+    for i in range(MOE_CHECK_LAYERS):
+        rec = {}
+        for key in rc[i]:
+            pre = rc[i][key].view(LM_BATCH, LM_PROMPT, *rc[i][key].shape[1:])
+            dec = torch.stack([r[i][key] for r in rd], 1)
+            rec[key] = torch.cat([pre, dec], 1).reshape(LM_BATCH * S_all,
+                                                        *rc[i][key].shape[1:])
+        served_rec.append(rec)
+    calls, faux = [], {}
+    with moe_recorder(rt, calls, [r["order"] for r in served_rec]):
+        fwd, faux = rt.tfm.forward(p8, c8, torch.cat([prompts] + gen, 1), device=dev,
+                                   capacity_factor=cf)
+    rf = moe_layers(calls, MOE_CHECK_LAYERS)
+    tail = fwd[:, LM_PROMPT - 1:].clone()
+    del fwd, steps
+    # (c) routed over four shards of the card; its capacities follow the
+    # configuration's factor (the reference's rule), so the check's
+    # configuration carries the check's factor. Then both variants' drops
+    # at the configuration's own factor
+    mesh = rt.DeviceMesh((dev,) * MOE_SHARDS)
+    T = LM_BATCH * LM_PROMPT
+    routed = dataclasses.replace(c8, moe_impl="routed")
+    routed_cf = dataclasses.replace(routed, moe=dataclasses.replace(
+        c8.moe, capacity_factor=cf))
+    lr, _, rr, d_r = moe_prefill(rt, p8, routed_cf, prompts, max_seq, dev, mesh=mesh)
+    routed_lost = routed_rows_dropped(rt, rr, routed_cf, T, MOE_SHARDS)
+    picks_equal = all(torch.equal(a["order"], b["order"]) for a, b in zip(rc, rr))
+    e_cr = float((lc - lr).abs().max())
+    del lr
+    drops_cfg = {}
+    for name, (c, m) in (("global", (c8, None)), ("routed", (routed, mesh))):
+        ldrop, _, rec, drops_cfg[name] = moe_prefill(rt, p8, c, prompts, max_seq, dev,
+                                                     mesh=m)
+        del ldrop
+    drops_cfg["routed_rows_dropped"] = routed_rows_dropped(rt, rec, routed, T,
+                                                           MOE_SHARDS)
+    # (a) the same prefill through plain attend, routed as the chunked one
+    forced = [r["order"] for r in rc]
+    lf, _, rfull, d_f = moe_prefill(rt, p8, dataclasses.replace(c8, attn_impl="full"),
+                                    prompts, LM_PROMPT, dev, cf=cf, force=forced)
+    # the yardstick: the full-attention prefill of the same weights in fp32,
+    # over the tokens whose picks agree with the bf16 run's: the logits'
+    # error, and each layer's largest router-logit move
+    c32 = dataclasses.replace(c8, dtype="float32", attn_impl="full")
+    p32 = {"embed": p8["embed"].float(), "final_norm": p8["final_norm"].float(),
+           "layers": {key: v.float() for key, v in p8["layers"].items()}}
+    l32, _, r32, d_32 = moe_prefill(rt, p32, c32, prompts, LM_PROMPT, dev, cf=cf,
+                                    force=forced)
+    del p32
+    share_y = moe_agreement(rfull, r32, "yardstick", [math.inf] * len(r32))[0]
+    e_b = float((lf - l32).abs().max())
+    e_b_tail = float((lf[:, -n:] - l32[:, -n:]).abs().max())
+    e_c32 = float((lc - l32).abs().max())
+    del l32
+    tau = [float((la["logits"] - lb["logits"]).abs().max())
+           for la, lb in zip(rfull, r32)]
+    share_a, worst_a, fp32_a = moe_agreement(rc, rfull, "(a) chunked vs full", tau)
+    e_cf = float((lc - lf).abs().max())
+    del lf, lc
+    share_b, worst_b, fp32_b = moe_agreement(served_rec, rf, "(b) decode vs forward",
+                                             tau)
+    e_dec = float((served - tail).abs().max())
+    greedy = float((served.argmax(-1) == tail.argmax(-1)).float().mean())
+    del served, tail
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = dict(
+        capacity_factor=cf, drops=dict(chunked=d_c, full=d_f, fp32=d_32, routed=d_r,
+                                       forward=int(faux["moe_drops"]),
+                                       routed_send=routed_lost["send"],
+                                       routed_owner=routed_lost["owner"]),
+        drops_at_config_factor=drops_cfg, chunked_vs_full=e_cf,
+        decode_vs_forward=e_dec, global_vs_routed=e_cr,
+        bf16_vs_fp32=e_b, bf16_vs_fp32_last33=e_b_tail, chunked_vs_fp32=e_c32,
+        picks_disagree_share=dict(chunked_vs_full=share_a, decode_vs_forward=share_b,
+                                  bf16_vs_fp32=share_y),
+        router_logit_move_bf16_vs_fp32=tau,
+        worst_disagreeing_gap_over_twice_that=dict(chunked_vs_full=worst_a,
+                                                   decode_vs_forward=worst_b),
+        worst_disagreeing_gap_over_fp32_router_bound=dict(chunked_vs_full=fp32_a,
+                                                          decode_vs_forward=fp32_b),
+        routed_picks_bit_identical=picks_equal, greedy_agree_decode_forward=greedy)
+    log(f"moe checks (8 layers): {json.dumps(checks)}")
+    if any(v for v in checks["drops"].values()):
+        raise AssertionError(f"moe: rows dropped at capacity factor {cf}")
+    # each run of a pair carries the bf16 model's own rounding error, so the
+    # two may differ by twice it
+    if not e_cf <= 2 * e_b:
+        raise AssertionError(f"moe (a): chunked vs full prefill logits differ by "
+                             f"{e_cf}, more than twice the bf16 model's own error "
+                             f"{e_b}")
+    if not e_dec <= 2 * e_b_tail:
+        raise AssertionError(f"moe (b): decode vs forward logits differ by {e_dec}, "
+                             f"more than twice the bf16 model's own error "
+                             f"{e_b_tail}")
+    if not picks_equal:
+        raise AssertionError("moe (c): routed picked other experts than global")
+    if not e_cr <= e_b:
+        raise AssertionError(f"moe (c): global vs routed logits differ by {e_cr}, "
+                             f"more than the bf16 model's own error {e_b}")
+
+    # (d) layer 0's expert outputs against float64
+    x0, out0 = captured["ffn"]
+    rec0 = dict(rc[0])
+    logits0 = rt.tfm.router_logits(x0, p8["layers"]["router"][0])
+    rec0["next"] = torch.sort(logits0, dim=-1, descending=True,
+                              stable=True)[1][:, c8.moe.top_k]
+    layer0 = {key: v[0] for key, v in p8["layers"].items()}
+    ratio_d, broken_d = moe_oracle(rt, x0, layer0, rec0, out0, c8, MOE_ORACLE_TOKENS)
+    log(f"moe (d): layer 0's expert outputs of {MOE_ORACLE_TOKENS} tokens against "
+        f"float64 given the card's picks and gates: {ratio_d} of the bf16/fp32 bound; "
+        f"a broken variant (each token's last pick swapped for its next expert) "
+        f"{broken_d} x")
+    if not ratio_d <= 1.0:
+        raise AssertionError(f"moe (d): {ratio_d} x the bound")
+    if not broken_d > 1.0:
+        raise AssertionError(f"moe (d): the broken variant passes ({broken_d} x)")
+
+    # (e) K6 at hd 128 against its plain version, and timed
+    q, k, v, window = captured["qkv"]
+    if rt.fa_variant(q.dtype, q.shape[-1]) != "tensor_core":
+        raise AssertionError(f"moe (e): bf16 at hd {q.shape[-1]} does not take the "
+                             "tensor-core kernel")
+    fa, ref = rt.flash_attention, rt.flash_attention_ref
+    got, want = fa(q, k, v, window=window), ref(q, k, v, window=window)
+    tol = rt.attention_bf16_tol(q, k, v, window=window)
+    ratio_e = float(((got.double() - want.double()).abs() / tol).max())
+    err_e = float((got.float() - want.float()).abs().max())
+    del got, want, tol
+    reps = [(q, k, v)] * 50
+    kern = time_ms(lambda q, k, v: fa(q, k, v, window=window), reps)
+    plain = time_ms(lambda q, k, v: ref(q, k, v, window=window), reps[:5])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads_first = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                  [heads_first] * 50)
+    B, Sq, Hq, hd = q.shape
+    fl = 4.0 * hd * B * Hq * lm_pairs(Sq, k.shape[1], window)
+    byt = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bnd = bound(byt, fl, BF16_FLOPS)
+    k6 = dict(shape=[B, Sq, Hq, k.shape[2], hd], ms=kern[0], wall_ms=kern[1],
+              plain_ms=plain[0], library_ms=lib[0], bound_ms=bnd[0], bound_by=bnd[1],
+              tflops=fl / kern[0] / 1e9, bf16_tol_ratio=ratio_e, max_abs_err=err_e,
+              moe_launches=launches["flashattn"],
+              moe_launches_tensor_core=launches["flashattn.tensor_core"])
+    log(f"moe (e): flashattn at layer 0's shape {k6['shape']}: {json.dumps(k6)}")
+    if not ratio_e <= 1.0:
+        raise AssertionError(f"moe (e): flashattn at {ratio_e} x the bf16 tolerance")
+    row = next(r for r in kernels if r["name"] == "flashattn")
+    row["moe"] = k6
+    row["moe_launches"] = launches["flashattn"]
+    row["max_abs_err"] = max(row["max_abs_err"], err_e)
+    del p8, q, k, v, heads_first, captured, x0, out0
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"moe: phase {wall:.1f} s against a budget of {MOE_BUDGET_S} s; peak of the "
+        f"checks {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return dict(timed=timed, checks=checks, oracle=dict(ratio=ratio_d, broken=broken_d),
+                k6=k6, wall_s=wall)
+
+
+def examples_phase(dev):
+    """The port's examples as a user runs them, on the card: the
+    quickstart and the Copydays evaluation, each a subprocess; crop10
+    recall@1 must reach ``CD_CROP10_MIN``."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = {}
+    for name in ("torch_quickstart", "torch_copydays_eval"):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, str(root / "examples" / f"{name}.py")],
+                           capture_output=True, text=True, env=env, cwd=str(root),
+                           timeout=300)
+        wall = time.perf_counter() - t0
+        lines = p.stdout.strip().splitlines()
+        for line in lines:
+            log(f"example {name}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"example {name}: exit {p.returncode}\n"
+                                 f"{p.stderr[-4000:]}")
+        out[name] = wall
+        log(f"example {name}: exit 0 in {wall:.1f} s")
+    crop10 = next(ln for ln in lines if ln.startswith("crop10"))
+    recall = float(crop10.split()[-1].rstrip("%")) / 100
+    if recall < CD_CROP10_MIN:
+        raise AssertionError(f"example Copydays: crop10 recall@1 {recall} < "
+                             f"{CD_CROP10_MIN}")
+    return dict(walls=out, crop10=recall)
+
+
 class Port:
     """The port's entry points and kernel wrappers, imported from ``src``
     (this checkout's by default)."""
@@ -3468,6 +4103,7 @@ class Port:
         from repro_torch.core.engine.tilescan import count_pairs, fold_topk, leaf_slab
         from repro_torch.core.lookup import build_lookup
         from repro_torch.core.index_build import routing_capacity
+        from repro_torch.distributed import meshutil
         from repro_torch.distributed.meshutil import shard_submeshes
         from repro_torch.core.search import (
             lookup_q_total,
@@ -3496,13 +4132,13 @@ class Port:
         from repro_torch.kernels.l2topk.ops import l2_topk
         from repro_torch.kernels.l2topk.ref import l2_topk_ref
         from repro_torch.models import transformer as tfm
-        from repro_torch.models.module import init_params
+        from repro_torch.models.module import init_one, init_params
 
         self.build_tree, self.VocabTree = repro_torch.build_tree, repro_torch.VocabTree
         self.build_index = repro_torch.build_index
         self.DeviceMesh, self.SearchResult = repro_torch.DeviceMesh, repro_torch.SearchResult
         self.ShardedIndex = repro_torch.ShardedIndex
-        self.shard_submeshes = shard_submeshes
+        self.shard_submeshes, self.meshutil = shard_submeshes, meshutil
         self.routing_capacity = routing_capacity
         self.batch_search = repro_torch.batch_search
         self.tree_assign = repro_torch.tree_assign
@@ -3537,6 +4173,7 @@ class Port:
         self.adc_topk, self.adc_topk_ref = adc_topk, adc_topk_ref
         self.fused_adc_topk = fused_adc_topk
         self.lm, self.tfm, self.lm_batch, self.init_params = lm, tfm, lm_batch, init_params
+        self.init_one, self.fp32_gamma = init_one, fp32_bound.gamma
         self.flash_attention, self.flash_attention_ref = flash_attention, flash_attention_ref
         self.fa_variant = variant
         self.attention_f64 = fp32_bound.attention_f64
@@ -3579,7 +4216,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    print(smi.splitlines()[0], flush=True)  # as nvidia-smi gives it
     rt.build.lib()
     built = rt.build.build_seconds
     log(f"kernel build: {'found built' if built is None else f'{built} s'} "
@@ -3628,13 +4265,20 @@ def main(argv=None) -> int:
     k3 = next(kr for kr in kernels if kr["name"] == "l2nn")
     k3.update(trace_build(rt, args, dev, sizes, tree, build_wall))
     index_job_phase(rt, dev, args.seed, kernels, t_start)
-    shards_phase(rt, args, dev, tree, pq, kernels, t_start)
+    shards_phase(rt, args, dev, tree, pq, kernels, t_start, rows=SH_CUT_ROWS)
     del tree, pq
     log(f"before the LM phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     lm = run_lm_path(rt, args, dev)
     check_lm_path(rt, lm)
     kernels.append(lm_kernel_check(rt, lm, args.seed))
     trace_lm(rt, lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the moe phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated")
+    moe_phase(rt, args, dev, kernels, t_start)
+    examples_phase(dev)
     log(f"script: {time.perf_counter() - t_start:.1f} s to here")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,8 @@ widths (``run_main_path``), takes the same 64 mid-shard waves
 (``dense_waves``), times K1 and K3 on them as the kernel phase does
 (``dense_kernel_times``: K1 a real wave, its floor and its busiest wave;
 K3 a build wave and tree level 0), K2 on the main path's fused call
-(``fused_inputs``, ``fused_time``), traces one dense sweep
-(``trace_sweep``) and one fused dense search at probes 1 and 2, runs the
+(``fused_inputs``, ``fused_time``), traces one dense sweep over the
+index's first eighth (``trace_sweep``) and one fused dense search at probes 1 and 2, runs the
 codes path (``run_codes_path``: PQ train, encode, three searches), times
 K4 a real codes wave and K5 the fused codes call (``codes_inputs``,
 ``k4_time``, ``k5_time``), traces the fused codes search at probes 1 and
@@ -63,7 +63,7 @@ def main(argv=None) -> int:
     full = cs.fused_inputs(rt, run, sizes, lk)[1]
     k2 = cs.fused_time(rt, full, sizes["k"])
     del full, lk
-    sweep_k1, sweep_busy = cs.trace_sweep(rt, run, sizes)
+    sweep_k1, sweep_busy, sweep_wall, sweep_waves = cs.trace_sweep(rt, run, sizes)
     out = {"src": args.src}
 
     def traced(name, fn, kernels):
@@ -110,7 +110,8 @@ def main(argv=None) -> int:
         "l2topk_busiest_wave_ms": t["k1_busiest"][0],
         "busiest_wave_pairs": t["k1_busiest_pairs"],
         "pairs_per_wave": sum(k1_pairs) / len(k1_pairs),
-        "sweep_wall_s": times["pallas"], "sweep_busy_s": sweep_busy,
+        "sweep_wall_s": times["pallas"], "traced_sweep_waves": sweep_waves,
+        "traced_sweep_wall_s": sweep_wall, "traced_sweep_busy_s": sweep_busy,
         "sweep_l2topk": {key[:60]: val for key, val in sweep_k1.items()},
         "fusedscan_ms": k2[0], "fused_wall_s": times["fused"],
         "fused_p2_wall_s": times["fused_p2"],

@@ -18,8 +18,10 @@ a ``scan_codes`` plan) and reranks the survivors exactly
 the S shards of a ``DeviceMesh`` (``mesh=local_mesh()``: one shard a
 visible card; a device may repeat, and its shards then run in turn): one
 process drives every shard, the shuffle is device-to-device copies, and
-each shard scans on its own card. The model side serves a dense decoder LM
-(``models.transformer``: ``prefill`` then ``decode_step``). Every entry
+each shard scans on its own card; both CLIs build their index on
+``local_mesh()``. The model side serves decoder LMs, dense and MoE
+(``models.transformer``: ``prefill`` then ``decode_step``; experts
+dispatched by ``core.dispatch``, globally or routed over a mesh). Every entry
 point runs on the card unless the caller passes ``device="cpu"``; on a
 CUDA tensor the hot loops go through hand-written CUDA kernels
 (``kernels/l2nn``, ``kernels/l2topk``, ``kernels/fusedscan``,

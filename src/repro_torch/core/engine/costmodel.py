@@ -19,14 +19,15 @@ budgets -- it never alters search results.
 
 Calibration is keyed by *backend*. A store belongs to one backend
 (:func:`backend_name`: ``"cpu"``, or ``"cuda:<device name>"``), records
-its measurements with a ``backend`` key beside ``signature``, and consults
-only records of its own backend. Records and tile configs of another
-backend, or with no ``backend`` key (every record the JAX package writes:
-CPU or TPU timings), are carried through ``to_json`` unchanged and never
-steer a plan here. The JAX package's ``from_json`` reads only
-``signature``, ``stats`` and ``shapes``, so it ignores the key; when it
-rewrites a manifest it drops it, and this package then treats those
-records as foreign.
+its measurements with a ``backend`` key inside each record's ``stats``
+and in each tile config, and consults only records of its own backend.
+Records and tile configs of another backend, or with no ``backend`` key
+(every record the JAX package writes: CPU or TPU timings), are carried
+through ``to_json`` unchanged and never steer a plan here. The JAX
+package's ``from_json`` keeps each record's ``stats`` whole, so a record's
+marker survives its rewrite of a manifest; it keeps only ``block_rows``,
+``ms`` and ``ts`` of a tile config, whose marker is then lost and which
+this package then treats as foreign.
 """
 
 from __future__ import annotations
@@ -412,16 +413,18 @@ class CalibrationStore:
 
     def to_json(self) -> dict:
         """Versioned manifest payload (``calibration`` field): the JAX
-        package's, with ``backend`` beside each record's ``signature`` and
-        in each tile config; carried records follow, unchanged."""
+        package's, with ``backend`` inside each record's ``stats`` (which
+        the JAX package reads and writes back whole, so the marker
+        survives its rewrite of a manifest) and in each tile config (which
+        it does not carry); carried records follow, unchanged."""
         with self._mu:
             return {
                 "format": CALIBRATION_FORMAT,
                 "records": [
                     {"signature": list(sig),
-                     "backend": self.backend,
-                     "stats": {k: v for k, v in o.items()
-                               if k not in ("shapes", "seq")},
+                     "stats": {**{k: v for k, v in o.items()
+                                  if k not in ("shapes", "seq")},
+                               "backend": self.backend},
                      "shapes": o.get("shapes")}
                     for (sig, _), o in self._records.items()
                 ] + [dict(r) for r in self._carried],
@@ -438,15 +441,17 @@ class CalibrationStore:
                   backend: str | None = None) -> "CalibrationStore":
         """The store of ``backend`` (default :func:`backend_name`) over a
         manifest payload: records and tile configs whose ``backend`` is
-        another, or absent, are carried, not consulted."""
+        another, or absent, are carried, not consulted. A record's marker
+        is read from its ``stats``, or from the record itself, where
+        earlier versions of the port wrote it."""
         store = cls(backend)
         now = time.time()
         for rec in (d or {}).get("records", []):
-            if rec.get("backend") != store.backend:
+            o = dict(rec["stats"])
+            if o.pop("backend", rec.get("backend")) != store.backend:
                 store._carried.append(dict(rec))
                 continue
             sig = tuple(rec["signature"])
-            o = dict(rec["stats"])
             # format-1 records carry no timestamp: load them as fresh —
             # an undated measurement beats no calibration, and it ages
             # out on the normal window from here

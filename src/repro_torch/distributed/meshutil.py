@@ -54,9 +54,10 @@ class DeviceMesh:
 
 
 def local_mesh(device: str | torch.device | None = "cuda") -> DeviceMesh:
-    """One shard per visible card (``device="cuda"``), or one CPU shard."""
+    """One shard per visible card (``device="cuda"``), or one shard on the
+    device named (``"cuda:N"``, ``"cpu"``)."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and dev.index is None:
         resolve(dev)  # raises without a card
         return DeviceMesh(tuple(torch.device("cuda", i)
                                 for i in range(torch.cuda.device_count())))

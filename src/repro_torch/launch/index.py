@@ -1,7 +1,8 @@
 """Streaming index-creation CLI -- a thin shell over ``repro_torch.index.Index``.
 
-The paper's Table 2 workflow, on the card unless ``--device cpu`` is
-given: descriptor blocks stream through wave-based assignment into index
+The paper's Table 2 workflow, on every visible card (one shard a card,
+``local_mesh``) unless ``--device cpu`` or ``--device cuda:N`` names one
+device: descriptor blocks stream through wave-based assignment into index
 files, and the searchable collection keeps growing between runs. Each
 store block becomes one ``Index.append`` wave under the WaveScheduler
 (retry + wave statistics, the jobtracker analog); ``commit`` publishes the
@@ -43,8 +44,9 @@ def main(argv=None) -> int:
     ap.add_argument("--inject-failures", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="where the index lives and its builds and searches "
-                         "run: cuda (the default; raises without a card) or "
-                         "cpu")
+                         "run: cuda (the default: one shard on every visible "
+                         "card; raises without a card), cuda:N (one card) "
+                         "or cpu")
     ap.add_argument(
         "--index-dir", default=None,
         help="durable index directory (create or grow); default: ephemeral",
@@ -146,16 +148,21 @@ def _run(args, tracer) -> int:
 
     from repro_torch.core.tree import build_tree
     from repro_torch.data.store import VirtualStore
-    from repro_torch.device import dtype_name, resolve
+    from repro_torch.device import dtype_name
+    from repro_torch.distributed import meshutil
     from repro_torch.distributed.failure import FailureInjector
     from repro_torch.distributed.wavescheduler import WaveScheduler
     from repro_torch.index import Index, has_index
 
-    dev = resolve(args.device)  # raises for cuda without a card
+    # every visible card for cuda (raises without one), one shard for cpu
+    # or cuda:N
+    mesh = meshutil.local_mesh(args.device)
+    dev = mesh.first
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     store = VirtualStore(
         args.rows, args.dim, block_rows=args.block_rows, seed=args.seed
@@ -165,7 +172,7 @@ def _run(args, tracer) -> int:
     wire = getattr(torch, args.wire_dtype)
     if args.index_dir and has_index(args.index_dir):
         t0 = time.perf_counter()
-        idx = Index.open(args.index_dir, device=dev)
+        idx = Index.open(args.index_dir, mesh=mesh)
         print(
             f"index: opened {args.index_dir} v{idx.version} "
             f"({idx.n_segments} segments, {idx.rows} rows) in "
@@ -191,7 +198,7 @@ def _run(args, tracer) -> int:
         sync()
         print(f"tree: {tree.n_leaves} leaves "
               f"({time.perf_counter() - t0:.2f}s)")
-        idx = Index.create(tree, args.index_dir, device=dev, wire_dtype=wire,
+        idx = Index.create(tree, args.index_dir, mesh=mesh, wire_dtype=wire,
                            extra={"corpus_seed": args.seed})
 
     # --- resumable ingest: a crashed --commit-every run must not re-append

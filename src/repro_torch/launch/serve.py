@@ -1,8 +1,9 @@
 """Online search service CLI -- a thin shell over ``repro_torch.serving``.
 
 The paper's Exp #5 measures batch-search throughput (~210 ms/image at 12k-
-image batches); this launcher runs the same engine as a *service*, on the
-card unless ``--device cpu`` is given: the index is loaded or built once
+image batches); this launcher runs the same engine as a *service*, on
+every visible card (``local_mesh``: one shard a card) unless ``--device``
+names one device (``cpu``, ``cuda:N``): the index is loaded or built once
 through the segment lifecycle (``--index-dir`` holds a committed
 ``repro_torch.index.Index``, so index-once / serve-many works across
 invocations, in the JAX package's directory format), a ladder of
@@ -58,7 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the index lives and searches run: cuda "
-                         "(the default; raises without a card) or cpu")
+                         "(the default: one shard on every visible card; "
+                         "raises without a card), cuda:N (one card) or cpu")
     ap.add_argument("--index-dir", default=None,
                     help="persist/restore the built index + corpus here "
                          "(index-once/serve-many)")
@@ -204,7 +206,7 @@ def _serve(args, tracer) -> int:
     from repro_torch.core.index_build import build_index
     from repro_torch.core.tree import build_tree
     from repro_torch.data import synth
-    from repro_torch.device import resolve
+    from repro_torch.distributed import meshutil
     from repro_torch.index import Index
     from repro_torch.serving import (
         MicroBatcher,
@@ -217,7 +219,10 @@ def _serve(args, tracer) -> int:
     )
     from repro_torch.serving.session import load_or_build_index, sync
 
-    dev = resolve(args.device)  # raises for cuda without a card
+    # every visible card for cuda (raises without one), one shard for cpu
+    # or cuda:N
+    mesh = meshutil.local_mesh(args.device)
+    dev = mesh.first
     dpi = args.desc_per_image or max(1, args.rows // args.images)
 
     corpus_vecs = None  # resident fallback when no --index-dir
@@ -242,7 +247,7 @@ def _serve(args, tracer) -> int:
             # one appended segment per shard so every scatter leg owns
             # real rows (segment search is bit-identical to one-shot, so
             # this only changes the partitioning, never the results)
-            idx = Index.create(tree, args.index_dir or None, device=dev,
+            idx = Index.create(tree, args.index_dir or None, mesh=mesh,
                                extra=extra, overwrite=True)
             for chunk in np.array_split(vecs_np, args.shards):
                 idx.append(chunk)
@@ -253,8 +258,9 @@ def _serve(args, tracer) -> int:
             return idx
         # float32 wire, the lifecycle's recorded default: a later append
         # grows this index with the same dtype
-        index = build_index(vecs, tree, wire_dtype=torch.float32, device=dev)
-        sync(dev)
+        index = build_index(vecs, tree, wire_dtype=torch.float32, mesh=mesh)
+        for d in mesh.distinct:
+            sync(d)
         print(f"index: built {int(index.n_valid.sum())} rows "
               f"({tree.n_leaves} leaves) in {time.perf_counter() - t0:.2f}s "
               f"(overflow {int(index.overflow)})")
@@ -271,7 +277,7 @@ def _serve(args, tracer) -> int:
         session_kw["buckets"] = [int(b) for b in args.buckets.split(",")]
     t0 = time.perf_counter()
     idx, meta = load_or_build_index(
-        args.index_dir, build_fn=build_fn, device=dev, rebuild=args.rebuild,
+        args.index_dir, build_fn=build_fn, mesh=mesh, rebuild=args.rebuild,
     )
     if args.codes and idx.quantizer is None:
         t_c = time.perf_counter()

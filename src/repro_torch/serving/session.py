@@ -68,6 +68,7 @@ from repro_torch.core.index_build import DistributedIndex
 from repro_torch.core.lookup import build_lookup_bucketed
 from repro_torch.core.search import lookup_q_total
 from repro_torch.core.tree import VocabTree
+from repro_torch.distributed.meshutil import DeviceMesh, as_mesh
 from repro_torch.index import Index, has_index, has_legacy_index
 from repro_torch.obs import get_tracer
 from repro_torch.serving.cache import HotLeafCache
@@ -229,20 +230,23 @@ def attach_cache(cache: HotLeafCache, views, n_leaves: int) -> None:
 
 
 def load_or_build_index(index_dir: str | None, *, build_fn, device="cuda",
-                        rebuild: bool = False):
+                        mesh: DeviceMesh | None = None, rebuild: bool = False):
     """Index-once / serve-many: ``Index.open`` when ``index_dir`` holds a
     committed non-empty manifest, else ``build_fn()``, committed there
     (when a directory is given).
 
     ``build_fn`` returns either ``(built, tree, extra)`` (a
-    ``DistributedIndex``, its tree and metadata; committed here as one
-    segment) or an already-committed :class:`~repro_torch.index.Index`.
-    Returns ``(index, meta)``; ``meta["restored"]`` says which path ran.
-    A directory in the pre-segment ``index_ckpt/`` format is rebuilt, with
-    a warning (``Index.open`` on it raises).
+    ``DistributedIndex`` or ``MeshIndex``, its tree and metadata;
+    committed here as one segment) or an already-committed
+    :class:`~repro_torch.index.Index`. The index lives on ``mesh``
+    (default: one shard on ``device``); a directory of another shard count
+    raises. Returns ``(index, meta)``; ``meta["restored"]`` says which
+    path ran. A directory in the pre-segment ``index_ckpt/`` format is
+    rebuilt, with a warning (``Index.open`` on it raises).
     """
+    mesh = as_mesh(mesh, device)
     if index_dir and not rebuild and has_index(index_dir):
-        opened = Index.open(index_dir, device=device)
+        opened = Index.open(index_dir, mesh=mesh)
         if opened.n_segments:
             return opened, dict(opened.meta, restored=True)
         # a crash between create and the first commit left a committed
@@ -256,8 +260,8 @@ def load_or_build_index(index_dir: str | None, *, build_fn, device="cuda",
     if isinstance(out, Index):
         return out, dict(out.meta, restored=False)
     built, tree, extra = out
-    idx = Index.create(tree, index_dir or None, device=tree.device,
-                       extra=extra, overwrite=True)
+    idx = Index.create(tree, index_dir or None, mesh=mesh, extra=extra,
+                       overwrite=True)
     idx.append_built(built)
     idx.commit()
     return idx, dict(extra or {}, restored=False)

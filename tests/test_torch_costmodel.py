@@ -40,12 +40,13 @@ def _key(p):
     return tuple(getattr(p, f) for f in FIELDS)
 
 
-def _tagged(d, backend=BACKEND):
-    """The JSON with ``backend`` on every record and tile config (the
-    reference's from_json ignores the key)."""
+def _tagged(d, backend=BACKEND, *, where="stats"):
+    """The JSON with ``backend`` in every record's ``stats`` (or, with
+    ``where="record"``, beside its ``signature``, as earlier versions of
+    the port wrote it) and in every tile config."""
     d = copy.deepcopy(d)
     for rec in d["records"]:
-        rec["backend"] = backend
+        (rec["stats"] if where == "stats" else rec)["backend"] = backend
     for cfg in d["tile_configs"]:
         cfg["backend"] = backend
     return d
@@ -142,14 +143,25 @@ def test_calibration_json_roundtrips_against_the_reference(calibration_json):
         calibration_json["records"]) + len(calibration_json["tile_configs"])
     assert carried.to_json() == calibration_json
     # records of this backend come back out with their backend key, and
-    # the reference reads them (ignoring the key) into the same store
+    # the reference reads them into the same store; its rewrite keeps the
+    # records' markers (inside stats) and drops the tile configs'
     own = tcm.CalibrationStore.from_json(_tagged(calibration_json),
                                          backend=BACKEND)
     out = own.to_json()
     assert out == _tagged(calibration_json)
     back = jcm.CalibrationStore.from_json(json.loads(json.dumps(out)))
-    assert back.to_json() == calibration_json
+    rewritten = back.to_json()
+    assert rewritten["records"] == out["records"]
+    assert rewritten["tile_configs"] == calibration_json["tile_configs"]
     assert own.snapshot() == back.snapshot()
+    again = tcm.CalibrationStore.from_json(rewritten, backend=BACKEND)
+    assert len(again) == len(own) and again.n_carried == len(
+        calibration_json["tile_configs"])
+    # the record-level marker of earlier versions is still read
+    old = tcm.CalibrationStore.from_json(
+        _tagged(calibration_json, where="record"), backend=BACKEND)
+    assert len(old) == len(own) and old.n_carried == 0
+    assert old.to_json() == out
 
 
 def test_other_backends_are_carried_not_consulted(calibration_json):
@@ -176,7 +188,7 @@ def test_other_backends_are_carried_not_consulted(calibration_json):
     # foreign records ride along unchanged
     foreign.record(tplan.plan(layout="point_major", **SHAPES), 9.0)
     out = foreign.to_json()
-    assert out["records"][0]["backend"] == BACKEND
+    assert out["records"][0]["stats"]["backend"] == BACKEND
     assert out["records"][1:] == _tagged(calibration_json,
                                          "cuda:Another GPU")["records"]
     with pytest.raises(ValueError, match="cannot merge"):
@@ -217,3 +229,40 @@ def test_plan_rejects_fused_query_routed():
         tplan.plan(layout="bogus", **SHAPES)
     with pytest.raises(ValueError, match="cost model"):
         tplan.plan(layout="auto", model="bogus", **SHAPES)
+
+
+def test_port_calibration_survives_a_reference_commit(calibration_json, tmp_path):
+    """A directory the port committed with its own records, then the
+    reference opened, appended to and committed, then the port reopened:
+    the port's records are still its own and still steer its plans (the
+    marker rides inside ``stats``, which the reference writes back whole)."""
+    mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
+    x, _ = synth.sample_descriptors(512, 8, seed=1, n_centers=8)
+    jt = j_build_tree(jnp.asarray(x), (4, 2), key=jax.random.PRNGKey(0))
+    d = str(tmp_path / "idx")
+    ji = JIndex.create(jt, d, mesh=mesh)
+    ji.append(x)
+    ji.commit()
+    ti = Index.open(d, device="cpu")
+    ti.calibration.merge(tcm.CalibrationStore.from_json(
+        _tagged(calibration_json), backend=BACKEND))
+    n_own = len(ti.calibration)
+    assert n_own > 0
+    ti.commit()
+    ji = JIndex.open(d, mesh=mesh)
+    assert len(ji.calibration) == n_own
+    ji.append(x[:64] + 1.0)
+    ji.commit()
+    ti = Index.open(d, device="cpu")
+    assert len(ti.calibration) == n_own
+    assert ti.calibration.snapshot() == tcm.CalibrationStore.from_json(
+        _tagged(calibration_json), backend=BACKEND).snapshot()
+    # the tile config's marker did not survive: it is carried, not consulted
+    assert ti.calibration.n_carried == len(calibration_json["tile_configs"])
+    assert ti.calibration.tile_config("point_major", 32, "float32") is None
+    flipped = sum(
+        _key(tplan.plan(layout="auto", impl="auto", model="auto",
+                        calibration=ti.calibration, **kw))
+        != _key(tplan.plan(layout="auto", impl="auto", model="heuristic", **kw))
+        for kw in GRID)
+    assert flipped

@@ -30,7 +30,9 @@ import repro.distributed.meshutil as jmeshutil
 from repro.distributed import wavescheduler as jws
 from repro.index import Index as JIndex
 from repro.launch import index as jcli
+from repro_torch.distributed import meshutil as tmeshutil
 from repro_torch.distributed import wavescheduler as tws
+from repro_torch.distributed.meshutil import DeviceMesh
 from repro_torch.index import Index
 from repro_torch.launch import index as tcli
 from repro_torch.launch import serve as tserve
@@ -251,3 +253,44 @@ def test_index_cli_defaults_to_the_card():
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(STORE)
+
+
+def _four_cpu_shards(monkeypatch):
+    """``local_mesh`` as a machine of four cards would give it: four
+    shards, here on the CPU."""
+    mesh = DeviceMesh((torch.device("cpu"),) * 4)
+    monkeypatch.setattr(tmeshutil, "local_mesh", lambda device="cuda": mesh)
+    return mesh
+
+
+def test_job_on_a_four_shard_mesh_gives_the_one_shard_answers(tmp_path, capsys,
+                                                              monkeypatch):
+    """The CLI builds its index on ``local_mesh``: with four shards the
+    job prints the one-shard job's lines (the verification search's
+    numbers included), every segment is a four-shard segment, and it holds
+    the one-shard index's rows and answers. A directory of four shards
+    does not open on one."""
+    args = ["--commit-every", "2", "--inject-failures", "--verify-queries", "32",
+            "--layout", "point_major", "--probes", "2"]
+    one = str(tmp_path / "one")
+    assert _port(args + ["--index-dir", one]) == 0
+    want = _untimed(capsys.readouterr().out)
+    mesh = _four_cpu_shards(monkeypatch)
+    four = str(tmp_path / "four")
+    assert _port(args + ["--index-dir", four]) == 0
+    assert _untimed(capsys.readouterr().out) == want
+    a, b = Index.open(one, device="cpu"), Index.open(four, mesh=mesh)
+    assert b.n_segments == a.n_segments == 4 and b.rows == a.rows == 4000
+    assert all(s.index.mesh == mesh for s in b.segments)
+    assert b.meta["ingest"] == a.meta["ingest"]
+    q = np.random.default_rng(3).standard_normal((64, 16)).astype(np.float32)
+    for kw in (dict(layout="point_major", probes=2), dict(layout="query_routed")):
+        ra, rb = a.search(q, k=5, **kw), b.search(q, k=5, **kw)
+        np.testing.assert_array_equal(rb.ids.numpy(), ra.ids.numpy())
+        np.testing.assert_array_equal(rb.dists.numpy(), ra.dists.numpy())
+    # the four-shard directory grows on the four-shard mesh, not on one
+    assert _port(["--index-dir", four]) == 0
+    assert "ingest: resuming this store at block 4/4" in capsys.readouterr().out
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="shard"):
+        _port(["--index-dir", four])

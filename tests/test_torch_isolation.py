@@ -12,7 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch import interop
-from repro_torch.configs.lm import GEMMA3_4B_SMOKE
+from repro_torch.configs.lm import GEMMA3_4B_SMOKE, MOONSHOT_V1_16B_SMOKE
 from repro_torch.device import resolve
 from repro_torch.launch import index as index_cli
 from repro_torch.launch import serve
@@ -21,6 +21,7 @@ from repro_torch.models.module import init_params
 from repro_torch.serving import SearchSession
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = ("torch_quickstart", "torch_index_and_search", "torch_copydays_eval")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -46,11 +47,19 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.distributed.failure, repro_torch.data.copydays\n"
         "import repro_torch.configs.sift100m\n"
         "import repro_torch.distributed.meshutil, repro_torch.distributed.collectives\n"
+        "import repro_torch.core.dispatch\n"
+        "import importlib.util, pathlib\n"
+        "for name in EXAMPLES:\n"
+        "    path = pathlib.Path(EXAMPLE_DIR) / (name + '.py')\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
+    code = (f"EXAMPLES = {EXAMPLES!r}\nEXAMPLE_DIR = {str(SRC.parent / 'examples')!r}\n"
+            + code)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -61,7 +70,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
 def test_sources_name_no_jax_import():
     pkg = SRC / "repro_torch"
     chip_smoke = SRC.parent / "chip_smoke.py"
-    for path in [*pkg.rglob("*.py"), chip_smoke]:
+    examples = [SRC.parent / "examples" / f"{name}.py" for name in EXAMPLES]
+    for path in [*pkg.rglob("*.py"), chip_smoke, *examples]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -80,7 +90,7 @@ def _no_cuda():
                                    "Index.create", "Index.open",
                                    "SearchSession.load_or_build",
                                    "launch.serve", "launch.index",
-                                   "local_mesh"])
+                                   "local_mesh", "forward (MoE)"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -107,6 +117,10 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
         "launch.index": lambda: index_cli.main(["--rows", "64", "--dim", "4",
                                                 "--block-rows", "32"]),
         "local_mesh": lambda: repro_torch.local_mesh(),
+        "forward (MoE)": lambda: tfm.forward(
+            init_params(MOONSHOT_V1_16B_SMOKE.param_specs(),
+                        torch.Generator().manual_seed(0), device="cpu"),
+            MOONSHOT_V1_16B_SMOKE, x[:1, :4].astype(np.int32)),
         "transformer_params_from_numpy": lambda: interop.transformer_params_from_numpy(
             dict(embed=cpu_params["embed"].numpy(),
                  final_norm=cpu_params["final_norm"].numpy(),

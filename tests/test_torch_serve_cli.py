@@ -6,6 +6,7 @@ calibration) and writes the trace files ``scripts/tracereport.py`` reads.
 Without ``--device cpu`` on a machine with no card it raises."""
 
 import json
+import re
 
 import pytest
 import torch
@@ -55,3 +56,36 @@ def test_serve_cli_defaults_to_the_card():
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main([a for a in TINY if a not in ("--device", "cpu")])
+
+
+def _results(out):
+    """The lines that carry answers, their times masked."""
+    return [re.sub(r"\d+\.\d+s", "Ts", ln) for ln in out.splitlines()
+            if ln.startswith(("index: built", "corpus:", "recall@1", "served",
+                              "steady-state", "  shard"))]
+
+
+@pytest.mark.parametrize("extra", [[], ["--shards", "2"]])
+def test_serve_cli_on_a_four_shard_mesh(capsys, tmp_path, monkeypatch, extra):
+    """The CLI serves from ``local_mesh``: patched to four CPU shards, it
+    builds and commits four-shard segments (``--shards 2``: each shard's
+    views on its two-device submesh) and answers as the one-shard run."""
+    from repro_torch.distributed import meshutil
+    from repro_torch.index import Index
+
+    args = TINY + ["--layout", "point_major"] + extra
+    assert serve.main(args + ["--index-dir", str(tmp_path / "one")]) == 0
+    want = _results(capsys.readouterr().out)
+    mesh = meshutil.DeviceMesh((torch.device("cpu"),) * 4)
+    monkeypatch.setattr(meshutil, "local_mesh", lambda device="cuda": mesh)
+    assert serve.main(args + ["--index-dir", str(tmp_path / "four")]) == 0
+    assert _results(capsys.readouterr().out) == want and want
+    a = Index.open(str(tmp_path / "one"), device="cpu")
+    b = Index.open(str(tmp_path / "four"), mesh=mesh)
+    assert all(s.index.mesh == mesh for s in b.segments)
+    q = a.read_rows(torch.arange(0, 4000, 50)).numpy() + 0.25
+    ra, rb = a.search(q, k=10), b.search(q, k=10)
+    assert torch.equal(ra.ids, rb.ids) and torch.equal(ra.dists, rb.dists)
+    if not extra:  # restored on the same mesh
+        assert serve.main(args + ["--index-dir", str(tmp_path / "four")]) == 0
+        assert "index: restored from" in capsys.readouterr().out

@@ -664,3 +664,36 @@ def test_cuda_allocator_growth_counts_as_a_build(corpus, cuda):
     torch.cuda.empty_cache()
     s.search(corpus[3][:9])
     assert s.steady_state_recompiles() > 0
+
+
+def test_load_or_build_index_on_a_mesh(corpus, tmp_path):
+    """``load_or_build_index(..., mesh=)``: a ``MeshIndex`` built on four
+    CPU shards is committed as one four-shard segment, reopened on that
+    mesh, and a session over it answers as one over the one-shard build;
+    a directory of four shards does not open on one."""
+    from repro_torch import build_index
+    from repro_torch.distributed.meshutil import DeviceMesh
+
+    x, _, _, q = corpus
+    tree = Index.open(corpus[2], device="cpu").tree
+    mesh = DeviceMesh((torch.device("cpu"),) * 4)
+    vecs = torch.as_tensor(x)
+
+    def build(m):
+        return lambda: (build_index(vecs, tree, wire_dtype=torch.float32,
+                                    device="cpu", mesh=m),
+                        tree, {"images": N // DPI})
+
+    one, meta = load_or_build_index(None, build_fn=build(None), device="cpu")
+    assert meta == {"images": N // DPI, "restored": False}
+    d = str(tmp_path / "mesh")
+    four, meta = load_or_build_index(d, build_fn=build(mesh), mesh=mesh)
+    assert not meta["restored"] and four.segments[0].index.mesh == mesh
+    again, meta = load_or_build_index(d, build_fn=None, mesh=mesh)
+    assert meta["restored"] and again.mesh == mesh and again.rows == N
+    kw = dict(k=K, layout="point_major", buckets=(BUCKET,))
+    a, b = SearchSession(one, **kw), SearchSession(again, **kw)
+    for got, want in zip(b.search(q), a.search(q)):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="shard"):
+        load_or_build_index(d, build_fn=None, device="cpu")

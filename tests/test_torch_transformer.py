@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import gemma3_4b, internlm2_18b, llama32_3b
+from repro.configs import (gemma3_4b, internlm2_18b, llama32_3b, moonshot_v1_16b,
+                           phi35_moe)
 from repro.models import transformer as jtfm
 from repro.models.module import init_params as j_init_params
 from repro_torch import interop
@@ -63,13 +64,18 @@ def _np(x):
 
 
 def test_configs_copy_the_reference():
-    for cfg in (lm.GEMMA3_4B, lm.LLAMA32_3B, lm.INTERNLM2_18B):
+    for cfg in (lm.GEMMA3_4B, lm.LLAMA32_3B, lm.INTERNLM2_18B, lm.MOONSHOT_V1_16B,
+                lm.PHI35_MOE):
         ref = {"gemma3-4b": gemma3_4b.CONFIG, "llama3.2-3b": llama32_3b.CONFIG,
-               "internlm2-1.8b": internlm2_18b.CONFIG}[cfg.name]
+               "internlm2-1.8b": internlm2_18b.CONFIG,
+               "moonshot-v1-16b-a3b": moonshot_v1_16b.CONFIG,
+               "phi3.5-moe-42b-a6.6b": phi35_moe.CONFIG}[cfg.name]
         assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
         assert cfg.param_count() == ref.param_count()
+        assert cfg.active_param_count() == ref.active_param_count()
         assert cfg.window_sizes() == np.asarray(ref.window_sizes()).tolist()
-    for tc, jc in SMOKES.values():
+    for tc, jc in [*SMOKES.values(), (lm.MOONSHOT_V1_16B_SMOKE, moonshot_v1_16b.SMOKE_CONFIG),
+                   (lm.PHI35_MOE_SMOKE, phi35_moe.SMOKE_CONFIG)]:
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert lm.GEMMA3_4B.param_count() == 3_879_925_248
 
@@ -77,9 +83,9 @@ def test_configs_copy_the_reference():
 def test_lm_model_flops_copies_the_reference():
     from repro.configs.lm_common import lm_model_flops as j_flops
 
-    for cfg in (lm.GEMMA3_4B, lm.LLAMA32_3B):
-        ref = {"gemma3-4b": gemma3_4b.CONFIG,
-               "llama3.2-3b": llama32_3b.CONFIG}[cfg.name]
+    for cfg in (lm.GEMMA3_4B, lm.LLAMA32_3B, lm.MOONSHOT_V1_16B):
+        ref = {"gemma3-4b": gemma3_4b.CONFIG, "llama3.2-3b": llama32_3b.CONFIG,
+               "moonshot-v1-16b-a3b": moonshot_v1_16b.CONFIG}[cfg.name]
         for mode, b, s in (("prefill", 4, 2048), ("decode", 128, 32768), ("train", 2, 64)):
             assert lm.lm_model_flops(cfg, b, s, mode) == j_flops(ref, b, s, mode)
 
@@ -90,13 +96,6 @@ def test_lm_batch_copies_the_reference():
     a, b = lm_batch(3, 17, 1000, seed=4), j_lm_batch(3, 17, 1000, seed=4)
     for key in ("tokens", "labels"):
         np.testing.assert_array_equal(a[key], b[key])
-
-
-def test_moe_is_not_ported():
-    with pytest.raises(NotImplementedError, match="M14"):
-        tfm.TransformerConfig(name="m", n_layers=1, d_model=16, n_heads=2, n_kv_heads=2,
-                              head_dim=8, d_ff=32, vocab_size=32,
-                              moe=tfm.MoEConfig(n_experts=4, top_k=2, d_ff=32))
 
 
 def test_init_params_shapes_scales_and_generator():
