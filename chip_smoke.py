@@ -246,7 +246,43 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      which a variant with a wrong expert breaks; (e) K6 against its plain
      version on layer 0's q, k, v within ``attention_bf16_tol``, and
      timed beside ``scaled_dot_product_attention`` and its bound;
- 10. the port's examples as subprocesses on the card:
+ 10. training, after the MoE phase's tensors are dropped: internlm2-1.8b at
+     full width and depth (24 layers, 1,699,579,904 parameters, fp32 master
+     weights drawn on the card from ``--seed``), bf16 compute,
+     ``remat="dots"``, ``attn_impl="chunked"`` (K6's forward and its kernel
+     backward, ``csrc/flashattn_bwd.cu``, in every layer), the ``train_4k``
+     step (AdamW, weight decay 0.1, no compression) at seq 4096 with the
+     batch cut from 256 to 4 in 2 microbatches, tokens from ``lm_batch``.
+     Steps 0-6: step 0 reads, through autograd hooks, every leaf's gradient
+     and layer 0's K6 output gradient and (dq, dk, dv), step 1 is traced
+     (device time by kernel), steps 2-4 are timed (ms a step, tokens/s,
+     peak memory) and counted (K6 backward launches = 24 layers x 2
+     microbatches a step), steps 5-6 are (d)'s. Checks: (a) step 0's loss
+     and gradients at 4 layers of the same draw, chunked against full
+     attention, within the bf16 model's own error against fp32 (the loss
+     within it, each leaf's L2 error within twice it); (b) the K6 backward
+     against ``flash_attention_bwd_ref`` on layer 0's inputs (q, k, v, out
+     and lse from a one-layer forward of the same weights; the kernel on
+     them must give the step's own dq, dk, dv bit for bit) and at
+     gemma3-4b's local-layer shape (hd 256, window 1024, seeded): both
+     within ``fp32_bound.attention_grads_f64``'s bf16 tolerance, broken
+     plain variants (diagonal, window, GQA map off by one; dk not summed
+     over the group) outside it, fp32 copies within the fp32 bound, which
+     TF32 must break, two runs bit-identical; (c) the grad norm and four
+     sampled leaves' params, m and v after step 0 against a float64 AdamW
+     of the same gradients; (d) the state after step 4 saved through
+     ``CheckpointManager`` in the reference's leaf names under the
+     git-ignored ``build/train_ckpt`` (disk probed first, removed at the
+     end), steps 5-6 run on in memory and again from the checkpoint
+     restored into fresh tensors, both under torch's deterministic
+     algorithms: losses and params bit-identical; (e) ``python -m
+     repro_torch.launch.train --arch internlm2-1.8b --steps 30
+     --microbatches 2 --compress bf16`` and ``examples/torch_train_lm.py``
+     as subprocesses on the card while (d) restores, each exiting 0 with
+     ``OK``. The kernels line gains the ``flashattn_bwd`` row (timed at the
+     step's layer shape beside its plain version and
+     ``scaled_dot_product_attention``'s backward);
+ 11. the port's examples as subprocesses on the card:
      ``examples/torch_quickstart.py`` and ``examples/torch_copydays_eval.py``
      (crop10 recall@1 at least 0.9).
 
@@ -260,6 +296,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -383,6 +420,18 @@ MOE_CHECK_LAYERS = 8  # the checks' depth (its fp32 copy is about 18 GB)
 MOE_CHECK_CF = 16.0  # the checks' capacity factor: every expert takes every token
 MOE_SHARDS = 4  # (c): the routed variant over four shards of the one card
 MOE_ORACLE_TOKENS = 256  # (d): layer 0's tokens held against float64
+# the train phase: internlm2-1.8b, the train_4k step cut to 4 sequences
+TR_BATCH = 4  # train_4k's batch of 256 sequences, cut
+TR_SEQ = 4096
+TR_MICRO = 2
+TR_STEPS = 5  # steps 0..4: 0 carries (b)'s and (c)'s captures, 1 is traced, 2-4 timed
+TR_RESUME_STEPS = 2  # (d): saved after step 4; steps 5-6 run on, then again resumed
+TR_CHECK_LAYERS = 4  # (a)'s depth
+TR_BUDGET_S = 120
+TR_LATEST_END_S = 1050  # past it, the timed steps are cut to the last two
+TR_DIR = Path(__file__).resolve().parent / "build" / "train_ckpt"
+TR_SAMPLED = ("embed", "final_norm", "layers/wq", "layers/w_down")  # (c)
+TR_GEMMA_LOCAL = dict(B=1, S=2048, Hq=8, Hkv=4, hd=256, window=1024)  # (b)
 
 
 T0 = time.perf_counter()  # the script's start, for the lines' time stamps
@@ -3485,10 +3534,11 @@ def lm_kernel_check(rt, lm, seed):
         real_check(f"flashattn layer {layer}", r32, rtf)
 
     # times at layer 5's shape (global, causal), back to back: the
-    # tensor-core kernel the prefill runs, the CUDA-core kernel on the same
-    # bf16 inputs, the plain version and sdpa. The sub-millisecond calls run
-    # 50 times, so that each timed run lasts tens of milliseconds (over 10
-    # calls one run read the tensor-core kernel 20 % slower than two others)
+    # tensor-core kernel the prefill runs (writing its lse too), the
+    # CUDA-core kernel on the same bf16 inputs, the plain version and sdpa.
+    # The sub-millisecond calls run 50 times, so that each timed run lasts
+    # tens of milliseconds (over 10 calls one run read the tensor-core
+    # kernel 20 % slower than two others)
     q, k, v, window = lm["captured"][5]
     reps = [(q, k, v)] * 50
     kern = time_ms(lambda q, k, v: fa(q, k, v, window=window), reps)
@@ -4045,6 +4095,583 @@ def moe_phase(rt, args, dev, kernels, t_start):
                 k6=k6, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# the train phase (internlm2-1.8b: the train_4k step, K6 with its backward)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic implementations where torch has them (the embedding
+    gather's backward adds with atomics otherwise): (d)'s two runs of the
+    steps after the save, which come after the timed ones, since the mode
+    does work the training path does not (sort-based scatters, memory
+    filled on allocation). cuBLAS, on one stream, picks the same
+    algorithms for the same shapes; ``warn_only`` because its workspace
+    setting must precede the process's first cuBLAS call."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def train_cfg(rt):
+    """internlm2-1.8b at full width and depth, bf16 compute over fp32
+    master weights, ``remat="dots"``, chunked attention (K6 in every
+    layer, forward and backward)."""
+    return dataclasses.replace(rt.lm.INTERNLM2_18B, attn_impl="chunked", remat="dots")
+
+
+def train_batch(rt, cfg, step: int, seed: int) -> dict:
+    return rt.lm_batch(TR_BATCH, TR_SEQ, cfg.vocab_size, seed=seed + step)
+
+
+def train_peak_gib(cfg) -> float:
+    """The step's device memory, predicted: fp32 weights, both moments,
+    the accumulated and one microbatch's gradients; per microbatch the
+    kept ``mm`` outputs of every layer (bf16), the fp32 logits and their
+    gradient, the fp32 copy of the embedding the head reads; 3 GiB of slack
+    (a layer's recomputed activations, the optimizer's temporaries)."""
+    n = cfg.param_count()
+    tok = TR_BATCH // TR_MICRO * TR_SEQ
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    mm_out = 2 * tok * (cfg.q_dim + 2 * cfg.kv_dim + D + 2 * F + D) * cfg.n_layers
+    byt = 5 * 4 * n + mm_out + 2 * 4 * tok * V + 4 * V * D
+    return byt / 2**30 + 3.0
+
+
+def layer_prefix(params, n: int) -> dict:
+    """The first ``n`` layers of ``params`` (views of the same draw)."""
+    return {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": {key: t[:n] for key, t in params["layers"].items()}}
+
+
+def k6_nodes(root) -> list:
+    """The K6 backward nodes (``FlashAttention``'s) of the autograd graph
+    under ``root``, in the order of their forward calls: layer 0's first."""
+    seen, stack, found = set(), [root], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "FlashAttentionBackward":
+            found.append(node)
+        stack.extend(nxt for nxt, _ in node.next_functions)
+    return sorted(found, key=lambda n: n._sequence_nr())
+
+
+def layer0_k6_inputs(rt, params, cfg, tokens, dev) -> tuple:
+    """Layer 0's K6 inputs for ``tokens``: ``(q, k, v, out, lse, window)``,
+    the tensors ``FlashAttention`` saves in a one-layer forward of the same
+    weights (no remat, so they are kept); layer 0 computes the same in the
+    full model."""
+    c1 = dataclasses.replace(cfg, n_layers=1, remat="none")
+    p1 = rt.tree.map_(lambda t: t.detach().requires_grad_(), layer_prefix(params, 1))
+    logits, _ = rt.tfm.forward(p1, c1, tokens, device=dev)
+    node, = k6_nodes(logits.grad_fn)
+    return tuple(t.detach().clone() for t in node.saved_tensors) + (node.window,)
+
+
+class Step0Capture:
+    """What (b) and (c) read from step 0, through autograd hooks (nothing
+    of the port is replaced): each leaf's gradient accumulated over the
+    microbatches as the step does (``g.float() / m`` in chunk order), and
+    the output gradient and (dq, dk, dv) of layer 0's K6 backward in the
+    first microbatch. ``loss_fn`` is the step's loss with the hooks on
+    that microbatch's graph."""
+
+    def __init__(self, rt, params, cfg, dev):
+        self.rt, self.cfg, self.dev = rt, cfg, dev
+        self.grads, self.k6, self.handles, self.hooked = {}, {}, [], False
+        for name, p in rt.tree.named(params).items():
+            p.requires_grad_(True)
+            self.handles.append(p.register_hook(functools.partial(self._grad, name)))
+
+    def _grad(self, name, g):
+        x = g.float() / TR_MICRO
+        self.grads[name] = self.grads[name].add_(x) if name in self.grads else x
+
+    def loss_fn(self, p, batch):
+        loss, aux = self.rt.tfm.loss_fn(p, self.cfg, batch, device=self.dev)
+        if not self.hooked:
+            node = k6_nodes(loss.grad_fn)[0]
+            self.hooked = True
+            self.handles.append(node.register_prehook(self._dout))
+            self.handles.append(node.register_hook(self._dqkv))
+        return loss, aux
+
+    def _dout(self, grad_outputs):
+        self.k6["dout"] = grad_outputs[0].detach().clone()
+
+    def _dqkv(self, grad_inputs, grad_outputs):
+        self.k6["dqkv"] = tuple(t.detach().clone() for t in grad_inputs[:3])
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def loss_and_grads(rt, params, cfg, batch, dev):
+    """``loss_fn``'s loss (a float) and the gradient of every leaf."""
+    leaves = [t.detach().requires_grad_() for t in rt.tree.leaves(params)]
+    loss, _ = rt.tfm.loss_fn(rt.tree.unflatten(params, leaves), cfg, batch, device=dev)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), dict(zip(rt.tree.named(params), grads))
+
+
+def train_check_a(rt, params, cfg, batch, dev):
+    """(a) step 0's loss and gradients at ``TR_CHECK_LAYERS`` layers of the
+    same draw, on one microbatch: chunked (K6 and its kernel backward)
+    against full attention (plain ``attend``, autograd), within the bf16
+    model's own error, the full-attention run against the same weights in
+    fp32: the loss within it, each gradient leaf's relative error (L2)
+    within twice it (each run of the pair carries that error)."""
+    c4 = dataclasses.replace(cfg, n_layers=TR_CHECK_LAYERS)
+    p4 = layer_prefix(params, TR_CHECK_LAYERS)
+    mb = {key: x[:TR_BATCH // TR_MICRO] for key, x in batch.items()}
+    runs, bwd_launches = {}, {}
+    for name, c in (("chunked", c4), ("full", dataclasses.replace(c4, attn_impl="full")),
+                    ("fp32", dataclasses.replace(c4, dtype="float32", attn_impl="full"))):
+        before = rt.flash_attention_bwd.launches
+        runs[name] = loss_and_grads(rt, p4, c, mb, dev)
+        bwd_launches[name] = rt.flash_attention_bwd.launches - before
+    (lc, gc_), (lf, gf), (l32, g32) = runs["chunked"], runs["full"], runs["fp32"]
+
+    def rel(a, b, ref):
+        return float((a.float() - b.float()).norm() / ref.float().norm())
+
+    leaves = {}
+    for name in g32:
+        yard = rel(gf[name], g32[name], g32[name])
+        leaves[name] = dict(chunked_vs_full=rel(gc_[name], gf[name], g32[name]),
+                            bf16_vs_fp32=yard)
+    out = dict(layers=TR_CHECK_LAYERS, tokens=mb["tokens"].size,
+               loss=dict(chunked=lc, full=lf, fp32=l32, chunked_vs_full=abs(lc - lf),
+                         bf16_vs_fp32=abs(lf - l32)),
+               grads=leaves, k6_backward_launches=bwd_launches)
+    log(f"train (a): {json.dumps(out)}")
+    if bwd_launches["chunked"] != TR_CHECK_LAYERS or bwd_launches["full"] != 0:
+        raise AssertionError(f"train (a): K6 backward launches {bwd_launches}")
+    if not abs(lc - lf) <= abs(lf - l32):
+        raise AssertionError(f"train (a): chunked vs full loss {abs(lc - lf)}, more than "
+                             f"the bf16 model's own error {abs(lf - l32)}")
+    for name, r in leaves.items():
+        if not r["chunked_vs_full"] <= 2 * r["bf16_vs_fp32"]:
+            raise AssertionError(f"train (a): {name} chunked vs full {r} is more than "
+                                 "twice the bf16 model's own error")
+    return out
+
+
+def bwd_variants(rt, q, k, v, out, lse, dout, window):
+    """Plain backward variants that must fail the bf16 check, each built
+    from ``flash_attention_bwd_ref``: the causal diagonal one key back (the
+    last key dropped, so key j stands where j + 1 did; its dk and dv rows
+    zero), the GQA head map shifted by one, dk and dv taken from each
+    group's first query head alone, and (with a window) the window one
+    longer."""
+    ref = rt.flash_attention_bwd_ref
+    G = q.shape[2] // k.shape[2]
+    sq, sk, sv = ref(q, k[:, :-1], v[:, :-1], out, lse, dout, window=window)
+    hq, hk, hv = ref(q, k.roll(1, dims=2), v.roll(1, dims=2), out, lse, dout,
+                     window=window)
+    first = ref(q[:, :, ::G], k, v, out[:, :, ::G], lse[:, ::G], dout[:, :, ::G],
+                window=window)
+    bad = {
+        "diagonal_off_by_one": (sq, *(torch.cat([t, torch.zeros_like(t[:, :1])], 1)
+                                      for t in (sk, sv))),
+        "heads_shifted": (hq, hk.roll(-1, dims=2), hv.roll(-1, dims=2)),
+        "dk_not_summed_over_group": (ref(q, k, v, out, lse, dout, window=window)[0],
+                                     first[1], first[2]),
+    }
+    if window > 0:
+        bad["window_plus_one"] = ref(q, k, v, out, lse, dout, window=window + 1)
+    return bad
+
+
+def bwd_kernel_check(rt, name, q, k, v, out, lse, dout, window, g, step_grads=None):
+    """(b) on one layer's inputs: the kernel backward and the plain one
+    within the bf16 tolerance of the float64 gradient, the broken plain
+    variants outside it, two kernel runs bit-identical, and equal bit for
+    bit to ``step_grads`` (the gradients the step's own backward gave for
+    these inputs) when given; fp32 copies moved off the bf16 grid (batch
+    row 0, the CUDA-core forward's out and lse) within the fp32 bound,
+    which the plain backward in TF32 must break."""
+    bwd, ref = rt.flash_attention_bwd, rt.flash_attention_bwd_ref
+    got = bwd(q, k, v, out, lse, dout, window=window)
+    again = bwd(q, k, v, out, lse, dout, window=window)
+    step_equal = (None if step_grads is None
+                  else all(torch.equal(a, b) for a, b in zip(got, step_grads)))
+    plain = ref(q, k, v, out, lse, dout, window=window)
+    exact, _, tol16 = rt.attention_grads_f64(q, k, v, dout, window=window)
+    row = dict(window=window, shape=list(q.shape) + [k.shape[2]],
+               bf16_tol_ratio=rt.grads_error_ratio(got, exact, tol16),
+               plain_bf16_tol_ratio=rt.grads_error_ratio(plain, exact, tol16),
+               bit_identical=all(torch.equal(a, b) for a, b in zip(got, again)),
+               equal_to_the_step=step_equal,
+               max_abs_err=max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, plain)))
+    row["broken_variant_ratios"] = {
+        key: rt.grads_error_ratio(bad, exact, tol16)
+        for key, bad in bwd_variants(rt, q, k, v, out, lse, dout, window).items()}
+    del got, again, plain, exact, tol16
+    q32, k32, v32, d32 = (t[:1].float().mul_(1 + (torch.rand(
+        t[:1].shape, generator=g, device=t.device) - 0.5) * 2**-8) for t in (q, k, v, dout))
+    o32, lse32 = rt.fa_forward(q32, k32, v32, window, None)
+    exact, tol32, _ = rt.attention_grads_f64(q32, k32, v32, d32, window=window)
+    row["fp32_bound_ratio"] = rt.grads_error_ratio(
+        bwd(q32, k32, v32, o32, lse32, d32, window=window), exact, tol32)
+    with tf32_matmuls():
+        row["tf32_bound_ratio"] = rt.grads_error_ratio(
+            ref(q32, k32, v32, o32, lse32, d32, window=window), exact, tol32)
+    del exact, tol32
+    log(f"train (b) {name}: {json.dumps(row)}")
+    if not (row["bf16_tol_ratio"] <= 1.0 and row["plain_bf16_tol_ratio"] <= 1.0):
+        raise AssertionError(f"train (b) {name}: outside the bf16 tolerance: {row}")
+    if not row["bit_identical"]:
+        raise AssertionError(f"train (b) {name}: two runs of the backward differ")
+    if step_equal is False:
+        raise AssertionError(f"train (b) {name}: the kernel on the captured inputs "
+                             "differs from the step's own gradients")
+    for key, r in row["broken_variant_ratios"].items():
+        if not r > 1.0:
+            raise AssertionError(f"train (b) {name}: the broken variant {key} passes "
+                                 f"({r} x)")
+    real_check(f"train (b) {name}", row["fp32_bound_ratio"], row["tf32_bound_ratio"])
+    return row
+
+
+def train_check_c(rt, cap, params, state, opt):
+    """(c) after step 0, against a float64 AdamW of the same gradients:
+    the grad norm within 1e-4 (relative; a sum of 1.7e9 squares in fp32,
+    its serial runs a few thousand terms long), and the sampled leaves'
+    params, m and v within the first-order fp32 bound of the update's
+    arithmetic given the step's clip scale:
+
+        m: 5u|m| + 4e   v: 8u|v| + 4e   p: u (lr (36 |d| + 6 |wd p|) + |p'|)
+
+    (d = mhat / (sqrt(vhat) + eps); the clip scale, each constant's fp32
+    rounding, the bias corrections' cancellation 1 - b^1 and each product,
+    quotient, sqrt and sum rounded once; e = 2^-150, what a rounding into
+    fp32's subnormal range may add: the embedding's gradient for tokens the
+    softmax gives almost no weight is subnormal, and its square underflows
+    to 0)."""
+    U, E = 2.0**-24, 2.0**-150
+    g32 = float(cap["gnorm32"])
+    out = dict(grad_norm=g32, grad_norm_f64=cap["gnorm64"],
+               grad_norm_rel_err=abs(g32 - cap["gnorm64"]) / cap["gnorm64"], leaves={})
+    scale = min(1.0, opt.clip_norm / max(g32, 1e-9))
+    named_p, named_m, named_v = (rt.tree.named(t) for t in (params, state["m"], state["v"]))
+    worst = 0.0
+    for name in TR_SAMPLED:
+        p0, g = cap["p"][name].double(), cap["g"][name].double() * scale
+        m = (1 - opt.b1) * g
+        v = (1 - opt.b2) * g * g
+        d = (m / (1 - opt.b1)) / ((v / (1 - opt.b2)).sqrt() + opt.eps)
+        p1 = p0 - opt.lr * (d + opt.weight_decay * p0)
+        tol = dict(m=5 * U * m.abs() + 4 * E, v=8 * U * v.abs() + 4 * E,
+                   p=U * (opt.lr * (36 * d.abs() + 6 * (opt.weight_decay * p0).abs())
+                          + p1.abs()))
+        got = dict(m=named_m[name], v=named_v[name], p=named_p[name].detach())
+        want = dict(m=m, v=v, p=p1)
+        r = {}
+        for key in ("p", "m", "v"):
+            err = (got[key].double() - want[key]).abs()
+            r[key] = float(torch.where(err == 0, 0.0, err / tol[key]).max())
+        out["leaves"][name] = r
+        worst = max(worst, *r.values())
+        del p0, g, m, v, d, p1, tol, got, want
+    log(f"train (c): {json.dumps(out)}")
+    if not out["grad_norm_rel_err"] <= 1e-4:
+        raise AssertionError(f"train (c): grad norm {g32} vs float64 {cap['gnorm64']}")
+    if not worst <= 1.0:
+        raise AssertionError(f"train (c): {worst} x the fp32 bound of the update")
+    return out
+
+
+def train_resume(rt, cfg, params, losses, step_fn, seed, dev):
+    """(d): the state after step ``TR_STEPS - 1`` was saved through
+    ``CheckpointManager`` in the reference's names and the run went on in
+    memory; this restores it into fresh tensors and runs the same steps,
+    whose losses and params must equal the uninterrupted run's bit for bit.
+    Both runs are under :func:`deterministic`."""
+    like = rt.tree.map_(lambda t: t.detach(), params)  # the structure only
+    t0 = time.perf_counter()
+    rp, rs, manifest = rt.train_cli.restore_train_state(
+        rt.CheckpointManager(str(TR_DIR / "train_4k")), like,
+        {"m": like, "v": like, "step": torch.zeros((), dtype=torch.int32)}, dev)
+    del like
+    t_restore = sync_now() - t0
+    resumed = {}
+    with deterministic():
+        for step in range(manifest["step"], TR_STEPS + TR_RESUME_STEPS):
+            rp, rs, m = step_fn(rp, rs, train_batch(rt, cfg, step, seed))
+            resumed[step] = float(m["loss"])
+    same_losses = all(resumed[s] == losses[s] for s in resumed)
+    same_params = all(torch.equal(a, b) for a, b in zip(rt.tree.leaves(rp),
+                                                        rt.tree.leaves(params)))
+    return dict(resumed_from=manifest["step"], restore_s=t_restore, losses=resumed,
+                losses_equal=same_losses, params_equal=same_params)
+
+
+def start_train_subprocesses(root) -> tuple:
+    """(e) the launcher and the example as a user runs them, on the card,
+    the two at once; started while (d) restores its checkpoint (neither is
+    timed) and waited for by :func:`wait_train_subprocesses`."""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cmds = {
+        "launch.train": [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                         "internlm2-1.8b", "--steps", "30", "--microbatches", "2",
+                         "--compress", "bf16", "--ckpt-dir", str(TR_DIR / "cli")],
+        "torch_train_lm": [sys.executable, str(root / "examples" / "torch_train_lm.py")],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, env=env, cwd=str(root))
+             for name, cmd in cmds.items()}
+    return procs, t0
+
+
+def stop_processes(procs) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
+
+
+def wait_train_subprocesses(procs, t0) -> dict:
+    """Each of (e)'s processes exits 0 with a ``loss a -> b OK`` line."""
+    out = {}
+    for name, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            stop_processes(procs)
+            raise
+        wall = time.perf_counter() - t0
+        lines = stdout.strip().splitlines()
+        for line in lines[:2] + lines[-3:]:
+            log(f"train (e) {name}: {line}")
+        ok = sum(bool(ln.startswith("loss ") and ln.endswith(" OK")) for ln in lines)
+        if p.returncode != 0 or ok < 1:
+            stop_processes(procs)
+            raise AssertionError(f"train (e) {name}: exit {p.returncode}, {ok} OK lines\n"
+                                 f"{stdout[-2000:]}\n{stderr[-4000:]}")
+        out[name] = dict(wall_s=wall, ok_lines=ok, last=lines[-1])
+        log(f"train (e) {name}: exit 0, {wall:.1f} s from the start of both")
+    return out
+
+
+def train_phase(rt, args, dev, kernels, t_start):
+    """internlm2-1.8b at full width and depth trained on the card: the
+    ``train_4k`` step (AdamW, weight decay 0.1, no compression) at seq 4096,
+    the batch cut from 256 to 4 in 2 microbatches, ``remat="dots"``, K6's
+    forward and kernel backward in every layer. Checks (a)-(e); times the
+    steps, the K6 backward at the step's layer shape; adds the
+    ``flashattn_bwd`` row to the kernels line."""
+    t_phase = time.perf_counter()
+    cfg = train_cfg(rt)
+    opt = rt.AdamWConfig(weight_decay=0.1)
+    cut = time.perf_counter() - t_start + TR_BUDGET_S > TR_LATEST_END_S
+    timed_from = TR_STEPS - 2 if cut else 2
+    free = shutil.disk_usage(TR_DIR.parent if TR_DIR.parent.exists()
+                             else Path(__file__).resolve().parent).free
+    need = 3 * 4 * cfg.param_count() * 1.2
+    if free < need:
+        raise AssertionError(f"train (d): {free / 2**30:.1f} GiB free on the disk, "
+                             f"{need / 2**30:.1f} GiB needed")
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_now()
+    params = rt.init_params(cfg.param_specs(),
+                            torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    t_init = sync_now() - t0
+    predicted = train_peak_gib(cfg)
+    log(f"train: starts at {t_phase - t_start:.0f} s; {cfg.name}, {cfg.n_layers} layers "
+        f"(full depth), {cfg.param_count()} parameters drawn on the card in {t_init:.3f} s "
+        f"(fp32 master weights, {4 * cfg.param_count() / 2**30:.3f} GiB); bf16 compute, "
+        f"remat {cfg.remat}, attn {cfg.attn_impl}; {TR_BATCH} x {TR_SEQ} tokens a step "
+        f"(train_4k's batch {rt.lm.TRAIN_4K['batch']} cut to {TR_BATCH}) in {TR_MICRO} "
+        f"microbatches; disk "
+        f"{free / 2**30:.1f} GiB free; peak predicted {predicted:.1f} GiB"
+        + ("; cut: steps 2 untimed" if cut else ""))
+    check_a = train_check_a(rt, params, cfg, train_batch(rt, cfg, 0, args.seed), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = rt.train_state(params)
+    step_fn = rt.make_train_step(lambda p, b: rt.tfm.loss_fn(p, cfg, b, device=dev), opt,
+                                 microbatches=TR_MICRO)
+    # step 0: layer 0's K6 inputs for the first microbatch, then the step
+    # with hooks on its gradients (the same step, its loss hooked)
+    batch0 = train_batch(rt, cfg, 0, args.seed)
+    k6_in = layer0_k6_inputs(rt, params, cfg, batch0["tokens"][:TR_BATCH // TR_MICRO], dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    named = rt.tree.named(params)
+    cap = {"p": {n: named[n].detach().clone() for n in TR_SAMPLED}}
+    capture = Step0Capture(rt, params, cfg, dev)
+    try:
+        t0 = sync_now()
+        params, state, m0 = rt.make_train_step(capture.loss_fn, opt, microbatches=TR_MICRO)(
+            params, state, batch0)
+        t_step0 = sync_now() - t0
+    finally:
+        capture.close()
+    cap["g"] = {n: capture.grads[n] for n in TR_SAMPLED}
+    cap["gnorm64"] = math.sqrt(sum(float(x.double().square().sum())
+                                   for x in capture.grads.values()))
+    cap["gnorm32"] = m0["grad_norm"]
+    cap["bwd"] = k6_in[:5] + (capture.k6["dout"], k6_in[5])
+    cap["step_grads"] = capture.k6["dqkv"]
+    del capture, named, k6_in
+    losses = {0: float(m0["loss"])}
+    check_c = train_check_c(rt, cap, params, state, opt)
+    del cap["p"], cap["g"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # step 1, traced: where a step's device time goes
+    wall1 = [0.0]
+
+    def step1():
+        nonlocal params, state
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, train_batch(rt, cfg, 1, args.seed))
+        losses[1] = float(m["loss"])
+        wall1[0] = time.perf_counter() - t0
+
+    ev, busy = device_trace(step1)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
+    log(f"trace train step: device busy {busy} s of {wall1[0]} s wall (idle share "
+        f"{1 - busy / wall1[0]}); {sum(e.count for e in ev)} kernels; top device time: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3} ms x{e.count}"
+                    for e in top))
+    # steps 2-4: the main path's counted run, timed, in torch's default mode
+    rt.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    walls = {}
+    for step in range(2, TR_STEPS):
+        t0 = sync_now()
+        params, state, m = step_fn(params, state, train_batch(rt, cfg, step, args.seed))
+        losses[step] = float(m["loss"])
+        walls[step] = sync_now() - t0
+    launches = rt.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = [walls[s] for s in range(timed_from, TR_STEPS)]
+    ms = sum(timed) / len(timed) * 1e3
+    flops = rt.lm.lm_model_flops(cfg, TR_BATCH, TR_SEQ, "train")
+    steps_run = TR_STEPS - 2
+    # (d): save after step 4, run steps 5-6 on, then again from the checkpoint
+    t0 = time.perf_counter()
+    rt.CheckpointManager(str(TR_DIR / "train_4k")).save(TR_STEPS,
+                                                        rt.tree.named((params, state)))
+    save_s = time.perf_counter() - t0
+    with deterministic():
+        for step in range(TR_STEPS, TR_STEPS + TR_RESUME_STEPS):
+            params, state, m = step_fn(params, state, train_batch(rt, cfg, step, args.seed))
+            losses[step] = float(m["loss"])
+    out_timed = dict(step0_s=t_step0, ms_a_step=ms, timed_steps=list(range(timed_from, TR_STEPS)),
+                     tokens_s=TR_BATCH * TR_SEQ / ms * 1e3,
+                     model_tflops=flops / ms / 1e9, losses=losses,
+                     save_s=save_s, peak_gib=peak, peak_predicted_gib=predicted,
+                     launches={k: v for k, v in launches.items() if v}, cut=cut)
+    log(f"train timed: {json.dumps(out_timed)}")
+    per_step = cfg.n_layers * TR_MICRO
+    if launches["flashattn_bwd"] != per_step * steps_run:
+        raise AssertionError(f"train: K6 backward launched {launches['flashattn_bwd']} "
+                             f"times in {steps_run} steps, not {per_step} a step")
+    if launches["flashattn"] != 2 * per_step * steps_run:  # remat runs it again
+        raise AssertionError(f"train: K6 forward launched {launches['flashattn']} times")
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"train: losses {losses}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    children = start_train_subprocesses(Path(__file__).resolve().parent)
+    try:
+        check_d = train_resume(rt, cfg, params, losses, step_fn, args.seed, dev)
+        log(f"train (d): {json.dumps(check_d)}")
+        check_e = wait_train_subprocesses(*children)
+    except BaseException:
+        stop_processes(children[0])
+        raise
+    if not (check_d["losses_equal"] and check_d["params_equal"]):
+        raise AssertionError("train (d): the resumed run differs from the uninterrupted one")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) K6's backward on layer 0's captured inputs, and at gemma3-4b's
+    # local-layer shape on seeded inputs
+    g = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    q, k, v, o, lse, dout, window = cap["bwd"]
+    check_b = {"layer0": bwd_kernel_check(rt, "layer 0", q, k, v, o, lse, dout, window, g,
+                                          step_grads=cap.pop("step_grads"))}
+    gl = TR_GEMMA_LOCAL
+    x = [torch.randn((gl["B"], gl["S"], h, gl["hd"]), generator=g, device=dev)
+         for h in (gl["Hq"], gl["Hkv"], gl["Hkv"], gl["Hq"])]
+    x[0] = x[0] / x[0].square().mean(-1, keepdim=True).sqrt()
+    x[1] = x[1] / x[1].square().mean(-1, keepdim=True).sqrt()
+    lq, lk, lv, ld = (t.bfloat16() for t in x)
+    lo, llse = rt.fa_forward(lq, lk, lv, gl["window"], None)
+    check_b["gemma_local"] = bwd_kernel_check(rt, "gemma3-4b local", lq, lk, lv, lo,
+                                              llse, ld, gl["window"], g)
+    del x, lq, lk, lv, ld, lo, llse
+
+    # K6 backward timed at the step's layer shape, beside the plain version
+    # and sdpa's backward on the same inputs (never called by the port)
+    bwd, ref = rt.flash_attention_bwd, rt.flash_attention_bwd_ref
+    reps = [(q, k, v, o, lse, dout)] * 10
+    kern = time_ms(lambda *a: bwd(*a, window=window), reps)
+    plain = time_ms(lambda *a: ref(*a, window=window), reps[:3])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    oh = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+    dh = dout.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), dh, retain_graph=True),
+                  [()] * 10)
+    del qh, kh, vh, oh, dh
+    B, Sq, Hq, hd = q.shape
+    pairs = lm_pairs(Sq, k.shape[1], window)
+    fl = 10.0 * hd * B * Hq * pairs  # five products, 2 hd flops a pair each
+    byt = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+    bnd = bound(byt, fl, BF16_FLOPS)
+    row = dict(name="flashattn_bwd", route="cuda", source="src/repro_torch/csrc/flashattn_bwd.cu",
+               replaces="src/repro/kernels/flashattn/kernel.py:80",
+               replaces_note="K6's gradient: the TPU kernel has no VJP (the reference "
+                             "differentiates its XLA attention); no TPU counterpart",
+               launches=launches["flashattn_bwd"],
+               max_abs_err=max(r["max_abs_err"] for r in check_b.values()),
+               ms=kern[0], plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=lib[0], library="scaled_dot_product_attention backward",
+               wall_ms=kern[1], shape=[B, Sq, Hq, k.shape[2], hd], flops=fl, bytes=byt,
+               tflops=fl / kern[0] / 1e9, fp32_peak_share=fl / kern[0] / 1e9 / 67.0,
+               bf16_tol_ratio=max(r["bf16_tol_ratio"] for r in check_b.values()),
+               fp32_bound_ratio=max(r["fp32_bound_ratio"] for r in check_b.values()),
+               tf32_bound_ratio=min(r["tf32_bound_ratio"] for r in check_b.values()),
+               step_share=kern[0] * per_step / ms)
+    log(f"flashattn_bwd: {kern[0]} ms back to back at the step's layer shape "
+        f"{row['shape']} ({kern[1]} ms wall, {row['tflops']:.2f} TFLOP/s, "
+        f"{row['fp32_peak_share']:.3f} of the fp32 peak); plain {plain[0]} ms; sdpa "
+        f"backward {lib[0]} ms; bound {bnd[0]} ms by {bnd[1]} ({fl / 1e9:.2f} GFLOP); "
+        f"{per_step} a step: {row['step_share']:.3f} of the step")
+    kernels.append(row)
+    fa = next((r for r in kernels if r["name"] == "flashattn"), None)
+    if fa is not None:
+        fa["train_launches"] = launches["flashattn"]
+    del q, k, v, o, lse, dout, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"train: phase {wall:.1f} s against a budget of {TR_BUDGET_S} s")
+    return dict(timed=out_timed, a=check_a, b=check_b, c=check_c, d=check_d, e=check_e,
+                wall_s=wall)
+
+
 def examples_phase(dev):
     """The port's examples as a user runs them, on the card: the
     quickstart and the Copydays evaluation, each a subprocess; crop10
@@ -4119,11 +4746,20 @@ class Port:
         from repro_torch.index.manifest import latest as manifest_latest
         from repro_torch.index.manifest import list_versions
         from repro_torch.launch import index as index_cli
+        from repro_torch.launch import train as train_cli
         from repro_torch.kernels import _build, fp32_bound
         from repro_torch.kernels.adcscan.ops import adc_topk
         from repro_torch.kernels.adcscan.ref import adc_topk_ref
-        from repro_torch.kernels.flashattn.ops import flash_attention, variant
-        from repro_torch.kernels.flashattn.ref import flash_attention_ref
+        from repro_torch.kernels.flashattn.ops import _forward as fa_forward
+        from repro_torch.kernels.flashattn.ops import (
+            flash_attention,
+            flash_attention_bwd,
+            variant,
+        )
+        from repro_torch.kernels.flashattn.ref import (
+            flash_attention_bwd_ref,
+            flash_attention_ref,
+        )
         from repro_torch.kernels.fusedscan.ops import fused_adc_topk, fused_topk
         from repro_torch.kernels.fusedscan.ref import map_ids
         from repro_torch.kernels.l2nn.ops import l2_nearest
@@ -4133,6 +4769,9 @@ class Port:
         from repro_torch.kernels.l2topk.ref import l2_topk_ref
         from repro_torch.models import transformer as tfm
         from repro_torch.models.module import init_one, init_params
+        from repro_torch.distributed.checkpoint import CheckpointManager
+        from repro_torch.train import AdamWConfig, make_train_step, tree
+        from repro_torch.train.step import init_train_state
 
         self.build_tree, self.VocabTree = repro_torch.build_tree, repro_torch.VocabTree
         self.build_index = repro_torch.build_index
@@ -4179,9 +4818,18 @@ class Port:
         self.attention_f64 = fp32_bound.attention_f64
         self.attention_error_ratio = fp32_bound.attention_error_ratio
         self.attention_bf16_tol = fp32_bound.attention_bf16_tol
+        self.fa_forward = fa_forward
+        self.flash_attention_bwd = flash_attention_bwd
+        self.flash_attention_bwd_ref = flash_attention_bwd_ref
+        self.attention_grads_f64 = fp32_bound.attention_grads_f64
+        self.grads_error_ratio = fp32_bound.grads_error_ratio
+        self.CheckpointManager, self.tree, self.train_cli = CheckpointManager, tree, train_cli
+        self.AdamWConfig, self.make_train_step = AdamWConfig, make_train_step
+        self.train_state = init_train_state
         self.wrappers = {"l2topk": l2_topk, "fusedscan": fused_topk,
                          "l2nn": l2_nearest, "adcscan": adc_topk,
-                         "fusedadc": fused_adc_topk, "flashattn": flash_attention}
+                         "fusedadc": fused_adc_topk, "flashattn": flash_attention,
+                         "flashattn_bwd": flash_attention_bwd}
 
     def reset_counts(self):
         for fn in self.wrappers.values():
@@ -4278,6 +4926,11 @@ def main(argv=None) -> int:
     log(f"before the moe phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
         f"allocated")
     moe_phase(rt, args, dev, kernels, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the train phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated")
+    train_phase(rt, args, dev, kernels, t_start)
     examples_phase(dev)
     log(f"script: {time.perf_counter() - t_start:.1f} s to here")
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
 """LM configurations, copied from the JAX package's
 ``configs/{gemma3_4b,llama32_3b,internlm2_18b,moonshot_v1_16b,phi35_moe}.py``
 (``CONFIG`` and ``SMOKE_CONFIG`` of each, the numbers as the repository
-has them), and ``lm_model_flops`` from ``configs/lm_common.py``. The
-reference's ``ArchDef`` registry and cells are not copied: they import jax.
+has them), ``lm_model_flops`` and the ``train_4k`` step's shape
+(``TRAIN_4K``) from ``configs/lm_common.py``, and the training launcher's
+map from ``--arch`` to the reduced config it trains
+(``launch/train.py``). The reference's ``ArchDef`` registry and cells are
+not copied: they import jax.
 """
 
 from __future__ import annotations
@@ -65,6 +68,19 @@ PHI35_MOE_SMOKE = TransformerConfig(
     moe=MoEConfig(n_experts=4, top_k=2, d_ff=64, capacity_factor=2.0),
     dtype="float32",
 )
+
+#: the ``train_4k`` cell's step (``configs/lm_common.py``): seq 4096, batch
+#: 256, ``AdamWConfig(weight_decay=0.1)``, no compression
+TRAIN_4K = dict(seq=4096, batch=256)
+
+#: ``--arch`` -> the reduced config the training launcher trains
+SMOKE_BY_ARCH = {
+    "llama3.2-3b": LLAMA32_3B_SMOKE,
+    "gemma3-4b": GEMMA3_4B_SMOKE,
+    "internlm2-1.8b": INTERNLM2_18B_SMOKE,
+    "moonshot-v1-16b-a3b": MOONSHOT_V1_16B_SMOKE,
+    "phi3.5-moe-42b-a6.6b": PHI35_MOE_SMOKE,
+}
 
 
 def _attn_eff_context(cfg: TransformerConfig, seq: int, *, decode: bool):

@@ -19,15 +19,18 @@ budgets -- it never alters search results.
 
 Calibration is keyed by *backend*. A store belongs to one backend
 (:func:`backend_name`: ``"cpu"``, or ``"cuda:<device name>"``), records
-its measurements with a ``backend`` key inside each record's ``stats``
-and in each tile config, and consults only records of its own backend.
-Records and tile configs of another backend, or with no ``backend`` key
-(every record the JAX package writes: CPU or TPU timings), are carried
-through ``to_json`` unchanged and never steer a plan here. The JAX
-package's ``from_json`` keeps each record's ``stats`` whole, so a record's
-marker survives its rewrite of a manifest; it keeps only ``block_rows``,
-``ms`` and ``ts`` of a tile config, whose marker is then lost and which
-this package then treats as foreign.
+its measurements with a ``backend`` key inside each record's ``stats``,
+and consults only records of its own backend. Records and tile configs of
+another backend, or with no marker (every record the JAX package writes:
+CPU or TPU timings), are carried through ``to_json`` unchanged and never
+steer a plan here. The JAX package's ``from_json`` keeps each record's
+``stats`` whole, so a record's marker survives its rewrite of a manifest.
+Of a tile config it keeps only the key's strings and ``block_rows``,
+``ms`` and ``ts``, so the marker rides folded into the key's dtype
+(``"float32@cuda:<device name>"``): the rewrite keeps it whole, and the
+JAX package's planner, which looks a tile config up by the bare dtype
+name, never reads it. The bare ``backend`` key that earlier versions of
+the port wrote beside ``block_rows`` is still read.
 """
 
 from __future__ import annotations
@@ -82,6 +85,18 @@ def backend_name(device=None) -> str:
     if dev.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(dev)}"
     return dev.type
+
+
+#: joins a tile config's dtype and its backend in the manifest's dtype string
+TILE_MARK = "@"
+
+
+def split_tile_dtype(dtype: str) -> tuple[str, str | None]:
+    """A manifest tile config's dtype string as ``(dtype, backend)``:
+    ``"float32@cpu"`` -> ``("float32", "cpu")``; a bare ``"float32"`` (the
+    JAX package's, or an earlier port's) -> ``("float32", None)``."""
+    name, mark, backend = dtype.partition(TILE_MARK)
+    return name, (backend if mark else None)
 
 
 def _age_weight(ts: float, now: float) -> float:
@@ -381,6 +396,11 @@ class CalibrationStore:
         return len(self._records)
 
     @property
+    def n_tile_configs(self) -> int:
+        """Tile configs of this store's backend."""
+        return len(self._tile_configs)
+
+    @property
     def n_carried(self) -> int:
         """Records and tile configs of other backends, carried unread."""
         return len(self._carried) + len(self._carried_tiles)
@@ -415,8 +435,9 @@ class CalibrationStore:
         """Versioned manifest payload (``calibration`` field): the JAX
         package's, with ``backend`` inside each record's ``stats`` (which
         the JAX package reads and writes back whole, so the marker
-        survives its rewrite of a manifest) and in each tile config (which
-        it does not carry); carried records follow, unchanged."""
+        survives its rewrite of a manifest) and folded into each tile
+        config's dtype (``"float32@cpu"``: a key string it keeps whole);
+        carried records follow, unchanged."""
         with self._mu:
             return {
                 "format": CALIBRATION_FORMAT,
@@ -429,8 +450,8 @@ class CalibrationStore:
                     for (sig, _), o in self._records.items()
                 ] + [dict(r) for r in self._carried],
                 "tile_configs": [
-                    {"layout": layout, "dim": dim, "dtype": dtype,
-                     "backend": self.backend, **cfg}
+                    {"layout": layout, "dim": dim,
+                     "dtype": f"{dtype}{TILE_MARK}{self.backend}", **cfg}
                     for (layout, dim, dtype), cfg
                     in self._tile_configs.items()
                 ] + [dict(c) for c in self._carried_tiles],
@@ -443,7 +464,9 @@ class CalibrationStore:
         manifest payload: records and tile configs whose ``backend`` is
         another, or absent, are carried, not consulted. A record's marker
         is read from its ``stats``, or from the record itself, where
-        earlier versions of the port wrote it."""
+        earlier versions of the port wrote it; a tile config's from its
+        dtype (``"float32@cpu"``), or from a ``backend`` key beside it,
+        where earlier versions wrote it."""
         store = cls(backend)
         now = time.time()
         for rec in (d or {}).get("records", []):
@@ -465,10 +488,11 @@ class CalibrationStore:
             o["seq"] = store._seq
             store._records[(sig, shapes_key)] = o
         for cfg in (d or {}).get("tile_configs", []):
-            if cfg.get("backend") != store.backend:
+            dtype, backend = split_tile_dtype(str(cfg["dtype"]))
+            if (backend or cfg.get("backend")) != store.backend:
                 store._carried_tiles.append(dict(cfg))
                 continue
-            key = (str(cfg["layout"]), int(cfg["dim"]), str(cfg["dtype"]))
+            key = (str(cfg["layout"]), int(cfg["dim"]), dtype)
             store._tile_configs[key] = {
                 "block_rows": int(cfg["block_rows"]),
                 "ms": float(cfg.get("ms", 0.0)),

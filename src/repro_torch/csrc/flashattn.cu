@@ -7,7 +7,8 @@
 // unless 0 <= (i + Skv - Sq) - j < window (no upper limit when window <= 0);
 // an online softmax carries a running max m, denominator l and accumulator
 // acc in fp32 across key tiles; out = acc / max(l, 1e-30), cast to the
-// input type. Inputs are fp32 or bf16 (converted exactly to fp32 on load),
+// input type. Each row's log-sum-exp m + log(l) is written to lse too
+// (fp32, (B, Hq, Sq)): the backward (flashattn_bwd.cu) reads it. Inputs are fp32 or bf16 (converted exactly to fp32 on load),
 // in the reference's (B, S, H, hd) layout read through strides: no
 // transposed copy is made.
 //
@@ -55,6 +56,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;
   int B, Sq, Skv, Hq, Hkv, G, window;
   float scale;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
@@ -229,6 +231,9 @@ __global__ void __launch_bounds__(NT) flashattn_kernel(Args a) {
 #pragma unroll
         for (int x = 0; x < 4; ++x)
           put(orow + (tx + CG * u) * 4 + x, acc[i][u * 4 + x] / den);
+      if (tx == 0)
+        a.lse[((long long)b * a.Hq + kvh * G + n % G) * a.Sq + n / G] =
+            m_s[r] + logf(l_s[r]);
     }
   }
 }
@@ -262,9 +267,10 @@ int dispatch(const Args& a, int hd, cudaStream_t st) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. Strides are in elements, for dims (B, S, H);
-// the head dimension is dense. out is a dense (B, Sq, Hq, hd) tensor.
+// the head dimension is dense. out is a dense (B, Sq, Hq, hd) tensor, lse
+// a dense fp32 (B, Hq, Sq) one.
 extern "C" int flashattn_launch(const void* q, const void* k, const void* v,
-                                void* out, int B, int Sq, int Skv, int Hq,
+                                void* out, float* lse, int B, int Sq, int Skv, int Hq,
                                 int Hkv, int hd, int window, int dtype,
                                 float scale, long long qsb, long long qss,
                                 long long qsh, long long ksb, long long kss,
@@ -273,7 +279,7 @@ extern "C" int flashattn_launch(const void* q, const void* k, const void* v,
   if (B < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sq > Skv ||
       (long long)B * Hkv > 65535 || (long long)Sq * (Hq / Hkv) > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, out, B, Sq, Skv, Hq, Hkv, Hq / Hkv, window, scale,
+  Args a{q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, Hq / Hkv, window, scale,
          qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, hd, st);

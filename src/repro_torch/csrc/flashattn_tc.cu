@@ -9,7 +9,8 @@
 // s = -1e30 unless 0 <= (i + Skv - Sq) - j < window (no upper limit when
 // window <= 0); an fp32 online softmax carries a running max m, denominator
 // l and accumulator acc across key tiles; out = acc / max(l, 1e-30),
-// rounded to bf16 once.
+// rounded to bf16 once. Each row's log-sum-exp m + log(l) is written to
+// lse too (fp32, (B, Hq, Sq)), for the backward.
 //
 // Bound on the H100: at the prefill shape of gemma3-4b's global layers
 // (B = 4, S = 2048, 8 query heads over 4 KV heads, hd = 256) the causal half
@@ -68,6 +69,7 @@ struct Args {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;
   int B, Sq, Skv, Hq, Hkv, G, window;
   float scale;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
@@ -303,6 +305,9 @@ __global__ void __launch_bounds__(NT) flashattn_tc_kernel(Args a) {
     for (int d = 0; d < ND; ++d)
       *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t4) =
           __floats2bfloat162_rn(acc[d][2 * i] / den, acc[d][2 * i + 1] / den);
+    if (t4 == 0)
+      a.lse[((long long)b * a.Hq + kvh * G + n % G) * a.Sq + n / G] =
+          m[i] + logf(l[i]);
   }
 }
 
@@ -322,9 +327,9 @@ int launch_t(const Args& a, cudaStream_t st) {
 
 // bf16 only; strides are in elements, for dims (B, S, H), each a multiple
 // of 8 (16-byte rows); the head dimension is dense. out is a dense
-// (B, Sq, Hq, hd) tensor.
+// (B, Sq, Hq, hd) tensor, lse a dense fp32 (B, Hq, Sq) one.
 extern "C" int flashattn_tc_launch(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Sq, int Skv, int Hq,
+                                   void* out, float* lse, int B, int Sq, int Skv, int Hq,
                                    int Hkv, int hd, int window, float scale,
                                    long long qsb, long long qss, long long qsh,
                                    long long ksb, long long kss, long long ksh,
@@ -341,7 +346,7 @@ extern "C" int flashattn_tc_launch(const void* q, const void* k, const void* v,
       ((long long)Sq * (Hq / Hkv) + R - 1) / R > 65535)
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
          B, Sq, Skv, Hq, Hkv, Hq / Hkv, window, scale,
          qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -43,6 +43,7 @@ def to_host(x) -> tuple[np.ndarray, str]:
     host (from the card into page-locked memory, which copies several
     times faster than pageable), a bfloat16 one as raw bytes."""
     if isinstance(x, torch.Tensor):
+        x = x.detach()  # a parameter that requires grad writes its values
         name = dtype_name(x.dtype)
         if x.device.type == "cuda":
             t = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)

@@ -530,7 +530,8 @@ class Index:
             next_id=self._next_id,
             meta=self._user_meta,
             shard_plan=shard_plan.to_json() if shard_plan else None,
-            calibration=cal.to_json() if len(cal) or cal.n_carried else None,
+            calibration=(cal.to_json() if len(cal) or cal.n_tile_configs
+                         or cal.n_carried else None),
             codes=self._codes_payload(segs, codes_paths),
         )
 

@@ -24,6 +24,7 @@ from repro_torch.core.lookup import LookupTable
 from repro_torch.core.tree import VocabTree
 from repro_torch.device import resolve
 from repro_torch.distributed.meshutil import DeviceMesh
+from repro_torch.train import tree
 
 
 def tree_from_numpy(levels: Sequence[np.ndarray],
@@ -133,3 +134,23 @@ def cache_from_numpy(cache, device: str | torch.device | None = "cuda"):
             raise ValueError(f"cache {key}: expected (L, B, S, Hkv, hd), got {a.shape}")
         out[key] = torch.as_tensor(np.array(a), device=dev)
     return out
+
+
+def train_state_from_numpy(params, state, cfg,
+                           device: str | torch.device | None = "cuda"):
+    """The port's ``(params, opt_state)`` from the reference's train state
+    as numpy trees: fp32 weights, ``m``, ``v`` and (with compression)
+    ``feedback`` shaped as ``cfg.param_specs()``, and the int32 ``step``."""
+    dev = resolve(device)
+    out = {key: transformer_params_from_numpy(state[key], cfg, dev)
+           for key in ("m", "v", "feedback") if key in state}
+    out["step"] = torch.as_tensor(np.array(state["step"], np.int32), device=dev)
+    extra = set(state) - set(out)
+    if extra:
+        raise ValueError(f"train state: unexpected keys {sorted(extra)}")
+    return transformer_params_from_numpy(params, cfg, dev), out
+
+
+def train_state_to_numpy(params, state):
+    """``(params, opt_state)`` as the reference's numpy trees."""
+    return tree.map_(lambda t: t.detach().cpu().numpy(), (params, state))

@@ -47,8 +47,9 @@ SIGNATURES = {
     "fusedadc_launch": [_VP] * 7 + [_I] * 5 + [_VP],
     "l2topk_wide_launch": [_VP] * 10 + [_I] * 4 + [_VP],
     "adctopk_wide_launch": [_VP] * 11 + [_I] * 6 + [_VP],
-    "flashattn_launch": [_VP] * 4 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
-    "flashattn_tc_launch": [_VP] * 4 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
+    "flashattn_launch": [_VP] * 5 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
+    "flashattn_tc_launch": [_VP] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
+    "flashattn_bwd_launch": [_VP] * 10 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
 }
 
 _lock = threading.Lock()

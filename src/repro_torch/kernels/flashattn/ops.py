@@ -1,8 +1,8 @@
 """Fused GQA flash-attention wrapper: the plain version for a CPU tensor,
-a K6 CUDA kernel for a CUDA tensor.
+a K6 CUDA kernel for a CUDA tensor; and its gradient.
 
-Two hand-written kernels compute the same function (:func:`variant` picks
-one from the dtype and the head dimension):
+Two hand-written kernels compute the forward (:func:`variant` picks one
+from the dtype and the head dimension):
 
 * ``"tensor_core"`` (``csrc/flashattn_tc.cu``): bf16 at hd 64, 128 and 256,
   every full config of ``configs/lm.py``. ``mma.sync`` on bf16 with fp32
@@ -15,7 +15,19 @@ one from the dtype and the head dimension):
 
 Both read q, k and v in the reference's ``(B, S, H, hd)`` layout through
 their strides (the last dimension must be dense), so a view such as a KV
-cache's leading ``Skv`` rows is passed without a copy.
+cache's leading ``Skv`` rows is passed without a copy. Either writes
+each query row's log-sum-exp ``lse`` (fp32 ``(B, Hq, Sq)``) beside the
+output, which the backward reads (at layer 5 of gemma3-4b the write is
+within the time's run-to-run spread; a decode step of one token does not
+launch K6).
+
+:class:`FlashAttention` is the ``torch.autograd.Function``:
+:func:`flash_attention` routes through it whenever grad is enabled and an
+input requires grad, so a result that needs a gradient always has one. Its
+backward, :func:`flash_attention_bwd`, is ``csrc/flashattn_bwd.cu`` on a
+CUDA tensor and ``ref.flash_attention_bwd_ref`` on a CPU tensor. The JAX
+package has no VJP of its Pallas kernel (its training differentiates the
+XLA attention), so the backward replaces no TPU kernel.
 """
 
 from __future__ import annotations
@@ -25,9 +37,13 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flashattn.ref import flash_attention_ref
+from repro_torch.kernels.flashattn.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flashattn.cu instantiations
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flashattn{,_bwd}.cu instantiations
 TC_HEAD_DIMS = (64, 128, 256)  # csrc/flashattn_tc.cu instantiations
 VARIANTS = ("tensor_core", "cuda_core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,35 +54,42 @@ def variant(dtype: torch.dtype, hd: int) -> str:
     return "tensor_core" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cuda_core"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = -1, kernel: str | None = None) -> torch.Tensor:
-    """Causal (optionally sliding-window) GQA attention ``(B, Sq, Hq, hd)``
-    in ``q.dtype``; see ref.py. ``kernel`` names a variant in place of the
-    rule of :func:`variant` (to time one against the other)."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check(name, q, k, v) -> None:
+    """Raise unless the kernels take ``q``, ``k``, ``v`` (CUDA tensors)."""
     if not (q.dim() == k.dim() == v.dim() == 4):
-        raise ValueError("flash_attention: q, k, v must be (B, S, H, hd)")
+        raise ValueError(f"{name}: q, k, v must be (B, S, H, hd)")
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if (k.shape != (B, Skv, Hkv, hd) or v.shape != k.shape or Hkv < 1
             or Hq % Hkv or not 1 <= Sq <= Skv or hd not in HEAD_DIMS):
-        raise ValueError(f"flash_attention: unsupported shapes {tuple(q.shape)} "
+        raise ValueError(f"{name}: unsupported shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("flash_attention: q, k, v must share device and dtype")
+            raise ValueError(f"{name}: q, k, v must share device and dtype")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the head dimension must be dense")
+        raise ValueError(f"{name}: the head dimension must be dense")
+
+
+def _strides(q, k, v) -> tuple:
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+def _forward(q, k, v, window: int, kernel: str | None):
+    """One launch of the forward kernel on CUDA tensors: ``(out, lse)``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check("flash_attention", q, k, v)
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     kernel = kernel or variant(q.dtype, hd)
     if kernel not in VARIANTS:
         raise ValueError(f"flash_attention: no kernel {kernel!r}")
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v)
     if kernel == "tensor_core":
         if q.dtype != torch.bfloat16 or hd not in TC_HEAD_DIMS:
             raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 "
@@ -77,19 +100,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "data 16-byte aligned")
         _build.launch(
             "flashattn_tc_launch", q,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, Hq, Hkv, hd, int(window), 1.0 / math.sqrt(hd),
-            *strides)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Skv, Hq, Hkv, hd, int(window), 1.0 / math.sqrt(hd), *strides)
     else:
         _build.launch(
             "flashattn_launch", q,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, Sq, Skv, Hq, Hkv, hd, int(window), _DTYPES[q.dtype],
             1.0 / math.sqrt(hd), *strides)
     _build.count(flash_attention, q)
     flash_attention.variant_launches[kernel] += 1
-    return out
+    return out, lse
 
 
-_build.counters(flash_attention)  # every launch
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward keeps ``lse`` beside
+    ``out``, the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, kernel):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_lse_ref(q, k, v, window=window)
+        else:
+            out, lse = _forward(q, k, v, window, kernel)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = -1, kernel: str | None = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention ``(B, Sq, Hq, hd)``
+    in ``q.dtype``; see ref.py. ``kernel`` names a variant in place of the
+    rule of :func:`variant` (to time one against the other). Differentiable
+    (through :class:`FlashAttention`) when grad is enabled and an input
+    requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, int(window), kernel)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, window=window)
+    return _forward(q, k, v, window, kernel)[0]
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = -1):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k, v)``, given
+    its ``out``, ``lse`` (fp32 ``(B, Hq, Sq)``) and the output's gradient
+    ``dout``, in the dtypes of ``q``, ``k`` and ``v``: the plain version
+    for a CPU tensor, ``csrc/flashattn_bwd.cu`` for a CUDA tensor (its
+    three kernels, one launch of this wrapper)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    _check("flash_attention_bwd", q, k, v)
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    for t, name in ((out, "out"), (dout, "dout")):
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} must match q")
+    if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: lse must be a dense fp32 (B, Hq, Sq)")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Skv, Hkv, hd), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    d = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)  # D scratch
+    _build.launch(
+        "flashattn_bwd_launch", q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d.data_ptr(),
+        B, Sq, Skv, Hq, Hkv, hd, int(window), _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+        *_strides(q, k, v))
+    _build.count(flash_attention_bwd, q)
+    return dq, dk, dv
+
+
+_build.counters(flash_attention)  # every forward launch
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+_build.counters(flash_attention_bwd)  # every backward launch

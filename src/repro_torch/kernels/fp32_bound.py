@@ -236,3 +236,144 @@ def attention_bf16_tol(q, k, v, *, window: int = -1):
     o = torch.einsum("bkgqs,bskh->bqkgh", w, vd).reshape(B, Sq, Hq, hd)
     absv = torch.einsum("bkgqs,bskh->bqkgh", w, vd.abs()).reshape(B, Sq, Hq, hd)
     return (U_BF16 + 2.0**-12) * absv + 2.0 * U_BF16 * o.abs()
+
+
+def _gamma_t(n: torch.Tensor) -> torch.Tensor:
+    """Higham's gamma_n of fp32 for a tensor of term counts."""
+    n = n.double()
+    return n * U32 / (1.0 - n * U32)
+
+
+def attention_grads_f64(q, k, v, dout, *, window: int = -1, rows: int = 256):
+    """The float64 gradient of flash attention, with an fp32 bound and a
+    bf16 tolerance for each of ``dq``, ``dk``, ``dv``.
+
+    Returns ``(grads, tol_fp32, tol_bf16)``, each a ``(dq, dk, dv)`` triple
+    of float64 tensors shaped like q, k and v. ``grads`` is the exact
+    gradient of ``ref.flash_attention_ref`` at (q, k, v) for the output
+    gradient ``dout`` (their values taken as exact). ``tol_fp32`` bounds, to
+    first order in u = 2^-24, the error of any fp32 evaluation of the
+    backward's formulas (``ref.flash_attention_bwd_ref``) from these fp32
+    inputs, the forward's fp32 ``out`` and ``lse``, summing in any order.
+    With exact scores s_ij, weights P_ij, output o_i, lse_i, M_i = max_j
+    |s_ij| and n_i unmasked keys of row i:
+
+      e_s_ij  = scale gamma_hd sum_d |q_id k_jd| + u |s_ij|   (the score)
+      eps_ij  = e_s_ij + sum_k P_ik e_s_ik                     (s - lse moves)
+              + u (|s_ij| + 4 M_i + 3 |lse_i|)                 (subtractions, log)
+              + gamma_{n_i} + u (6 + 6 ceil(Skv / 16))         (lse's sum, exps,
+                                                               rescales)
+              : the relative error of P_ij = exp(s - lse)
+      e_D_i   = gamma_hd sum_d |dout_id o_id| + sum_d |dout_id| tol_o_id
+              (tol_o: ``attention_f64``'s bound on the forward's out)
+      e_dS_ij = P_ij ((eps_ij + 2u) |dP_ij - D_i|
+                      + gamma_hd sum_d |dout_id v_jd| + e_D_i)
+      tol_dq_i = scale sum_j (e_dS_ij + gamma_{n_i+1} |dS_ij|) |k_j| + u |dq_i|
+      tol_dk_j = scale sum_i (e_dS_ij + gamma_{N_j+1} |dS_ij|) |q_i| + u |dk_j|
+      tol_dv_j = sum_i P_ij |dout_i| (eps_ij + gamma_{N_j+1})
+
+    where i runs over the rows of key j's group (its G query heads) that see
+    it, N_j of them. The counts are per row and per key, so the sums over
+    few terms (a causal run's first rows, its last keys) keep a tight bound,
+    which TF32's rounding of the products' inputs breaks; over thousands of
+    terms TF32's errors cancel inside it, as they do in the forward.
+
+    ``tol_bf16`` bounds the error of such an evaluation from bf16 inputs
+    whose ``out`` was rounded to bf16 once (the forward's output) and whose
+    gradients are each rounded to bf16 once: u_b |g| (u_b = 2^-8) plus
+    (1 + u_b) times ``tol_fp32`` and the rounding of out inside D, |dD_i| <=
+    u_b sum_d |dout_id o_id|, carried through dS = P (dP - D) into dq and dk
+    (dv does not read D). ``rows`` query rows are expanded against every
+    key at a time.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    dist = (torch.arange(Sq, device=dev) + (Skv - Sq))[:, None] - torch.arange(
+        Skv, device=dev)[None, :]
+    mask = dist >= 0
+    if window > 0:
+        mask &= dist < window
+    # the forward's exact output and its fp32 bound, (B, Hkv, G, Sq, hd)
+    o_all, tol_all = (t.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4)
+                      for t in attention_f64(q, k, v, window=window))
+    kd, vd = k.double(), v.double()
+    ka, va = kd.abs(), vd.abs()
+    g_hd = gamma(hd)
+    fixed = U32 * (6.0 + 6.0 * math.ceil(Skv / 16))
+    dq = torch.empty((B, Sq, Hkv, G, hd), dtype=torch.float64, device=dev)
+    tq, bq = torch.empty_like(dq), torch.empty_like(dq)
+    dk, dv = torch.zeros_like(kd), torch.zeros_like(vd)
+    a_dk, b_dk, x_dk = (torch.zeros_like(kd) for _ in range(3))
+    a_dv, b_dv = torch.zeros_like(vd), torch.zeros_like(vd)
+    for i0 in range(0, Sq, rows):
+        i1 = min(Sq, i0 + rows)
+        m = mask[i0:i1]
+        qg = q[:, i0:i1].double().reshape(B, i1 - i0, Hkv, G, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kd) * scale
+        a = torch.einsum("bqkgh,bskh->bkgqs", qg.abs(), ka) * scale
+        w = torch.softmax(torch.where(m, s, -math.inf), dim=-1)
+        lse = torch.logsumexp(torch.where(m, s, -math.inf), -1, keepdim=True)
+        s = torch.where(m, s, 0.0)
+        sa = s.abs()
+        big = sa.amax(-1, keepdim=True)
+        n = m.sum(-1).double()[:, None]  # (r, 1) unmasked keys a row
+        o, tol_o = o_all[:, :, :, i0:i1], tol_all[:, :, :, i0:i1]
+        gg = dout[:, i0:i1].double().reshape(B, i1 - i0, Hkv, G, hd)
+        ggo = gg.permute(0, 2, 3, 1, 4)  # (B, Hkv, G, r, hd)
+        dp = torch.einsum("bqkgh,bskh->bkgqs", gg, vd)
+        adp = torch.einsum("bqkgh,bskh->bkgqs", gg.abs(), va)
+        d = (ggo * o).sum(-1, keepdim=True)
+        e_d = g_hd * (ggo * o).abs().sum(-1, keepdim=True) + (
+            ggo.abs() * tol_o).sum(-1, keepdim=True)
+        d_b = U_BF16 * (ggo * o).abs().sum(-1, keepdim=True)  # out's bf16 rounding
+        e_s = torch.where(m, g_hd * a + U32 * sa, 0.0)
+        eps = (e_s + (w * e_s).sum(-1, keepdim=True)
+               + U32 * (sa + 4.0 * big + 3.0 * lse.abs()) + _gamma_t(n) + fixed)
+        del a, e_s
+        ds = w * (dp - d)
+        e_ds = w * ((eps + 2.0 * U32) * (dp - d).abs() + g_hd * adp + e_d)
+        del adp
+        dsa = ds.abs()
+        pdb = w * d_b
+        dq[:, i0:i1] = (torch.einsum("bkgqs,bskh->bkgqh", ds, kd) * scale).permute(
+            0, 3, 1, 2, 4)
+        tq[:, i0:i1] = (torch.einsum("bkgqs,bskh->bkgqh", e_ds + _gamma_t(n + 1) * dsa,
+                                     ka) * scale).permute(0, 3, 1, 2, 4)
+        bq[:, i0:i1] = (torch.einsum("bkgqs,bskh->bkgqh", pdb, ka) * scale).permute(
+            0, 3, 1, 2, 4)
+        qa = qg.abs()
+        dk += torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+        a_dk += torch.einsum("bkgqs,bqkgh->bskh", e_ds, qa) * scale
+        b_dk += torch.einsum("bkgqs,bqkgh->bskh", dsa, qa) * scale
+        x_dk += torch.einsum("bkgqs,bqkgh->bskh", pdb, qa) * scale
+        dv += torch.einsum("bkgqs,bqkgh->bskh", w, gg)
+        a_dv += torch.einsum("bkgqs,bqkgh->bskh", w * eps, gg.abs())
+        b_dv += torch.einsum("bkgqs,bqkgh->bskh", w, gg.abs())
+        del s, w, ds, e_ds, dsa, pdb, dp, eps
+    del o_all, tol_all
+    # N_j: the rows of key j's group that see it
+    n_key = (mask.sum(0).double() * G)[None, :, None, None]
+    g_key = _gamma_t(n_key + 1)
+    tk = a_dk + g_key * b_dk + U32 * dk.abs()
+    tv = a_dv + g_key * b_dv
+    dq = dq.reshape(B, Sq, Hq, hd)
+    tq = (tq.reshape(B, Sq, Hq, hd) + U32 * dq.abs())
+    bq = bq.reshape(B, Sq, Hq, hd)
+    w16 = 1.0 + U_BF16  # the final rounding also scales the fp32 error
+    tol16 = (w16 * (tq + bq) + U_BF16 * dq.abs(), w16 * (tk + x_dk) + U_BF16 * dk.abs(),
+             w16 * tv + U_BF16 * dv.abs())
+    return (dq, dk, dv), (tq, tk, tv), tol16
+
+
+def grads_error_ratio(got, exact, tol) -> float:
+    """Largest |got - exact| / tol over the three gradients (triples); an
+    exact entry counts 0 (a key no query row sees has gradient and bound
+    0)."""
+    out = 0.0
+    for g, e, t in zip(got, exact, tol):
+        err = (g.double() - e).abs()
+        out = max(out, float(torch.where(err == 0, 0.0, err / t).max()))
+    return out

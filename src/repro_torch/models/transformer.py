@@ -13,9 +13,20 @@ compute dtype, as XLA leaves them.
 
 ``attn_impl="chunked"`` with more than one query runs the flash dataflow:
 on a CUDA tensor the K6 kernel (``kernels.flashattn.ops.flash_attention``,
-``csrc/flashattn.cu``), on a CPU tensor the plain ``attend_chunked``.
+``csrc/flashattn.cu``; with its kernel backward, ``csrc/flashattn_bwd.cu``,
+when it is differentiated), on a CPU tensor the plain ``attend_chunked``.
 ``attn_impl="full"`` and single-token decode run ``attend``, as the
 reference does.
+
+Training: ``loss_fn`` is the reference's next-token cross entropy on the
+fp32 logits. Under grad, ``cfg.remat`` runs each layer as the reference's
+``jax.checkpoint`` policies do: ``"none"`` keeps every activation,
+``"full"`` recomputes the layer in the backward, ``"dots"`` keeps the
+outputs of the layer's plain matrix products (``aten.mm``: projections,
+FFN, router; the reference's ``dots_with_no_batch_dims_saveable``) and
+recomputes the rest (attention, norms, the expert ``bmm``s). The three
+give bit-identical gradients. MoE layers train through the global
+dispatch.
 
 MoE layers (``cfg.moe``) route each token to its top-k experts through
 ``core.dispatch`` (the lookup table's counting sort, applied to experts):
@@ -38,6 +49,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core.dispatch import combine_rows, dispatch_rows, make_dispatch
 from repro_torch.core.route import counting_layout, scatter_to_slots
@@ -80,7 +92,7 @@ class TransformerConfig:
     scale_embed: bool = False  # gemma-style sqrt(d_model) input scaling
     qk_norm: bool = False
     dtype: str = "bfloat16"
-    remat: str = "dots"  # kept for parity; the port has no backward yet
+    remat: str = "dots"  # none | full | dots (under grad; see the module docstring)
     # "global": every token dispatched on one device; "routed": over the
     # shards of a mesh given to the entry points (all_to_all to the
     # experts' owners and back)
@@ -485,6 +497,39 @@ def _layer_body(x, layer, cfg: TransformerConfig, *, q_pos, kv_pos,
     return x + ffn, new_cache, drops, fresh_kv
 
 
+REMAT_MODES = ("none", "full", "dots")
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the plain matrix products' outputs, recompute the
+    rest."""
+    if op is torch.ops.aten.mm.default:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch_checkpoint.create_selective_checkpoint_contexts(_save_mm)
+
+
+def _remat(fn, mode: str):
+    """``fn`` (one layer) under the remat ``mode``, when grad is enabled."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat {mode!r}; want {REMAT_MODES}")
+    if mode == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if mode == "full":
+            return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           context_fn=_dots_context)
+
+    return wrapped
+
+
 def _layers(params, cfg: TransformerConfig):
     """Each layer's weights (views of the stacked tensors) and window."""
     stacked = params["layers"]
@@ -530,12 +575,37 @@ def forward(params, cfg: TransformerConfig, tokens, *,
     B, S = tokens.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     cap = moe_capacity_for(cfg, B * S, capacity_factor)
+
+    def body(x, layer):
+        y, _, d, _ = _layer_body(x, layer, cfg, q_pos=pos, kv_pos=pos,
+                                 moe_capacity=cap, mesh=mesh)
+        return y, d
+
+    body = _remat(body, cfg.remat)
     drops = 0
     for layer in _layers(params, cfg):
-        x, _, d, _ = _layer_body(x, layer, cfg, q_pos=pos, kv_pos=pos,
-                                 moe_capacity=cap, mesh=mesh)
+        x, d = body(x, layer)
         drops = drops + d
     return _logits(params, cfg, x), {"moe_drops": drops}
+
+
+def loss_fn(params, cfg: TransformerConfig, batch, *,
+            device: str | torch.device | None = "cuda",
+            mesh: DeviceMesh | None = None, capacity_factor=None):
+    """Next-token cross entropy of ``batch = {"tokens", "labels"}`` (each
+    ``(B, S)``) on the fp32 logits, the reference's ``loss_fn``. Returns
+    ``(loss, aux)``: ``aux["loss"]`` the loss, ``aux["moe_drops"]`` the
+    rows the MoE layers dropped (an int32 tensor, 0 for a dense model)."""
+    logits, aux = forward(params, cfg, batch["tokens"], device=device, mesh=mesh,
+                          capacity_factor=capacity_factor)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = (logz - label_logit).mean()
+    aux["loss"] = loss
+    aux["moe_drops"] = torch.as_tensor(aux["moe_drops"], dtype=torch.int32,
+                                       device=logits.device)
+    return loss, aux
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None, *,

@@ -1,11 +1,13 @@
 """repro_torch's cost models and ``plan()`` against the JAX package's.
 
-From the same calibration JSON, ``plan(layout="auto")`` and
-``plan(impl="auto")`` pick the same plan under the heuristic, observed,
-fitted and default chains; the ``CalibrationStore`` JSON round-trips
-against the reference's; records and tile configs of another backend (or
-of none, as the JAX package writes them) are carried through and never
-consulted, at the store and through an ``Index`` manifest.
+From the same calibration (each package's JSON form of it),
+``plan(layout="auto")`` and ``plan(impl="auto")`` pick the same plan under
+the heuristic, observed, fitted and default chains; the
+``CalibrationStore`` JSON round-trips against the reference's; records and
+tile configs of another backend (or of none, as the JAX package writes
+them) are carried through and never consulted, at the store and through
+an ``Index`` manifest; the port's records and tile configs survive the
+reference's rewrite of a manifest and still steer the port's plans.
 """
 
 import copy
@@ -41,14 +43,19 @@ def _key(p):
 
 
 def _tagged(d, backend=BACKEND, *, where="stats"):
-    """The JSON with ``backend`` in every record's ``stats`` (or, with
-    ``where="record"``, beside its ``signature``, as earlier versions of
-    the port wrote it) and in every tile config."""
+    """The JSON with ``backend`` in every record's ``stats`` and folded
+    into every tile config's dtype (``"float32@cpu"``), as the port writes
+    them; with ``where="record"``, where earlier versions of the port
+    wrote them: beside the record's ``signature`` and as a ``backend`` key
+    beside the tile config's ``block_rows``."""
     d = copy.deepcopy(d)
     for rec in d["records"]:
         (rec["stats"] if where == "stats" else rec)["backend"] = backend
     for cfg in d["tile_configs"]:
-        cfg["backend"] = backend
+        if where == "stats":
+            cfg["dtype"] = f"{cfg['dtype']}@{backend}"
+        else:
+            cfg["backend"] = backend
     return d
 
 
@@ -91,7 +98,7 @@ GRID = [
 @pytest.mark.parametrize("impl", ["xla", "auto"])
 @pytest.mark.parametrize("layout", ["auto", "point_major", "query_routed"])
 def test_plan_picks_the_reference_plan(calibration_json, model, impl, layout):
-    jstore = jcm.CalibrationStore.from_json(_tagged(calibration_json))
+    jstore = jcm.CalibrationStore.from_json(calibration_json)  # its own form
     tstore = tcm.CalibrationStore.from_json(_tagged(calibration_json),
                                             backend=BACKEND)
     assert len(tstore) == len(jstore) and tstore.n_carried == 0
@@ -105,7 +112,7 @@ def test_plan_picks_the_reference_plan(calibration_json, model, impl, layout):
 
 
 def test_the_deciding_model_is_the_reference_one(calibration_json):
-    jstore = jcm.CalibrationStore.from_json(_tagged(calibration_json))
+    jstore = jcm.CalibrationStore.from_json(calibration_json)  # its own form
     tstore = tcm.CalibrationStore.from_json(_tagged(calibration_json),
                                             backend=BACKEND)
     kinds = set()
@@ -144,7 +151,8 @@ def test_calibration_json_roundtrips_against_the_reference(calibration_json):
     assert carried.to_json() == calibration_json
     # records of this backend come back out with their backend key, and
     # the reference reads them into the same store; its rewrite keeps the
-    # records' markers (inside stats) and drops the tile configs'
+    # records' markers (inside stats) and the tile configs' (inside the
+    # key's dtype string)
     own = tcm.CalibrationStore.from_json(_tagged(calibration_json),
                                          backend=BACKEND)
     out = own.to_json()
@@ -152,12 +160,13 @@ def test_calibration_json_roundtrips_against_the_reference(calibration_json):
     back = jcm.CalibrationStore.from_json(json.loads(json.dumps(out)))
     rewritten = back.to_json()
     assert rewritten["records"] == out["records"]
-    assert rewritten["tile_configs"] == calibration_json["tile_configs"]
+    assert rewritten["tile_configs"] == out["tile_configs"]
     assert own.snapshot() == back.snapshot()
     again = tcm.CalibrationStore.from_json(rewritten, backend=BACKEND)
-    assert len(again) == len(own) and again.n_carried == len(
-        calibration_json["tile_configs"])
-    # the record-level marker of earlier versions is still read
+    assert len(again) == len(own) and again.n_carried == 0
+    assert again.tile_config("point_major", 32, "float32")["block_rows"] == 2048
+    # the markers of earlier versions (beside the record's signature, a
+    # tile config's backend key) are still read
     old = tcm.CalibrationStore.from_json(
         _tagged(calibration_json, where="record"), backend=BACKEND)
     assert len(old) == len(own) and old.n_carried == 0
@@ -257,12 +266,58 @@ def test_port_calibration_survives_a_reference_commit(calibration_json, tmp_path
     assert len(ti.calibration) == n_own
     assert ti.calibration.snapshot() == tcm.CalibrationStore.from_json(
         _tagged(calibration_json), backend=BACKEND).snapshot()
-    # the tile config's marker did not survive: it is carried, not consulted
-    assert ti.calibration.n_carried == len(calibration_json["tile_configs"])
-    assert ti.calibration.tile_config("point_major", 32, "float32") is None
+    # the tile config's marker survived too (folded into its dtype)
+    assert ti.calibration.n_carried == 0
+    assert ti.calibration.tile_config("point_major", 32, "float32")["block_rows"] == 2048
     flipped = sum(
         _key(tplan.plan(layout="auto", impl="auto", model="auto",
                         calibration=ti.calibration, **kw))
         != _key(tplan.plan(layout="auto", impl="auto", model="heuristic", **kw))
         for kw in GRID)
     assert flipped
+
+
+def test_port_tile_config_steers_its_plan_across_a_reference_commit(tmp_path):
+    """The port records a tuned tile config (and one measurement: the
+    reference writes a manifest's calibration back only when it holds
+    records) and commits; the reference opens the directory on the Auto
+    mesh, appends and commits; the port reopens and its fused plan takes
+    that ``block_rows``. The reference's own fused plan is the one it
+    makes with no tile config at all."""
+    mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
+    x, _ = synth.sample_descriptors(512, 8, seed=2, n_centers=8)
+    jt = j_build_tree(jnp.asarray(x), (4, 2), key=jax.random.PRNGKey(0))
+    d = str(tmp_path / "idx")
+    ji = JIndex.create(jt, d, mesh=mesh)
+    ji.append(x)
+    ji.commit()
+    shapes = dict(rows=65_536, n_leaves=8, n_queries=256, n_shards=1, k=10, dim=8,
+                  layout="point_major", impl="fused", model="heuristic")
+    untuned = tplan.plan(**shapes, calibration=tcm.CalibrationStore(backend=BACKEND))
+    ti = Index.open(d, device="cpu")
+    assert ti.calibration.backend == BACKEND
+    ti.calibration.record_tile_config("point_major", 8, "float32", 512, 0.25)
+    ti.calibration.record(untuned, 3.0)
+    ti.commit()
+    raw = manifest_lib.latest(d).calibration["tile_configs"]
+    assert [c["dtype"] for c in raw] == [f"float32@{BACKEND}"]
+    ji = JIndex.open(d, mesh=mesh)
+    ji.append(x[:64] + 1.0)
+    ji.commit()
+    # the reference's plan never reads the port's entry
+    j_shapes = dict(shapes)
+    j_shapes.pop("model")
+    j_tuned = jplan.plan(**j_shapes, model="heuristic", calibration=ji.calibration)
+    j_bare = jplan.plan(**j_shapes, model="heuristic",
+                        calibration=jcm.CalibrationStore())
+    assert j_tuned.block_rows == j_bare.block_rows == untuned.block_rows != 512
+    ti = Index.open(d, device="cpu")
+    assert ti.calibration.n_carried == 0
+    assert ti.calibration.tile_config("point_major", 8, "float32")["block_rows"] == 512
+    tuned = tplan.plan(**shapes, calibration=ti.calibration)
+    assert tuned.block_rows == 512
+    # another card's port reads the entry as foreign
+    other = tcm.CalibrationStore.from_json(manifest_lib.latest(d).calibration,
+                                           backend="cuda:Another GPU")
+    assert other.tile_config("point_major", 8, "float32") is None
+    assert len(other) == 0 and other.n_carried == 2  # the record and the tile

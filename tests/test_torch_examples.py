@@ -55,8 +55,21 @@ def test_index_and_search(capsys):
     assert "served 64/64 requests" in out
 
 
+def test_train_lm(capsys):
+    """Phase 1 trains 30 steps (the loss drops), phase 2 resumes at step 30
+    and runs to 60, as ``examples/train_lm.py`` does."""
+    assert _load("torch_train_lm").main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "=== phase 1: steps 0..30 (bf16-compressed grads, 2 microbatches)"
+    steps = [int(m.group(1)) for ln in out if (m := re.match(r"step\s+(\d+) loss", ln))]
+    assert steps == list(range(60))
+    i = out.index("=== phase 2: simulated restart — resume from step 30, run to 60")
+    assert out[i + 1] == "resumed from step 30"
+    assert sum(bool(re.match(r"loss \S+ -> \S+ OK$", ln)) for ln in out) == 2
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_copydays_eval",
-                                  "torch_index_and_search"])
+                                  "torch_index_and_search", "torch_train_lm"])
 def test_examples_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")

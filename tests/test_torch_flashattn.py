@@ -3,7 +3,11 @@ the wrapper against the JAX package's ``flash_attention`` (``impl="xla"``
 and the Pallas kernel in interpret mode), a CPU emulation of the
 tensor-core kernel's rounding against the plain version and the JAX
 ``flash_attention_ref``, and on the card both CUDA kernels (tensor-core
-and CUDA-core variants) against the plain version.
+and CUDA-core variants) against the plain version. The gradient
+(``FlashAttention``: the forward's ``lse``, ``flash_attention_bwd_ref`` on
+the CPU, ``csrc/flashattn_bwd.cu`` on the card) against ``jax.vjp`` of the
+reference's ``flash_attention_ref``, against float64 autograd, and within
+``fp32_bound.attention_grads_f64``'s bounds.
 
 Inputs are made with numpy from a seed. Tolerances on the CPU are the
 reference's own (``tests/test_flashattn.py``): 2e-4 in fp32 (sums in
@@ -26,8 +30,18 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels.flashattn.ops import flash_attention as j_flash
 from repro.kernels.flashattn.ref import flash_attention_ref as j_flash_ref
 from repro_torch.kernels import fp32_bound
-from repro_torch.kernels.flashattn.ops import flash_attention, variant
-from repro_torch.kernels.flashattn.ref import flash_attention_ref
+from repro_torch.kernels.flashattn.ops import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+    variant,
+)
+from repro_torch.kernels.flashattn.ref import (
+    attention_mask,
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 from repro_torch.models import transformer as tfm
 
 SHAPES = [  # b, sq, skv, hq, hkv, hd, win, tq, tkv (tests/test_flashattn.py)
@@ -437,3 +451,271 @@ def test_cuda_tensor_core_rejects_misaligned_rows(cuda):
         flash_attention(shifted, shifted, shifted)
     with pytest.raises(ValueError, match="tensor-core"):
         flash_attention(odd.float(), odd.float(), odd.float(), kernel="tensor_core")
+
+
+# ---------------------------------------------------------------------------
+# the gradient: FlashAttention, the plain backward and its bounds
+# ---------------------------------------------------------------------------
+
+
+def _dout(seed, q):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(tuple(q.shape)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cpu_gradient_matches_jax_vjp(shape, dtype):
+    """The wrapper on tensors that require grad (plain forward with lse,
+    then ``flash_attention_bwd_ref``) against ``jax.vjp`` of the reference's
+    ``flash_attention_ref``: within 1e-5 x the gradient's largest entry in
+    fp32 (sums in another order), 2e-2 x in bf16 (the reference rounds its
+    weights and their gradient to bf16 inside the vjp; the port sums in
+    fp32 and rounds each gradient once)."""
+    b, sq, skv, hq, hkv, hd, win, _, _ = shape
+    tdt, jdt, _ = DTYPES[dtype]
+    arrays = (*_qkv(21, b, sq, skv, hq, hkv, hd), _dout(22, torch.zeros(b, sq, hq, hd)).numpy())
+    (jq, jk, jv, jg), (q, k, v, g) = _both(arrays, tdt, jdt)
+    _, vjp = jax.vjp(lambda q_, k_, v_: j_flash_ref(q_, k_, v_, window=win), jq, jk, jv)
+    wants = vjp(jg)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(q, k, v, window=win)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    np.testing.assert_allclose(_f32(out.detach()), _f32(flash_attention_ref(
+        q.detach(), k.detach(), v.detach(), window=win)), rtol=0, atol=0)
+    out.backward(g)
+    rel = 1e-5 if dtype == "float32" else 2e-2
+    for got, want in zip((q.grad, k.grad, v.grad), wants):
+        assert got.dtype == tdt
+        want = _f32(want)
+        np.testing.assert_allclose(_f32(got), want, rtol=0,
+                                   atol=rel * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_ref_equals_float64_autograd(shape):
+    """The explicit formulas on float64 inputs equal torch autograd of the
+    plain forward in float64 (within 1e-12 x the gradient's scale)."""
+    b, sq, skv, hq, hkv, hd, win, _, _ = shape
+    q, k, v = (torch.as_tensor(a).double() for a in _qkv(23, b, sq, skv, hq, hkv, hd))
+    g = _dout(24, q).double()
+    out, lse = flash_attention_lse_ref(q, k, v, window=win)
+    got = flash_attention_bwd_ref(q, k, v, out, lse, g, window=win)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    flash_attention_ref(qa, ka, va, window=win).backward(g)
+    for a, want in zip(got, (qa.grad, ka.grad, va.grad)):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, want, rtol=0,
+                                   atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_lse_matches_float64_logsumexp(dtype):
+    """``lse`` is the log-sum-exp of the forward's own fp32 scores: within
+    1e-6 x (1 + |lse|) of float64's (the scores' and the sum's roundings)."""
+    q, k, v = (torch.as_tensor(a).to(dtype) for a in _qkv(25, 2, 40, 72, 6, 2, 16))
+    out, lse = flash_attention_lse_ref(q, k, v, window=20)
+    assert lse.shape == (2, 6, 40) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, window=20), rtol=0, atol=0)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.double().reshape(2, 40, 2, 3, 16),
+                     k.double()) / math.sqrt(16)
+    s = torch.where(attention_mask(40, 72, 20, "cpu"), s, -math.inf)
+    want = torch.logsumexp(s, -1).reshape(2, 6, 40)
+    assert float(((lse.double() - want).abs() / (1 + want.abs())).max()) <= 1e-6
+
+
+def _bwd_tf32(q, k, v, out, lse, dout, window):
+    """The plain backward with every product's inputs rounded to TF32."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = _tf32(q).reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, _tf32(k)) * (1.0 / math.sqrt(hd))
+    s = torch.where(attention_mask(Sq, Skv, window, q.device), s, -1e30)
+    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1))
+    dog = dout.float().reshape(B, Sq, Hkv, G, hd)
+    d = (dog * out.float().reshape(B, Sq, Hkv, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", _tf32(dog), _tf32(v))
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", _tf32(ds), _tf32(k)) * (1.0 / math.sqrt(hd))
+    dk = torch.einsum("bkgqs,bqkgh->bskh", _tf32(ds), qg) * (1.0 / math.sqrt(hd))
+    dv = torch.einsum("bkgqs,bqkgh->bskh", _tf32(p), _tf32(dog))
+    return dq.reshape(B, Sq, Hq, hd), dk, dv
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", [
+    (1, 64, 64, 4, 2, 8, -1), (1, 48, 96, 4, 2, 32, 20), (1, 128, 128, 4, 2, 128, -1),
+    (2, 96, 96, 8, 4, 64, 33)])
+def test_grads_fp32_bound_holds_plain_and_breaks_tf32(b, sq, skv, hq, hkv, hd, win):
+    """The plain backward in fp32 within half the fp32 bound of the float64
+    gradient; the same formulas with TF32-rounded products break it."""
+    q, k, v = _real_qkv(26, b, sq, skv, hq, hkv, hd)
+    g = _dout(27, q)
+    out, lse = flash_attention_lse_ref(q, k, v, window=win)
+    exact, tol, _ = fp32_bound.attention_grads_f64(q, k, v, g, window=win, rows=40)
+    got = flash_attention_bwd_ref(q, k, v, out, lse, g, window=win)
+    assert fp32_bound.grads_error_ratio(got, exact, tol) <= 0.5
+    tf = _bwd_tf32(q, k, v, out, lse, g, win)
+    assert fp32_bound.grads_error_ratio(tf, exact, tol) > 4.0
+
+
+def test_grads_oracle_row_chunks_agree():
+    q, k, v = _real_qkv(28, 2, 40, 56, 4, 2, 16)
+    g = _dout(29, q)
+    a = fp32_bound.attention_grads_f64(q, k, v, g, window=9, rows=7)
+    b = fp32_bound.attention_grads_f64(q, k, v, g, window=9, rows=64)
+    for x3, y3 in zip(a, b):
+        for x, y in zip(x3, y3):
+            torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-300)
+
+
+def _grad_variants(q, k, v, out, lse, g, win):
+    """Plain backward variants that must fail the bf16 check, each built
+    from ``flash_attention_bwd_ref``: the causal diagonal one key back (the
+    last key dropped, so key j stands where j + 1 did; its dk and dv rows
+    zero), (with a window) the window one longer, the GQA head map shifted
+    by one, dk and dv taken from each group's first query head alone."""
+    G = q.shape[2] // k.shape[2]
+    dq = flash_attention_bwd_ref(q, k, v, out, lse, g, window=win)[0]
+    sq, sk, sv = flash_attention_bwd_ref(q, k[:, :-1], v[:, :-1], out, lse, g, window=win)
+    hq, hk, hv = flash_attention_bwd_ref(q, k.roll(1, dims=2), v.roll(1, dims=2), out,
+                                         lse, g, window=win)
+    first = flash_attention_bwd_ref(q[:, :, ::G], k, v, out[:, :, ::G], lse[:, ::G],
+                                    g[:, :, ::G], window=win)
+    out_v = {
+        "diagonal_off_by_one": (sq, *(torch.cat([t, torch.zeros_like(t[:, :1])], 1)
+                                      for t in (sk, sv))),
+        "heads_shifted": (hq, hk.roll(-1, dims=2), hv.roll(-1, dims=2)),
+        "dk_not_summed_over_group": (dq, first[1], first[2]),
+    }
+    if win > 0:
+        out_v["window_plus_one"] = flash_attention_bwd_ref(q, k, v, out, lse, g,
+                                                           window=win + 1)
+    return out_v
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", [
+    (1, 64, 64, 4, 2, 8, -1), (1, 48, 96, 4, 2, 32, 20), (2, 96, 96, 8, 4, 64, 33),
+    (1, 80, 80, 8, 4, 128, -1)])
+def test_grads_bf16_tol_holds_plain_and_separates_faults(b, sq, skv, hq, hkv, hd, win):
+    """The plain backward on bf16 inputs, from the bf16 forward's out and
+    lse, within the bf16 tolerance of the float64 gradient; each broken
+    variant outside it."""
+    q, k, v = (t.bfloat16() for t in _real_qkv(30, b, sq, skv, hq, hkv, hd))
+    g = _dout(31, q).bfloat16()
+    out, lse = flash_attention_lse_ref(q, k, v, window=win)
+    exact, _, tol = fp32_bound.attention_grads_f64(q, k, v, g, window=win)
+    got = flash_attention_bwd_ref(q, k, v, out, lse, g, window=win)
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    assert fp32_bound.grads_error_ratio(got, exact, tol) <= 1.0
+    for name, bad in _grad_variants(q, k, v, out, lse, g, win).items():
+        assert fp32_bound.grads_error_ratio(bad, exact, tol) > 1.0, name
+
+
+def test_no_grad_keeps_the_plain_call():
+    """Without grad (or with grad off) the wrapper returns a plain result."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(32, 1, 8, 8, 2, 1, 8))
+    assert flash_attention(q, k, v).grad_fn is None
+    qr = q.clone().requires_grad_()
+    with torch.no_grad():
+        assert flash_attention(qr, k, v).grad_fn is None
+    assert flash_attention(q, k, v.clone().requires_grad_()).grad_fn is not None
+
+
+def _chunked_layer_grads(device, flash):
+    """Gradients of one chunked layer's weights through the transformer's
+    attention (``_attend_flash`` when ``flash``, else the chunked plain
+    path) at a smoke size."""
+    cfg = tfm.TransformerConfig(name="t", n_layers=1, d_model=32, n_heads=4,
+                                n_kv_heads=2, head_dim=8, d_ff=64, vocab_size=64,
+                                dtype="float32", attn_impl="chunked", attn_chunk=8)
+    gen = torch.Generator().manual_seed(0)
+    from repro_torch.models.module import init_params
+    params = init_params(cfg.param_specs(), gen, device="cpu")
+    params = {"embed": params["embed"], "final_norm": params["final_norm"],
+              "layers": {key: t.to(device).requires_grad_() for key, t in
+                         params["layers"].items()}}
+    params["embed"] = params["embed"].to(device)
+    params["final_norm"] = params["final_norm"].to(device)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 64, (2, 24)),
+                             device=device)
+    real = tfm.attend_chunked
+
+    def via_flash(q, k, v, *, q_pos, kv_pos, window, kv_valid_len=None, chunk=1024):
+        return tfm._attend_flash(q, k, v, window=window, kv_valid_len=kv_valid_len)
+
+    if flash:  # through the backward too: remat runs the layers again there
+        tfm.attend_chunked = via_flash
+    try:
+        logits, _ = tfm.forward(params, cfg, tokens, device=device)
+        logits.square().mean().backward()
+    finally:
+        tfm.attend_chunked = real
+    return {name: params["layers"][name].grad for name in ("wq", "wk", "wv", "wo")}
+
+
+def test_chunked_layer_projections_get_gradients():
+    """A chunked layer's wq, wk and wv receive gradients: through the plain
+    chunked path, and through ``_attend_flash`` (``FlashAttention`` on the
+    CPU), where they agree with it."""
+    plain = _chunked_layer_grads("cpu", flash=False)
+    flash = _chunked_layer_grads("cpu", flash=True)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert plain[name] is not None and flash[name] is not None, name
+        assert float(flash[name].abs().max()) > 0, name
+        torch.testing.assert_close(flash[name], plain[name], rtol=1e-4,
+                                   atol=1e-6 * float(plain[name].abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_layer_projections_get_gradients(cuda):
+    """On the card the chunked path is K6 with its kernel backward: the
+    projections get the gradients the CPU's plain path gives."""
+    from repro_torch.kernels import _build  # noqa: F401  (builds on first launch)
+
+    before = flash_attention_bwd.launches
+    got = _chunked_layer_grads(cuda, flash=False)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = _chunked_layer_grads("cpu", flash=False)
+    for name in ("wq", "wk", "wv", "wo"):
+        torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-3,
+                                   atol=1e-4 * float(want[name].abs().max()))
+
+
+BWD_CASES = [  # b, sq, skv, hq, hkv, hd, win
+    (2, 64, 64, 4, 2, 16, -1), (1, 32, 64, 6, 2, 8, 12), (2, 128, 128, 8, 8, 32, -1),
+    (1, 64, 64, 4, 1, 16, 7), (2, 200, 200, 8, 4, 128, -1), (1, 77, 333, 6, 2, 128, 1),
+    (1, 130, 300, 8, 4, 256, 100), (2, 150, 150, 4, 4, 64, -1), (1, 3, 90, 24, 8, 128, 1024),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", BWD_CASES)
+def test_cuda_backward_matches_plain(cuda, dtype, b, sq, skv, hq, hkv, hd, win):
+    """The kernel's forward lse and backward against the plain versions on
+    the same inputs: lse within 1e-5 x (1 + |lse|); fp32 gradients within
+    the fp32 bound of the float64 oracle, bf16 ones within its bf16
+    tolerance; two runs bit-identical."""
+    q, k, v = (t.to(cuda, dtype) for t in _real_qkv(40, b, sq, skv, hq, hkv, hd))
+    g = _dout(41, q).to(cuda, dtype)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(qr, kr, vr, window=win)
+    out.backward(g, retain_graph=True)
+    _, lse = flash_attention_lse_ref(q, k, v, window=win)
+    exact, tol32, tol16 = fp32_bound.attention_grads_f64(q, k, v, g, window=win)
+    got = (qr.grad, kr.grad, vr.grad)
+    torch.cuda.synchronize()
+    assert all(t.dtype == dtype for t in got)
+    assert fp32_bound.grads_error_ratio(got, exact, tol32 if dtype == torch.float32
+                                        else tol16) <= 1.0
+    # lse of the kernel's forward
+    saved = out.grad_fn.saved_tensors
+    assert float(((saved[4].double() - lse.double()).abs() / (1 + lse.double().abs()))
+                 .max()) <= 1e-5
+    again = flash_attention_bwd(q, k, v, saved[3], saved[4], g, window=win)
+    again2 = flash_attention_bwd(q, k, v, saved[3], saved[4], g, window=win)
+    torch.cuda.synchronize()
+    for a, b_, c in zip(got, again, again2):
+        assert torch.equal(a, b_) and torch.equal(b_, c)

@@ -16,12 +16,14 @@ from repro_torch.configs.lm import GEMMA3_4B_SMOKE, MOONSHOT_V1_16B_SMOKE
 from repro_torch.device import resolve
 from repro_torch.launch import index as index_cli
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import init_params
 from repro_torch.serving import SearchSession
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-EXAMPLES = ("torch_quickstart", "torch_index_and_search", "torch_copydays_eval")
+EXAMPLES = ("torch_quickstart", "torch_index_and_search", "torch_copydays_eval",
+            "torch_train_lm")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -48,6 +50,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.configs.sift100m\n"
         "import repro_torch.distributed.meshutil, repro_torch.distributed.collectives\n"
         "import repro_torch.core.dispatch\n"
+        "import repro_torch.train, repro_torch.train.optimizer\n"
+        "import repro_torch.train.grad_compress, repro_torch.train.step\n"
+        "import repro_torch.train.tree, repro_torch.launch.train\n"
         "import importlib.util, pathlib\n"
         "for name in EXAMPLES:\n"
         "    path = pathlib.Path(EXAMPLE_DIR) / (name + '.py')\n"
@@ -90,7 +95,8 @@ def _no_cuda():
                                    "Index.create", "Index.open",
                                    "SearchSession.load_or_build",
                                    "launch.serve", "launch.index",
-                                   "local_mesh", "forward (MoE)"])
+                                   "local_mesh", "forward (MoE)", "launch.train",
+                                   "loss_fn", "train_state_from_numpy"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -117,6 +123,15 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
         "launch.index": lambda: index_cli.main(["--rows", "64", "--dim", "4",
                                                 "--block-rows", "32"]),
         "local_mesh": lambda: repro_torch.local_mesh(),
+        "launch.train": lambda: train_cli.main(["--steps", "2",
+                                                "--ckpt-dir", str(tmp_path)]),
+        "loss_fn": lambda: tfm.loss_fn(
+            cpu_params, cfg, {"tokens": x[:1, :4].astype(np.int32),
+                              "labels": x[:1, :4].astype(np.int32)}),
+        "train_state_from_numpy": lambda: interop.train_state_from_numpy(
+            *interop.train_state_to_numpy(cpu_params, {
+                "m": cpu_params, "v": cpu_params,
+                "step": torch.zeros((), dtype=torch.int32)}), cfg),
         "forward (MoE)": lambda: tfm.forward(
             init_params(MOONSHOT_V1_16B_SMOKE.param_specs(),
                         torch.Generator().manual_seed(0), device="cpu"),
