@@ -250,25 +250,32 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      full width and depth (24 layers, 1,699,579,904 parameters, fp32 master
      weights drawn on the card from ``--seed``), bf16 compute,
      ``remat="dots"``, ``attn_impl="chunked"`` (K6's forward and its kernel
-     backward, ``csrc/flashattn_bwd.cu``, in every layer), the ``train_4k``
+     backward in every layer: bf16 at hd 128 takes the tensor-core
+     ``csrc/flashattn_bwd_tc.cu``), the ``train_4k``
      step (AdamW, weight decay 0.1, no compression) at seq 4096 with the
      batch cut from 256 to 4 in 2 microbatches, tokens from ``lm_batch``.
      Steps 0-6: step 0 reads, through autograd hooks, every leaf's gradient
      and layer 0's K6 output gradient and (dq, dk, dv), step 1 is traced
      (device time by kernel), steps 2-4 are timed (ms a step, tokens/s,
      peak memory) and counted (K6 backward launches = 24 layers x 2
-     microbatches a step), steps 5-6 are (d)'s. Checks: (a) step 0's loss
+     microbatches a step, every one on the tensor-core kernel), steps 5-6
+     are (d)'s. Checks: (a) step 0's loss
      and gradients at 4 layers of the same draw, chunked against full
      attention, within the bf16 model's own error against fp32 (the loss
-     within it, each leaf's L2 error within twice it); (b) the K6 backward
+     within it, each leaf's L2 error within twice it), and the same
+     model in fp32 with chunked attention (K6's CUDA-core forward and
+     backward, counted: the CUDA-core backward row's launches) within a
+     hundredth of that error against fp32 full attention; (b) the K6 backward
      against ``flash_attention_bwd_ref`` on layer 0's inputs (q, k, v, out
      and lse from a one-layer forward of the same weights; the kernel on
      them must give the step's own dq, dk, dv bit for bit) and at
      gemma3-4b's local-layer shape (hd 256, window 1024, seeded): both
+     variants (tensor-core and CUDA-core, forced) and the plain backward
      within ``fp32_bound.attention_grads_f64``'s bf16 tolerance, broken
      plain variants (diagonal, window, GQA map off by one; dk not summed
      over the group) outside it, fp32 copies within the fp32 bound, which
-     TF32 must break, two runs bit-identical; (c) the grad norm and four
+     TF32 must break, two runs of each kernel bit-identical; (c) the grad
+     norm and four
      sampled leaves' params, m and v after step 0 against a float64 AdamW
      of the same gradients; (d) the state after step 4 saved through
      ``CheckpointManager`` in the reference's leaf names under the
@@ -279,9 +286,10 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      repro_torch.launch.train --arch internlm2-1.8b --steps 30
      --microbatches 2 --compress bf16`` and ``examples/torch_train_lm.py``
      as subprocesses on the card while (d) restores, each exiting 0 with
-     ``OK``. The kernels line gains the ``flashattn_bwd`` row (timed at the
-     step's layer shape beside its plain version and
-     ``scaled_dot_product_attention``'s backward);
+     ``OK``. The kernels line gains a row for each backward variant,
+     ``flashattn_bwd`` (tensor-core) and ``flashattn_bwd_cuda_core``, both
+     timed at the step's layer shape beside the plain version and
+     ``scaled_dot_product_attention``'s backward;
  11. the port's examples as subprocesses on the card:
      ``examples/torch_quickstart.py`` and ``examples/torch_copydays_eval.py``
      (crop10 recall@1 at least 0.9).
@@ -4224,21 +4232,29 @@ def loss_and_grads(rt, params, cfg, batch, dev):
 
 def train_check_a(rt, params, cfg, batch, dev):
     """(a) step 0's loss and gradients at ``TR_CHECK_LAYERS`` layers of the
-    same draw, on one microbatch: chunked (K6 and its kernel backward)
-    against full attention (plain ``attend``, autograd), within the bf16
-    model's own error, the full-attention run against the same weights in
-    fp32: the loss within it, each gradient leaf's relative error (L2)
-    within twice it (each run of the pair carries that error)."""
+    same draw, on one microbatch: chunked (K6 and its tensor-core kernel
+    backward) against full attention (plain ``attend``, autograd), within
+    the bf16 model's own error, the full-attention run against the same
+    weights in fp32: the loss within it, each gradient leaf's relative error
+    (L2) within twice it (each run of the pair carries that error). The
+    same model in fp32 with chunked attention (K6's CUDA-core forward and
+    backward, the rule's for fp32) against the fp32 full-attention run:
+    within a hundredth of the bf16 model's error, loss and every leaf. The
+    K6 backward launches of each run are counted from 0 by variant."""
     c4 = dataclasses.replace(cfg, n_layers=TR_CHECK_LAYERS)
     p4 = layer_prefix(params, TR_CHECK_LAYERS)
     mb = {key: x[:TR_BATCH // TR_MICRO] for key, x in batch.items()}
     runs, bwd_launches = {}, {}
     for name, c in (("chunked", c4), ("full", dataclasses.replace(c4, attn_impl="full")),
-                    ("fp32", dataclasses.replace(c4, dtype="float32", attn_impl="full"))):
-        before = rt.flash_attention_bwd.launches
+                    ("fp32", dataclasses.replace(c4, dtype="float32", attn_impl="full")),
+                    ("chunked_fp32", dataclasses.replace(c4, dtype="float32"))):
+        rt.reset_counts()
         runs[name] = loss_and_grads(rt, p4, c, mb, dev)
-        bwd_launches[name] = rt.flash_attention_bwd.launches - before
+        counts = rt.counts()
+        bwd_launches[name] = {kern: counts[f"flashattn_bwd.{kern}"]
+                              for kern in ("tensor_core", "cuda_core")}
     (lc, gc_), (lf, gf), (l32, g32) = runs["chunked"], runs["full"], runs["fp32"]
+    lc32, gc32 = runs["chunked_fp32"]
 
     def rel(a, b, ref):
         return float((a.float() - b.float()).norm() / ref.float().norm())
@@ -4247,21 +4263,34 @@ def train_check_a(rt, params, cfg, batch, dev):
     for name in g32:
         yard = rel(gf[name], g32[name], g32[name])
         leaves[name] = dict(chunked_vs_full=rel(gc_[name], gf[name], g32[name]),
-                            bf16_vs_fp32=yard)
+                            bf16_vs_fp32=yard,
+                            fp32_chunked_vs_full=rel(gc32[name], g32[name], g32[name]))
     out = dict(layers=TR_CHECK_LAYERS, tokens=mb["tokens"].size,
-               loss=dict(chunked=lc, full=lf, fp32=l32, chunked_vs_full=abs(lc - lf),
-                         bf16_vs_fp32=abs(lf - l32)),
+               loss=dict(chunked=lc, full=lf, fp32=l32, chunked_fp32=lc32,
+                         chunked_vs_full=abs(lc - lf), bf16_vs_fp32=abs(lf - l32),
+                         fp32_chunked_vs_full=abs(lc32 - l32)),
                grads=leaves, k6_backward_launches=bwd_launches)
     log(f"train (a): {json.dumps(out)}")
-    if bwd_launches["chunked"] != TR_CHECK_LAYERS or bwd_launches["full"] != 0:
-        raise AssertionError(f"train (a): K6 backward launches {bwd_launches}")
+    n = TR_CHECK_LAYERS
+    want = {"chunked": {"tensor_core": n, "cuda_core": 0},
+            "chunked_fp32": {"tensor_core": 0, "cuda_core": n},
+            "full": {"tensor_core": 0, "cuda_core": 0},
+            "fp32": {"tensor_core": 0, "cuda_core": 0}}
+    if bwd_launches != want:
+        raise AssertionError(f"train (a): K6 backward launches {bwd_launches}, not {want}")
     if not abs(lc - lf) <= abs(lf - l32):
         raise AssertionError(f"train (a): chunked vs full loss {abs(lc - lf)}, more than "
                              f"the bf16 model's own error {abs(lf - l32)}")
+    if not abs(lc32 - l32) <= abs(lf - l32) / 100:
+        raise AssertionError(f"train (a): fp32 chunked vs full loss {abs(lc32 - l32)}, "
+                             f"more than a hundredth of the bf16 error {abs(lf - l32)}")
     for name, r in leaves.items():
         if not r["chunked_vs_full"] <= 2 * r["bf16_vs_fp32"]:
             raise AssertionError(f"train (a): {name} chunked vs full {r} is more than "
                                  "twice the bf16 model's own error")
+        if not r["fp32_chunked_vs_full"] <= r["bf16_vs_fp32"] / 100:
+            raise AssertionError(f"train (a): {name} fp32 chunked vs full {r} is more "
+                                 "than a hundredth of the bf16 model's own error")
     return out
 
 
@@ -4292,46 +4321,63 @@ def bwd_variants(rt, q, k, v, out, lse, dout, window):
 
 
 def bwd_kernel_check(rt, name, q, k, v, out, lse, dout, window, g, step_grads=None):
-    """(b) on one layer's inputs: the kernel backward and the plain one
-    within the bf16 tolerance of the float64 gradient, the broken plain
-    variants outside it, two kernel runs bit-identical, and equal bit for
-    bit to ``step_grads`` (the gradients the step's own backward gave for
-    these inputs) when given; fp32 copies moved off the bf16 grid (batch
-    row 0, the CUDA-core forward's out and lse) within the fp32 bound,
-    which the plain backward in TF32 must break."""
+    """(b) on one layer's bf16 inputs: each backward variant (the rule's
+    tensor-core kernel and the CUDA-core one, forced) and the plain
+    backward within the bf16 tolerance of the float64 gradient, the broken
+    plain variants outside it, two runs of each kernel bit-identical, and
+    the rule's kernel equal bit for bit to ``step_grads`` (the gradients the
+    step's own backward gave for these inputs) when given; fp32 copies moved
+    off the bf16 grid (batch row 0, the CUDA-core forward's out and lse)
+    within the fp32 bound, which the plain backward in TF32 must break, and
+    their largest difference from the plain fp32 backward."""
     bwd, ref = rt.flash_attention_bwd, rt.flash_attention_bwd_ref
-    got = bwd(q, k, v, out, lse, dout, window=window)
-    again = bwd(q, k, v, out, lse, dout, window=window)
-    step_equal = (None if step_grads is None
-                  else all(torch.equal(a, b) for a, b in zip(got, step_grads)))
+    rule = rt.fa_variant(q.dtype, q.shape[-1])
     plain = ref(q, k, v, out, lse, dout, window=window)
     exact, _, tol16 = rt.attention_grads_f64(q, k, v, dout, window=window)
-    row = dict(window=window, shape=list(q.shape) + [k.shape[2]],
-               bf16_tol_ratio=rt.grads_error_ratio(got, exact, tol16),
+    row = dict(window=window, shape=list(q.shape) + [k.shape[2]], rule=rule,
                plain_bf16_tol_ratio=rt.grads_error_ratio(plain, exact, tol16),
-               bit_identical=all(torch.equal(a, b) for a, b in zip(got, again)),
-               equal_to_the_step=step_equal,
-               max_abs_err=max(float((a.float() - b.float()).abs().max())
-                               for a, b in zip(got, plain)))
+               variants={})
+    for kern in ("tensor_core", "cuda_core"):
+        got = bwd(q, k, v, out, lse, dout, window=window, kernel=kern)
+        again = bwd(q, k, v, out, lse, dout, window=window, kernel=kern)
+        row["variants"][kern] = dict(
+            bf16_tol_ratio=rt.grads_error_ratio(got, exact, tol16),
+            bit_identical=all(torch.equal(a, b) for a, b in zip(got, again)),
+            max_abs_err=max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(got, plain)))
+        if kern == rule:
+            row["equal_to_the_step"] = (
+                None if step_grads is None
+                else all(torch.equal(a, b) for a, b in zip(got, step_grads)))
+        del got, again
+    mine = row["variants"][rule]
+    row.update(bf16_tol_ratio=mine["bf16_tol_ratio"], max_abs_err=mine["max_abs_err"],
+               bit_identical=all(r["bit_identical"] for r in row["variants"].values()))
+    step_equal = row["equal_to_the_step"]
     row["broken_variant_ratios"] = {
         key: rt.grads_error_ratio(bad, exact, tol16)
         for key, bad in bwd_variants(rt, q, k, v, out, lse, dout, window).items()}
-    del got, again, plain, exact, tol16
+    del plain, exact, tol16
     q32, k32, v32, d32 = (t[:1].float().mul_(1 + (torch.rand(
         t[:1].shape, generator=g, device=t.device) - 0.5) * 2**-8) for t in (q, k, v, dout))
     o32, lse32 = rt.fa_forward(q32, k32, v32, window, None)
     exact, tol32, _ = rt.attention_grads_f64(q32, k32, v32, d32, window=window)
-    row["fp32_bound_ratio"] = rt.grads_error_ratio(
-        bwd(q32, k32, v32, o32, lse32, d32, window=window), exact, tol32)
+    got32 = bwd(q32, k32, v32, o32, lse32, d32, window=window)  # the rule's: CUDA-core
+    row["fp32_bound_ratio"] = rt.grads_error_ratio(got32, exact, tol32)
+    row["fp32_max_abs_err"] = max(
+        float((a - b).abs().max())
+        for a, b in zip(got32, ref(q32, k32, v32, o32, lse32, d32, window=window)))
+    del got32
     with tf32_matmuls():
         row["tf32_bound_ratio"] = rt.grads_error_ratio(
             ref(q32, k32, v32, o32, lse32, d32, window=window), exact, tol32)
     del exact, tol32
     log(f"train (b) {name}: {json.dumps(row)}")
-    if not (row["bf16_tol_ratio"] <= 1.0 and row["plain_bf16_tol_ratio"] <= 1.0):
+    if not (all(r["bf16_tol_ratio"] <= 1.0 for r in row["variants"].values())
+            and row["plain_bf16_tol_ratio"] <= 1.0):
         raise AssertionError(f"train (b) {name}: outside the bf16 tolerance: {row}")
     if not row["bit_identical"]:
-        raise AssertionError(f"train (b) {name}: two runs of the backward differ")
+        raise AssertionError(f"train (b) {name}: two runs of a backward kernel differ")
     if step_equal is False:
         raise AssertionError(f"train (b) {name}: the kernel on the captured inputs "
                              "differs from the step's own gradients")
@@ -4341,6 +4387,41 @@ def bwd_kernel_check(rt, name, q, k, v, out, lse, dout, window, g, step_grads=No
                                  f"({r} x)")
     real_check(f"train (b) {name}", row["fp32_bound_ratio"], row["tf32_bound_ratio"])
     return row
+
+
+def bwd_times(rt, q, k, v, out, lse, dout, window,
+              kernels=("tensor_core", "cuda_core")) -> dict:
+    """K6's backward on these inputs, back to back: each of ``kernels``
+    forced with ``kernel=`` (``time_ms``: device ms and wall ms a call), the
+    plain version, sdpa's backward on the same q, k, v and output gradient
+    (heads first, causal, with the window as an explicit mask when there is
+    one; never called by the port), and the bound: five products at 2 hd
+    flops a visible (query, key) pair at the peak of the inputs' dtype,
+    against q, k, v, out, dout and the three gradients read or written once
+    and lse once."""
+    bwd, ref = rt.flash_attention_bwd, rt.flash_attention_bwd_ref
+    reps = [(q, k, v, out, lse, dout)] * 20
+    out_ = {}
+    for kern in kernels:
+        n = 20 if kern == "tensor_core" else 5
+        out_[f"{kern}_ms"], out_[f"{kern}_wall_ms"] = time_ms(
+            lambda *a, kern=kern: bwd(*a, window=window, kernel=kern), reps[:n])
+    plain = time_ms(lambda *a: ref(*a, window=window), reps[:3])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Sq, Hq, hd = q.shape
+    mask = (dict(attn_mask=rt.attention_mask(Sq, k.shape[1], window, q.device))
+            if window > 0 else dict(is_causal=True))
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    oh = sdpa(qh, kh, vh, enable_gqa=True, **mask)
+    dh = dout.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), dh, retain_graph=True),
+                  [()] * 20)
+    del qh, kh, vh, oh, dh, mask
+    fl = 10.0 * hd * B * Hq * lm_pairs(Sq, k.shape[1], window)
+    byt = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+    bnd = bound(byt, fl, BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS)
+    return dict(out_, plain_ms=plain[0], library_ms=lib[0], bound_ms=bnd[0],
+                bound_by=bnd[1], flops=fl, bytes=byt, dtype=str(q.dtype).split(".")[-1])
 
 
 def train_check_c(rt, cap, params, state, opt):
@@ -4469,8 +4550,9 @@ def train_phase(rt, args, dev, kernels, t_start):
     ``train_4k`` step (AdamW, weight decay 0.1, no compression) at seq 4096,
     the batch cut from 256 to 4 in 2 microbatches, ``remat="dots"``, K6's
     forward and kernel backward in every layer. Checks (a)-(e); times the
-    steps, the K6 backward at the step's layer shape; adds the
-    ``flashattn_bwd`` row to the kernels line."""
+    steps, both K6 backward variants at the step's layer shape; adds the
+    ``flashattn_bwd`` and ``flashattn_bwd_cuda_core`` rows to the kernels
+    line."""
     t_phase = time.perf_counter()
     cfg = train_cfg(rt)
     opt = rt.AdamWConfig(weight_decay=0.1)
@@ -4583,6 +4665,10 @@ def train_phase(rt, args, dev, kernels, t_start):
     if launches["flashattn_bwd"] != per_step * steps_run:
         raise AssertionError(f"train: K6 backward launched {launches['flashattn_bwd']} "
                              f"times in {steps_run} steps, not {per_step} a step")
+    if (launches["flashattn_bwd.tensor_core"] != launches["flashattn_bwd"]
+            or launches["flashattn_bwd.cuda_core"]):  # bf16 at hd 128: the rule's
+        raise AssertionError("train: the timed steps' K6 backward did not run on the "
+                             f"tensor-core kernel alone: {launches}")
     if launches["flashattn"] != 2 * per_step * steps_run:  # remat runs it again
         raise AssertionError(f"train: K6 forward launched {launches['flashattn']} times")
     if not all(math.isfinite(x) for x in losses.values()):
@@ -4621,44 +4707,71 @@ def train_phase(rt, args, dev, kernels, t_start):
                                               llse, ld, gl["window"], g)
     del x, lq, lk, lv, ld, lo, llse
 
-    # K6 backward timed at the step's layer shape, beside the plain version
-    # and sdpa's backward on the same inputs (never called by the port)
-    bwd, ref = rt.flash_attention_bwd, rt.flash_attention_bwd_ref
-    reps = [(q, k, v, o, lse, dout)] * 10
-    kern = time_ms(lambda *a: bwd(*a, window=window), reps)
-    plain = time_ms(lambda *a: ref(*a, window=window), reps[:3])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    oh = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
-    dh = dout.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), dh, retain_graph=True),
-                  [()] * 10)
-    del qh, kh, vh, oh, dh
+    # K6 backward timed at the step's layer shape: both variants forced on
+    # the step's bf16 inputs (an A/B: the rule sends these to the tensor-core
+    # kernel alone), the plain version and sdpa's backward on the same inputs
+    # (never called by the port); then the CUDA-core kernel on fp32 copies of
+    # them, the inputs its own path gives it ((a)'s fp32 run, same shape)
+    t = bwd_times(rt, q, k, v, o, lse, dout, window)
+    q32, k32, v32, d32 = (x.float() for x in (q, k, v, dout))
+    o32, lse32 = rt.fa_forward(q32, k32, v32, window, None)
+    t32 = bwd_times(rt, q32, k32, v32, o32, lse32, d32, window, kernels=("cuda_core",))
+    del q32, k32, v32, d32, o32, lse32
     B, Sq, Hq, hd = q.shape
-    pairs = lm_pairs(Sq, k.shape[1], window)
-    fl = 10.0 * hd * B * Hq * pairs  # five products, 2 hd flops a pair each
-    byt = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
-    bnd = bound(byt, fl, BF16_FLOPS)
-    row = dict(name="flashattn_bwd", route="cuda", source="src/repro_torch/csrc/flashattn_bwd.cu",
-               replaces="src/repro/kernels/flashattn/kernel.py:80",
-               replaces_note="K6's gradient: the TPU kernel has no VJP (the reference "
-                             "differentiates its XLA attention); no TPU counterpart",
-               launches=launches["flashattn_bwd"],
-               max_abs_err=max(r["max_abs_err"] for r in check_b.values()),
-               ms=kern[0], plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
-               library_ms=lib[0], library="scaled_dot_product_attention backward",
-               wall_ms=kern[1], shape=[B, Sq, Hq, k.shape[2], hd], flops=fl, bytes=byt,
-               tflops=fl / kern[0] / 1e9, fp32_peak_share=fl / kern[0] / 1e9 / 67.0,
-               bf16_tol_ratio=max(r["bf16_tol_ratio"] for r in check_b.values()),
-               fp32_bound_ratio=max(r["fp32_bound_ratio"] for r in check_b.values()),
-               tf32_bound_ratio=min(r["tf32_bound_ratio"] for r in check_b.values()),
-               step_share=kern[0] * per_step / ms)
-    log(f"flashattn_bwd: {kern[0]} ms back to back at the step's layer shape "
-        f"{row['shape']} ({kern[1]} ms wall, {row['tflops']:.2f} TFLOP/s, "
-        f"{row['fp32_peak_share']:.3f} of the fp32 peak); plain {plain[0]} ms; sdpa "
-        f"backward {lib[0]} ms; bound {bnd[0]} ms by {bnd[1]} ({fl / 1e9:.2f} GFLOP); "
-        f"{per_step} a step: {row['step_share']:.3f} of the step")
-    kernels.append(row)
+    common = dict(route="cuda", replaces="src/repro/kernels/flashattn/kernel.py:80",
+                  replaces_note="K6's gradient: the TPU kernel has no VJP (the reference "
+                                "differentiates its XLA attention); no TPU counterpart",
+                  library="scaled_dot_product_attention backward",
+                  shape=[B, Sq, Hq, k.shape[2], hd])
+
+    def timed(tt, kern):
+        return dict(ms=tt[f"{kern}_ms"], wall_ms=tt[f"{kern}_wall_ms"],
+                    plain_ms=tt["plain_ms"], library_ms=tt["library_ms"],
+                    bound_ms=tt["bound_ms"], bound_by=tt["bound_by"], dtype=tt["dtype"],
+                    flops=tt["flops"], bytes=tt["bytes"],
+                    tflops=tt["flops"] / tt[f"{kern}_ms"] / 1e9)
+
+    def worst(kern, key):
+        return max(r["variants"][kern][key] for r in check_b.values())
+
+    row = dict(name="flashattn_bwd", source="src/repro_torch/csrc/flashattn_bwd_tc.cu",
+               variant="tensor_core", launches=launches["flashattn_bwd.tensor_core"],
+               max_abs_err=worst("tensor_core", "max_abs_err"),
+               bf16_tol_ratio=worst("tensor_core", "bf16_tol_ratio"),
+               **timed(t, "tensor_core"), **common)
+    row.update(bf16_peak_share=row["tflops"] / (BF16_FLOPS / 1e12),
+               step_share=row["ms"] * per_step / out_timed["ms_a_step"])
+    ab = timed(t, "cuda_core")
+    cc = dict(name="flashattn_bwd_cuda_core", source="src/repro_torch/csrc/flashattn_bwd.cu",
+              variant="cuda_core",
+              launches=check_a["k6_backward_launches"]["chunked_fp32"]["cuda_core"],
+              launches_path="train (a): loss_fn in fp32 with chunked attention at "
+                            f"{TR_CHECK_LAYERS} layers (the rule's variant for fp32); the "
+                            "timed bf16 steps launch it 0 times",
+              max_abs_err=max(r["fp32_max_abs_err"] for r in check_b.values()),
+              fp32_bound_ratio=max(r["fp32_bound_ratio"] for r in check_b.values()),
+              tf32_bound_ratio=min(r["tf32_bound_ratio"] for r in check_b.values()),
+              **timed(t32, "cuda_core"), **common)
+    cc.update(fp32_peak_share=cc["tflops"] / (FP32_FLOPS / 1e12),
+              forced_bf16_ab=dict(
+                  note="forced with kernel='cuda_core' on the tensor-core row's bf16 "
+                       "inputs, which no path sends it: an A/B figure, apart from "
+                       "this row's launches and time",
+                  ms=ab["ms"], wall_ms=ab["wall_ms"], tflops=ab["tflops"],
+                  bf16_tol_ratio=worst("cuda_core", "bf16_tol_ratio"),
+                  max_abs_err=worst("cuda_core", "max_abs_err")))
+    log(f"flashattn_bwd: tensor-core {row['ms']} ms back to back at the step's "
+        f"layer shape {row['shape']} ({row['wall_ms']} ms wall, "
+        f"{row['tflops']:.2f} TFLOP/s, {row['bf16_peak_share']:.4f} of the bf16 peak); "
+        f"CUDA-core forced on the same bf16 inputs {ab['ms']} ms "
+        f"({ab['tflops']:.2f} TFLOP/s); plain {t['plain_ms']} ms; sdpa backward "
+        f"{t['library_ms']} ms; bound {t['bound_ms']} ms by {t['bound_by']} "
+        f"({t['flops'] / 1e9:.2f} GFLOP); {per_step} a step: "
+        f"{row['step_share']:.3f} of the step. In fp32: CUDA-core {cc['ms']} ms "
+        f"({cc['tflops']:.2f} TFLOP/s, {cc['fp32_peak_share']:.4f} of the fp32 peak); "
+        f"plain {t32['plain_ms']} ms; sdpa backward {t32['library_ms']} ms; bound "
+        f"{t32['bound_ms']} ms by {t32['bound_by']}")
+    kernels.extend((row, cc))
     fa = next((r for r in kernels if r["name"] == "flashattn"), None)
     if fa is not None:
         fa["train_launches"] = launches["flashattn"]
@@ -4669,7 +4782,7 @@ def train_phase(rt, args, dev, kernels, t_start):
     wall = time.perf_counter() - t_phase
     log(f"train: phase {wall:.1f} s against a budget of {TR_BUDGET_S} s")
     return dict(timed=out_timed, a=check_a, b=check_b, c=check_c, d=check_d, e=check_e,
-                wall_s=wall)
+                bwd=t, bwd_fp32=t32, wall_s=wall)
 
 
 def examples_phase(dev):
@@ -4757,6 +4870,7 @@ class Port:
             variant,
         )
         from repro_torch.kernels.flashattn.ref import (
+            attention_mask,
             flash_attention_bwd_ref,
             flash_attention_ref,
         )
@@ -4821,6 +4935,7 @@ class Port:
         self.fa_forward = fa_forward
         self.flash_attention_bwd = flash_attention_bwd
         self.flash_attention_bwd_ref = flash_attention_bwd_ref
+        self.attention_mask = attention_mask
         self.attention_grads_f64 = fp32_bound.attention_grads_f64
         self.grads_error_ratio = fp32_bound.grads_error_ratio
         self.CheckpointManager, self.tree, self.train_cli = CheckpointManager, tree, train_cli
@@ -4836,9 +4951,9 @@ class Port:
             fn.launches = 0
             fn.by_device.clear()
             fn.wide_launches = 0
-        fa = self.flash_attention.variant_launches
-        for name in fa:
-            fa[name] = 0
+        for fn in (self.flash_attention, self.flash_attention_bwd):
+            for name in fn.variant_launches:
+                fn.variant_launches[name] = 0
 
     def counts(self):
         """Launches by wrapper; ``<name>.wide``: those of them that went
@@ -4848,6 +4963,8 @@ class Port:
             out[f"{name}.wide"] = getattr(self.wrappers[name], "wide_launches", 0)
         for name, n in self.flash_attention.variant_launches.items():
             out[f"flashattn.{name}"] = n
+        for name, n in self.flash_attention_bwd.variant_launches.items():
+            out[f"flashattn_bwd.{name}"] = n
         return out
 
 

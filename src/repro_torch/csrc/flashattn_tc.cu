@@ -47,7 +47,8 @@
 // diagonal guarantees, as in the TPU kernel; keys past Skv and rows past
 // Sq * G load as 0. q, k and v are read through their (B, S, H) strides:
 // every row must be 16-byte aligned (the wrapper checks). expf and IEEE
-// division (no fast math).
+// division (no fast math). The cp.async, ldmatrix, mma and split helpers
+// live in tc_frag.cuh, shared with the backward (flashattn_bwd_tc.cu).
 //
 // Device: launches on the current device, which the wrapper makes the
 // tensors' own; it sets its shared-memory size on every launch.
@@ -56,7 +57,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_frag.cuh"
+
 namespace {
+
+using namespace tc;
 
 constexpr int R = 64;        // query rows per block
 constexpr int TK = 64;       // keys per tile
@@ -74,65 +79,6 @@ struct Args {
   float scale;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zeros where !valid (no read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi); x in the
-// low half, the lower column of an mma fragment.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NT) flashattn_tc_kernel(Args a) {
@@ -270,10 +216,7 @@ __global__ void __launch_bounds__(NT) flashattn_tc_kernel(Args a) {
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      split_a(s[2 * kk], s[2 * kk + 1], ph, pl);
 #pragma unroll
       for (int d2 = 0; d2 < ND / 2; ++d2) {
         uint32_t vf[4];

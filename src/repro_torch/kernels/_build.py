@@ -50,6 +50,7 @@ SIGNATURES = {
     "flashattn_launch": [_VP] * 5 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
     "flashattn_tc_launch": [_VP] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
     "flashattn_bwd_launch": [_VP] * 10 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
+    "flashattn_bwd_tc_launch": [_VP] * 10 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
 }
 
 _lock = threading.Lock()

@@ -24,8 +24,17 @@ launch K6).
 :class:`FlashAttention` is the ``torch.autograd.Function``:
 :func:`flash_attention` routes through it whenever grad is enabled and an
 input requires grad, so a result that needs a gradient always has one. Its
-backward, :func:`flash_attention_bwd`, is ``csrc/flashattn_bwd.cu`` on a
-CUDA tensor and ``ref.flash_attention_bwd_ref`` on a CPU tensor. The JAX
+backward, :func:`flash_attention_bwd`, is a kernel on a CUDA tensor and
+``ref.flash_attention_bwd_ref`` on a CPU tensor. Its kernel has the
+forward's two variants, by the same rule and with the same checks:
+
+* ``"tensor_core"`` (``csrc/flashattn_bwd_tc.cu``): bf16 at hd 64, 128 and
+  256. ``mma.sync`` on bf16 with fp32 accumulators, P and dS entering
+  their products as two bf16 terms;
+* ``"cuda_core"`` (``csrc/flashattn_bwd.cu``): fp32 at every head
+  dimension and bf16 below hd 64, fp32 FMAs.
+
+``FlashAttention`` hands the forward's ``kernel`` to its backward. The JAX
 package has no VJP of its Pallas kernel (its training differentiates the
 XLA attention), so the backward replaces no TPU kernel.
 """
@@ -44,13 +53,14 @@ from repro_torch.kernels.flashattn.ref import (
 )
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flashattn{,_bwd}.cu instantiations
-TC_HEAD_DIMS = (64, 128, 256)  # csrc/flashattn_tc.cu instantiations
+TC_HEAD_DIMS = (64, 128, 256)  # csrc/flashattn{,_bwd}_tc.cu instantiations
 VARIANTS = ("tensor_core", "cuda_core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def variant(dtype: torch.dtype, hd: int) -> str:
-    """The kernel that serves ``(dtype, hd)`` on the card."""
+    """The kernel that serves ``(dtype, hd)`` on the card, forward and
+    backward alike."""
     return "tensor_core" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cuda_core"
 
 
@@ -77,6 +87,26 @@ def _strides(q, k, v) -> tuple:
     return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
 
 
+def _kernel(name, kernel: str | None, q, k, v, *dense) -> str:
+    """The variant that runs ``name`` on ``q``, ``k``, ``v`` (and the dense
+    tensors ``dense`` it also reads): ``kernel``, or the rule of
+    :func:`variant`. Raises on a variant that does not take them."""
+    hd = q.shape[3]
+    kernel = kernel or variant(q.dtype, hd)
+    if kernel not in VARIANTS:
+        raise ValueError(f"{name}: no kernel {kernel!r}")
+    if kernel == "tensor_core":
+        if q.dtype != torch.bfloat16 or hd not in TC_HEAD_DIMS:
+            raise ValueError(f"{name}: the tensor-core kernel takes bf16 "
+                             f"at hd {TC_HEAD_DIMS}, not {q.dtype} at hd {hd}")
+        if (any(s % 8 for s in _strides(q, k, v))
+                or any(t.data_ptr() % 16 for t in (q, k, v, *dense))):
+            raise ValueError(f"{name}: the tensor-core kernel reads 16-byte "
+                             "rows: strides must be multiples of 8 elements and "
+                             "data 16-byte aligned")
+    return kernel
+
+
 def _forward(q, k, v, window: int, kernel: str | None):
     """One launch of the forward kernel on CUDA tensors: ``(out, lse)``."""
     if q.device.type != "cuda":
@@ -84,20 +114,11 @@ def _forward(q, k, v, window: int, kernel: str | None):
     _check("flash_attention", q, k, v)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    kernel = kernel or variant(q.dtype, hd)
-    if kernel not in VARIANTS:
-        raise ValueError(f"flash_attention: no kernel {kernel!r}")
+    kernel = _kernel("flash_attention", kernel, q, k, v)
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v)
     if kernel == "tensor_core":
-        if q.dtype != torch.bfloat16 or hd not in TC_HEAD_DIMS:
-            raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 "
-                             f"at hd {TC_HEAD_DIMS}, not {q.dtype} at hd {hd}")
-        if any(s % 8 for s in strides) or any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("flash_attention: the tensor-core kernel reads 16-byte "
-                             "rows: strides must be multiples of 8 elements and "
-                             "data 16-byte aligned")
         _build.launch(
             "flashattn_tc_launch", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -124,13 +145,14 @@ class FlashAttention(torch.autograd.Function):
         else:
             out, lse = _forward(q, k, v, window, kernel)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
+        ctx.window, ctx.kernel = window, kernel
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, window=ctx.window)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, window=ctx.window,
+                                         kernel=ctx.kernel)
         return dq, dk, dv, None, None
 
 
@@ -138,7 +160,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = -1, kernel: str | None = None) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention ``(B, Sq, Hq, hd)``
     in ``q.dtype``; see ref.py. ``kernel`` names a variant in place of the
-    rule of :func:`variant` (to time one against the other). Differentiable
+    rule of :func:`variant`: a switch for measurement alone (to time and hold
+    one variant against the other), which nothing in the port sets. Differentiable
     (through :class:`FlashAttention`) when grad is enabled and an input
     requires grad."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -149,12 +172,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, window, kernel)[0]
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = -1):
+def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = -1,
+                        kernel: str | None = None):
     """``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k, v)``, given
     its ``out``, ``lse`` (fp32 ``(B, Hq, Sq)``) and the output's gradient
     ``dout``, in the dtypes of ``q``, ``k`` and ``v``: the plain version
-    for a CPU tensor, ``csrc/flashattn_bwd.cu`` for a CUDA tensor (its
-    three kernels, one launch of this wrapper)."""
+    for a CPU tensor; for a CUDA tensor the variant the rule of
+    :func:`variant` picks (``csrc/flashattn_bwd_tc.cu`` or
+    ``csrc/flashattn_bwd.cu``: three kernels each, one launch of this
+    wrapper). ``kernel`` forces one, as the forward's does: a switch for
+    measurement alone, which nothing in the port sets but ``FlashAttention``
+    handing on the forward's."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, window=window)
     if q.device.type != "cuda":
@@ -169,20 +197,26 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = -1):
     if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("flash_attention_bwd: lse must be a dense fp32 (B, Hq, Sq)")
+    kernel = _kernel("flash_attention_bwd", kernel, q, k, v, out, dout)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((B, Skv, Hkv, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     d = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)  # D scratch
-    _build.launch(
-        "flashattn_bwd_launch", q,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, hd, int(window), _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-        *_strides(q, k, v))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d.data_ptr(),
+            B, Sq, Skv, Hq, Hkv, hd, int(window))
+    if kernel == "tensor_core":
+        _build.launch("flashattn_bwd_tc_launch", q, *args, 1.0 / math.sqrt(hd),
+                      *_strides(q, k, v))
+    else:
+        _build.launch("flashattn_bwd_launch", q, *args, _DTYPES[q.dtype],
+                      1.0 / math.sqrt(hd), *_strides(q, k, v))
     _build.count(flash_attention_bwd, q)
+    flash_attention_bwd.variant_launches[kernel] += 1
     return dq, dk, dv
 
 
 _build.counters(flash_attention)  # every forward launch
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
 _build.counters(flash_attention_bwd)  # every backward launch
+flash_attention_bwd.variant_launches = dict.fromkeys(VARIANTS, 0)

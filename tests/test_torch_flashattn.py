@@ -5,9 +5,11 @@ tensor-core kernel's rounding against the plain version and the JAX
 ``flash_attention_ref``, and on the card both CUDA kernels (tensor-core
 and CUDA-core variants) against the plain version. The gradient
 (``FlashAttention``: the forward's ``lse``, ``flash_attention_bwd_ref`` on
-the CPU, ``csrc/flashattn_bwd.cu`` on the card) against ``jax.vjp`` of the
-reference's ``flash_attention_ref``, against float64 autograd, and within
-``fp32_bound.attention_grads_f64``'s bounds.
+the CPU, ``csrc/flashattn_bwd_tc.cu`` and ``csrc/flashattn_bwd.cu`` on the
+card) against ``jax.vjp`` of the reference's ``flash_attention_ref``,
+against float64 autograd, and within ``fp32_bound.attention_grads_f64``'s
+bounds; a CPU emulation of the tensor-core backward's rounding within its
+bf16 tolerance.
 
 Inputs are made with numpy from a seed. Tolerances on the CPU are the
 reference's own (``tests/test_flashattn.py``): 2e-4 in fp32 (sums in
@@ -30,8 +32,10 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels.flashattn.ops import flash_attention as j_flash
 from repro.kernels.flashattn.ref import flash_attention_ref as j_flash_ref
 from repro_torch.kernels import fp32_bound
+from repro_torch.kernels.flashattn.ops import _forward as fa_forward
 from repro_torch.kernels.flashattn.ops import (
     FlashAttention,
+    _kernel,
     flash_attention,
     flash_attention_bwd,
     variant,
@@ -221,8 +225,37 @@ def test_cpu_wrapper_counts_no_launch():
 ])
 def test_variant_rule(dtype, hd, want):
     """bf16 at hd 64/128/256 (every full LM config) takes the tensor cores;
-    fp32 (TF32 there would break the fp32 bound) and small heads do not."""
+    fp32 (TF32 there would break the fp32 bound) and small heads do not;
+    the forward and the backward alike."""
     assert variant(dtype, hd) == want
+    q = torch.zeros((1, 8, 2, hd), dtype=dtype)
+    k = q[:, :, :1]
+    assert _kernel("flash_attention", None, q, k, k) == want
+    assert _kernel("flash_attention_bwd", None, q, k, k, q, q) == want
+    if want == "cuda_core":  # forcing the tensor cores on what they do not take
+        with pytest.raises(ValueError, match="tensor-core"):
+            _kernel("flash_attention_bwd", "tensor_core", q, k, k, q, q)
+    assert _kernel("flash_attention_bwd", "cuda_core", q, k, k, q, q) == "cuda_core"
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
+def test_tensor_core_rule_rejects_misaligned_rows(name):
+    """The tensor-core kernels read 16-byte rows: a stride off a multiple of
+    8 elements or a pointer off 16 bytes raises before any launch (checked
+    on CPU tensors; the rule reads only strides and addresses)."""
+    base = torch.zeros(2 * 8 * 2 * 132 + 8, dtype=torch.bfloat16)
+    good = base[:8 * 2 * 64].view(1, 8, 2, 64)
+    assert _kernel(name, None, good, good, good, good, good) == "tensor_core"
+    odd = base.as_strided((1, 8, 2, 64), (8 * 132, 132, 64, 1))  # stride 132
+    shifted = base[1:1 + 8 * 2 * 64].view(1, 8, 2, 64)  # 2 bytes off
+    for bad in ((odd, good, good), (good, shifted, good), (good, good, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            _kernel(name, None, *bad, good, good)
+    if name == "flash_attention_bwd":  # out and dout are read as 16-byte rows too
+        with pytest.raises(ValueError, match="16-byte"):
+            _kernel(name, None, good, good, good, good, shifted)
+    with pytest.raises(ValueError, match="no kernel"):
+        _kernel(name, "wgmma", good, good, good)
 
 
 def _tc_emulation(q, k, v, window=-1, *, split=True, tk=64):
@@ -612,6 +645,125 @@ def test_grads_bf16_tol_holds_plain_and_separates_faults(b, sq, skv, hq, hkv, hd
         assert fp32_bound.grads_error_ratio(bad, exact, tol) > 1.0, name
 
 
+def _terms(x, split):
+    """``x`` as the kernel feeds it to an mma: hi = bf16(x) plus, with
+    ``split``, lo = bf16(x - hi)."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if split else hi
+
+
+def _tc_bwd_emulation(q, k, v, out, lse, dout, window=-1, *, split=("p", "ds")):
+    """The tensor-core backward's arithmetic on the CPU: D in fp32; the
+    dk/dv pass over 64-key tiles, each walking the flattened (position,
+    head-in-group) rows that see it from its first in steps of 32, fp32
+    scores S^T and dP^T from the bf16 inputs, P = exp(s * scale - lse)
+    (exactly 0 where masked) and dS = P (dP - D) in fp32, then fp32 tile
+    sums dV += P^T dout and dK += dS^T Q; the dq pass over 64-key tiles,
+    dQ += dS K. P and dS enter the sums as bf16 terms (hi + lo for the names
+    in ``split``, else hi alone); each gradient is scaled and rounded to
+    bf16 once."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, N, qoff = Hq // Hkv, Sq * Hq // Hkv, Skv - Sq
+    scale = 1.0 / math.sqrt(hd)
+    bc, br = 64, 32  # keys a dk/dv block and a dq step, rows a dk/dv step
+
+    def rows(t):  # (B, Sq, Hq, x) -> (B, Hkv, Sq * G, x): the kernel's row order
+        return t.float().reshape(B, Sq, Hkv, G, -1).permute(0, 2, 1, 3, 4).reshape(
+            B, Hkv, N, -1)
+
+    qg, gg = rows(q), rows(dout)
+    dd = (gg * rows(out)).sum(-1)
+    ll = rows(lse.permute(0, 2, 1)[..., None])[..., 0]
+    kf, vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    pos = torch.arange(N) // G + qoff
+
+    def p_ds(n0, n1, j0, j1):
+        s = qg[:, :, n0:n1] @ kf[:, :, j0:j1].transpose(-1, -2)
+        dp = gg[:, :, n0:n1] @ vf[:, :, j0:j1].transpose(-1, -2)
+        dist = pos[n0:n1, None] - torch.arange(j0, j1)[None]
+        ok = (dist >= 0) & ((dist < window) if window > 0 else True)
+        p = torch.exp(torch.where(ok, s * scale, -1e30) - ll[:, :, n0:n1, None])
+        return p, p * (dp - dd[:, :, n0:n1, None])
+
+    dk, dv, dq = torch.zeros(kf.shape), torch.zeros(vf.shape), torch.zeros(qg.shape)
+    for j0 in range(0, Skv, bc):
+        j1 = min(j0 + bc, Skv)
+        n_lo = max(0, j0 - qoff) * G
+        n_hi = min(N, max(0, (j0 + bc - 1 + window - qoff) * G)) if window > 0 else N
+        for n0 in range(n_lo, n_hi, br):
+            n1 = min(n0 + br, n_hi)
+            p, ds = p_ds(n0, n1, j0, j1)
+            dv[:, :, j0:j1] += _terms(p, "p" in split).transpose(-1, -2) @ gg[:, :, n0:n1]
+            dk[:, :, j0:j1] += _terms(ds, "ds" in split).transpose(-1, -2) @ qg[:, :, n0:n1]
+        dq += _terms(p_ds(0, N, j0, j1)[1], "ds" in split) @ kf[:, :, j0:j1]
+    dq = (dq * scale).reshape(B, Hkv, Sq, G, hd).permute(0, 2, 1, 3, 4).reshape(
+        B, Sq, Hq, hd)
+    return (dq.bfloat16(), (dk * scale).permute(0, 2, 1, 3).bfloat16(),
+            dv.permute(0, 2, 1, 3).bfloat16())
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", [
+    (2, 96, 96, 4, 4, 64, -1),  # G = 1
+    (2, 80, 80, 8, 4, 128, 33),  # G = 2, window
+    (1, 40, 150, 8, 2, 64, -1),  # G = 4, Sq < Skv
+    (1, 70, 200, 8, 4, 256, 1),  # window 1: one key a row
+    (3, 5, 5, 4, 2, 64, -1),  # rows with few keys
+])
+def test_tc_bwd_emulation_within_bf16_tol(b, sq, skv, hq, hkv, hd, win):
+    """The tensor-core backward's rounding (P and dS split into two bf16
+    terms) within attention_grads_f64's bf16 tolerance, from the bf16
+    forward's out and lse, as the plain backward is."""
+    q, k, v = _bf16_qkv(12, b, sq, skv, hq, hkv, hd)
+    g = _dout(33, q).bfloat16()
+    out, lse = flash_attention_lse_ref(q, k, v, window=win)
+    exact, _, tol = fp32_bound.attention_grads_f64(q, k, v, g, window=win)
+    got = _tc_bwd_emulation(q, k, v, out, lse, g, win)
+    assert fp32_bound.grads_error_ratio(got, exact, tol) <= 1.0
+    plain = flash_attention_bwd_ref(q, k, v, out, lse, g, window=win)
+    assert fp32_bound.grads_error_ratio(plain, exact, tol) <= 1.0
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", [
+    (2, 80, 80, 8, 4, 128, 33), (1, 40, 150, 8, 2, 64, -1)])
+def test_tc_bwd_emulation_matches_jax_vjp(b, sq, skv, hq, hkv, hd, win):
+    """The emulation against ``jax.vjp`` of the JAX package's
+    flash_attention_ref on the same bf16 inputs, as the CPU path is held
+    (``test_cpu_gradient_matches_jax_vjp``: 2e-2 x the gradient's largest
+    entry), at two of the shapes above (a window with G = 2; G = 4 with
+    Sq < Skv): each vjp compiles for a few seconds."""
+    q, k, v = _bf16_qkv(12, b, sq, skv, hq, hkv, hd)
+    g = _dout(33, q).bfloat16()
+    out, lse = flash_attention_lse_ref(q, k, v, window=win)
+    got = _tc_bwd_emulation(q, k, v, out, lse, g, win)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v, g))
+    _, vjp = jax.vjp(lambda q_, k_, v_: j_flash_ref(q_, k_, v_, window=win), jq, jk, jv)
+    for a, want in zip(got, vjp(jg)):
+        want = _f32(want)
+        np.testing.assert_allclose(_f32(a), want, rtol=0,
+                                   atol=2e-2 * float(np.abs(want).max()))
+
+
+def test_single_bf16_rounding_of_p_and_ds_breaks_the_tol():
+    """Why the backward splits P and dS: rounded once to bf16, P carries a
+    second rounding into every term of dv's sums, and dS into dk's, which
+    leave the bf16 tolerance where the sums cancel (batch 8 gives enough
+    samples); the split holds it."""
+    q, k, v = _bf16_qkv(12, 8, 64, 64, 8, 4, 64)
+    g = _dout(34, q).bfloat16()
+    out, lse = flash_attention_lse_ref(q, k, v)
+    exact, _, tol = fp32_bound.attention_grads_f64(q, k, v, g)
+
+    def ratios(**kw):  # (dq, dk, dv)
+        return [fp32_bound.grads_error_ratio((a,), (e,), (t,)) for a, e, t in zip(
+            _tc_bwd_emulation(q, k, v, out, lse, g, **kw), exact, tol)]
+
+    assert max(ratios()) <= 1.0
+    assert ratios(split=("ds",))[2] > 1.0  # P rounded once: dv
+    assert ratios(split=("p",))[1] > 1.0  # dS rounded once: dk
+
+
 def test_no_grad_keeps_the_plain_call():
     """Without grad (or with grad off) the wrapper returns a plain result."""
     q, k, v = (torch.as_tensor(a) for a in _qkv(32, 1, 8, 8, 2, 1, 8))
@@ -691,18 +843,30 @@ BWD_CASES = [  # b, sq, skv, hq, hkv, hd, win
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["tensor_core", "cuda_core"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,win", BWD_CASES)
-def test_cuda_backward_matches_plain(cuda, dtype, b, sq, skv, hq, hkv, hd, win):
-    """The kernel's forward lse and backward against the plain versions on
-    the same inputs: lse within 1e-5 x (1 + |lse|); fp32 gradients within
-    the fp32 bound of the float64 oracle, bf16 ones within its bf16
-    tolerance; two runs bit-identical."""
+def test_cuda_backward_matches_plain(cuda, kernel, dtype, b, sq, skv, hq, hkv, hd, win):
+    """Each variant, forced with ``kernel=`` (``FlashAttention`` hands it to
+    the backward): the forward's lse and the backward against the plain
+    versions on the same inputs: lse within 1e-5 x (1 + |lse|); fp32
+    gradients within the fp32 bound of the float64 oracle, bf16 ones within
+    its bf16 tolerance; two runs bit-identical. The tensor-core variant
+    raises on what it does not take (fp32, hd below 64)."""
     q, k, v = (t.to(cuda, dtype) for t in _real_qkv(40, b, sq, skv, hq, hkv, hd))
     g = _dout(41, q).to(cuda, dtype)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
-    out = flash_attention(qr, kr, vr, window=win)
+    if kernel == "tensor_core" and variant(dtype, hd) != "tensor_core":
+        with pytest.raises(ValueError, match="tensor-core"):
+            flash_attention(qr, kr, vr, window=win, kernel=kernel)
+        _, lse = flash_attention_lse_ref(q, k, v, window=win)
+        with pytest.raises(ValueError, match="tensor-core"):
+            flash_attention_bwd(q, k, v, q, lse, g, window=win, kernel=kernel)
+        return
+    before = dict(flash_attention_bwd.variant_launches)
+    out = flash_attention(qr, kr, vr, window=win, kernel=kernel)
     out.backward(g, retain_graph=True)
+    assert flash_attention_bwd.variant_launches[kernel] == before[kernel] + 1
     _, lse = flash_attention_lse_ref(q, k, v, window=win)
     exact, tol32, tol16 = fp32_bound.attention_grads_f64(q, k, v, g, window=win)
     got = (qr.grad, kr.grad, vr.grad)
@@ -714,8 +878,40 @@ def test_cuda_backward_matches_plain(cuda, dtype, b, sq, skv, hq, hkv, hd, win):
     saved = out.grad_fn.saved_tensors
     assert float(((saved[4].double() - lse.double()).abs() / (1 + lse.double().abs()))
                  .max()) <= 1e-5
-    again = flash_attention_bwd(q, k, v, saved[3], saved[4], g, window=win)
-    again2 = flash_attention_bwd(q, k, v, saved[3], saved[4], g, window=win)
+    again = flash_attention_bwd(q, k, v, saved[3], saved[4], g, window=win, kernel=kernel)
+    again2 = flash_attention_bwd(q, k, v, saved[3], saved[4], g, window=win, kernel=kernel)
     torch.cuda.synchronize()
     for a, b_, c in zip(got, again, again2):
         assert torch.equal(a, b_) and torch.equal(b_, c)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_backward_reads_strided_views(cuda):
+    """q, k, v as views (a fused projection's heads, a cache's leading
+    rows) give the gradients dense copies give, bit for bit."""
+    gen = torch.Generator().manual_seed(42)
+    cache = torch.randn((2, 2, 300, 4, 128), generator=gen).bfloat16().to(cuda)
+    qkv = torch.randn((2, 203, 16, 128), generator=gen).bfloat16().to(cuda)
+    q, k, v = qkv[:, :, :8], cache[0, :, :203], cache[1, :, :203]
+    dout = torch.randn((2, 203, 8, 128), generator=gen).bfloat16().to(cuda)
+    out, lse = fa_forward(q, k, v, 64, None)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, window=64)
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
+                               dout, window=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_backward_rejects_misaligned_rows(cuda):
+    base = torch.zeros(8 * 2 * 132 + 8, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    good = base[:8 * 2 * 64].view(1, 8, 2, 64)
+    odd = base.as_strided((1, 8, 2, 64), (8 * 132, 132, 64, 1))  # stride 132
+    shifted = base[1:1 + 8 * 2 * 64].view(1, 8, 2, 64)  # 2 bytes off
+    for q, out in ((odd, good), (shifted, good), (good, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_bwd(q, good, good, out, lse, good)
+    with pytest.raises(ValueError, match="tensor-core"):
+        flash_attention_bwd(good.float(), good.float(), good.float(), good.float(), lse,
+                            good.float(), kernel="tensor_core")
