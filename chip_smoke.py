@@ -157,7 +157,7 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      ``vote_images``; crop10 recall@1 must reach 0.9. J2-J5 read the store
      through a per-process block cache of this script. The kernels line
      gains each kernel's launches in J2, J3 and J5 (the child's are not
-     counted). If the script would pass 1,050 s, the job is cut to
+     counted). If the script would pass 1,100 s, the job is cut to
      ``--rows 2097149 --block-rows 1048576`` and says so;
   7. shards (both jobs over a ``DeviceMesh``), after the index job: half
      the main path's rows, 2^23 (``scripts/shards_phase.py`` runs all
@@ -290,7 +290,42 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      ``flashattn_bwd`` (tensor-core) and ``flashattn_bwd_cuda_core``, both
      timed at the step's layer shape beside the plain version and
      ``scaled_dot_product_attention``'s backward;
- 11. the port's examples as subprocesses on the card:
+ 11. the recsys family and GIN, after the train phase's tensors are
+     dropped (``scripts/recsys_phase.py`` runs it alone): dlrm-rm2 (26 x 1M
+     x 64 tables, 1.66 G parameters), din and dien (a 10M x 18 item table;
+     DIEN's GRU and AUGRU over 100 steps) and two-tower-retrieval (8 x 1M x
+     64 tables, a 1024-512-256 MLP a tower), random fp32 weights drawn on
+     the card from ``--seed``, at serve_p99 (512 rows), serve_bulk
+     (262,144), retrieval_cand (1M candidates; DIN and DIEN in calls of
+     262,144 rows) and train_batch (65,536 rows; two-tower's cut to 32,768,
+     its (B, B) logits; DIEN's GRU states kept every 10 steps and the rest
+     recomputed); then gin-tu at full_graph_sm, minibatch_lg (1,024 seeds,
+     fanouts 15 x 10, on a Reddit-scale graph of 232,965 nodes and mean
+     degree 492), ogb_products (2,449,029 nodes, 60.6M edges, full batch)
+     and molecule, at their padded sizes, its message passing on the
+     segsum kernel (``csrc/segsum.cu``). Batches from the port's numpy
+     generators, or their distributions drawn on the card where numpy's
+     Zipf sampler would take seconds. Checks: (a) 256 sampled rows of every
+     serve shape's fp32 output within 1e-4 x max(1, |output|) of the same
+     function in float64 (TF32's error printed beside it); (b) every train
+     step, run twice from fresh states under torch's deterministic
+     algorithms, gives the same params, m and v bit for bit; (c) every
+     loss, grad norm and output finite; (d) two-tower's 1M item embeddings
+     (d = 256) through ``build_tree`` (32 x 32, Lloyd-refined twice),
+     ``build_index`` (fp32 wire) and ``batch_search`` of 1,024 users, k 10,
+     probes 1 and 3, ``impl="pallas"`` (K1) and ``"fused"`` (K2): overflow
+     0, the two bit-identical, each user's ids a float64 brute force over
+     the leaves it probed (up to ties fp32 cannot order) with distances
+     within fp32's bound of the float64 ones (P1's 1e-6 x ||q||^2 printed
+     beside it), recall@10 against the exact dense top-10 printed; (e) K1
+     on one wave, K2 on the fused call and K3 on a build wave at d = 256
+     within ``fp32_bound``'s bound, which TF32 breaks, and segsum at
+     ogb_products' shape within ``fp32_bound.segsum_f64``'s bound,
+     bit-identical over two runs. Prints each shape's wall and device ms,
+     samples/s, TFLOP/s, peak memory and top device ops; the K1, K2 and K3
+     rows gain the retrieval path's numbers, and a ``segsum`` row joins the
+     kernels line;
+ 12. the port's examples as subprocesses on the card:
      ``examples/torch_quickstart.py`` and ``examples/torch_copydays_eval.py``
      (crop10 recall@1 at least 0.9).
 
@@ -383,8 +418,8 @@ JOB_ROWS, JOB_BLOCK = 8388605, 2**22
 # first block, then one off-grid block of 1,048,573 rows
 JOB_CUT_ROWS, JOB_CUT_BLOCK = 2097149, 2**20
 JOB_BUDGET_S = 150  # the phase's time budget
-JOB_AFTER_S = 60  # the LM phase after it
-JOB_LATEST_END_S = 1050  # the script's end past which the job is cut
+JOB_AFTER_S = 300  # the phases after it: shards, LM, MoE, train, recsys, examples
+JOB_LATEST_END_S = 1100  # the script's end past which the job is cut
 JOB_VERIFY = 256  # --verify-queries of the compaction run
 JOB_CRASH_WAIT_S = 300  # how long J1 waits for the first commit
 CD_ORIGINALS = 127  # the paper's Copydays originals
@@ -440,6 +475,32 @@ TR_LATEST_END_S = 1050  # past it, the timed steps are cut to the last two
 TR_DIR = Path(__file__).resolve().parent / "build" / "train_ckpt"
 TR_SAMPLED = ("embed", "final_norm", "layers/wq", "layers/w_down")  # (c)
 TR_GEMMA_LOCAL = dict(B=1, S=2048, Hq=8, Hkv=4, hd=256, window=1024)  # (b)
+# the recsys phase: DLRM-rm2, DIN, DIEN, two-tower (its 1M candidates
+# through the index) and GIN-tu, at full width
+RS_BUDGET_S = 100
+RS_AFTER_S = 30  # the examples after it
+RS_LATEST_END_S = 1100  # past it: one timed step a train shape, not two
+RS_SAMPLED = 256  # (a)'s output rows held against float64; K2's plain rows
+# (a): |fp32 - float64| <= RS_LIMIT_U x 2^-24 x max(1, largest |float64 output|),
+# and TF32 must exceed it. A limit a configuration, near the geometric mean
+# of its largest fp32 and smallest TF32 reading (4.8 / 2,213, 1.2 / 897,
+# 0.041 / 62.6 and 2.1 / 1,438 of that unit over its three serve shapes):
+# a worst-case fp32 bound grows with the sum of |terms| through each MLP,
+# where TF32's errors cancel, and would pass TF32.
+RS_LIMIT_U = {"dlrm-rm2": 128, "din": 32, "dien": 2, "two-tower-retrieval": 64}
+RS_TRACES = False  # device_ms and top ops: the phase run alone sets it (see recsys_phase)
+RS_TT_TRAIN_B = 32768  # two-tower's train_batch, cut from 65,536: its (B, B) logits
+RS_CHUNK = 262144  # rows a DIN or DIEN forward call (retrieval_cand in 4 calls)
+RS_USERS = 1024  # (d): users searched through the index, a serving batch
+RS_FANOUTS = (32, 32)  # (d): about 980 candidates a leaf
+RS_K = 10
+RS_PROBES = (1, 3)
+RS_Q_CAP = 4096  # (d): the lookup slab of a wave (benchmarks/ann_retrieval.py's)
+RS_F64_ROWS = 2**17  # index rows a chunk of (d)'s float64 brute force
+RS_MAX_SWAPS = 16  # (d): ids out of the float64 order, each within fp32's bounds (0-4 read)
+RS_REDDIT = (232965, 492)  # minibatch_lg's base graph: Reddit's nodes and mean degree
+RS_SEEDS = 1024  # minibatch_lg's seed nodes
+RS_FANOUT = (15, 10)
 
 
 T0 = time.perf_counter()  # the script's start, for the lines' time stamps
@@ -4785,6 +4846,775 @@ def train_phase(rt, args, dev, kernels, t_start):
                 bwd=t, bwd_fp32=t32, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# the recsys phase (DLRM-rm2, DIN, DIEN, two-tower with its 1M-candidate
+# retrieval through the index, GIN-tu; all at full width)
+# ---------------------------------------------------------------------------
+
+
+def rs_zipf(a: float, vocab: int, shape, g) -> torch.Tensor:
+    """``min(zipf(a), vocab - 1)`` ids drawn on the card by the inverse CDF:
+    the distribution ``data/batches.py`` draws, not its numbers (numpy's
+    ``zipf`` takes about 160 ns an id on the host, 16 s for
+    retrieval_cand's 1M x 100). The tail past ``vocab - 2`` lands on
+    ``vocab - 1``; zeta(a) from Euler-Maclaurin at ``vocab - 1``."""
+    dev = g.device
+    k = torch.arange(1, vocab - 1, dtype=torch.float64, device=dev)
+    w = k ** -a
+    n = float(vocab - 1)
+    zeta = (float(w.sum()) + n ** (1 - a) / (a - 1) + 0.5 * n ** -a
+            + a * n ** (-a - 1) / 12)
+    cdf = torch.cumsum(w, 0) / zeta
+    del k, w
+    u = torch.rand(math.prod(shape), generator=g, dtype=torch.float64, device=dev)
+    ids = torch.searchsorted(cdf, u, right=True) + 1
+    return ids.clamp_(max=vocab - 1).reshape(shape).int()
+
+
+def rs_dlrm_batch(cfg, b: int, g) -> dict:
+    """``dlrm_batch``'s distributions drawn on the card (its planted label)."""
+    dense = torch.randn((b, cfg.n_dense), generator=g, device=g.device)
+    sparse = rs_zipf(1.2, cfg.vocab_per_field, (b, cfg.n_sparse), g)
+    logit = dense[:, 0] + 0.5 * ((sparse[:, 0] % 2) * 2 - 1)
+    noise = torch.randn((b,), generator=g, device=g.device)
+    return {"dense": dense, "sparse": sparse, "label": (logit + noise > 0).float()}
+
+
+def rs_din_batch(cfg, b: int, g) -> dict:
+    """``din_batch``'s distributions drawn on the card: half positives,
+    whose target comes from the history."""
+    dev = g.device
+    hist = rs_zipf(1.3, cfg.vocab, (b, cfg.seq_len), g)
+    pos = hist[torch.arange(b, device=dev),
+               torch.randint(0, cfg.seq_len, (b,), generator=g, device=dev)]
+    neg = rs_zipf(1.3, cfg.vocab, (b,), g)
+    label = (torch.rand((b,), generator=g, device=dev) < 0.5).float()
+    target = torch.where(label > 0, pos, neg).clamp(min=1)
+    return {"hist": hist, "target": target, "label": label}
+
+
+def rs_rows(batch: dict, rows) -> dict:
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def rs_models(rt) -> dict:
+    """The four recsys configurations at full width, with their entry
+    points, batch makers and FLOPs a sample (``configs/recsys.py``)."""
+    c, m = rt.crec, rt.recsys
+    return {
+        "dlrm-rm2": dict(cfg=c.DLRM_RM2, loss=m.dlrm_loss, serve=m.dlrm_forward,
+                         flops=c.DLRM_FLOPS_PER_SAMPLE, train_b=c.TRAIN_B, chunk=None),
+        "din": dict(cfg=c.DIN, loss=m.din_loss, serve=m.din_forward,
+                    flops=c.din_flops_per_sample(c.DIN), train_b=c.TRAIN_B,
+                    chunk=RS_CHUNK),
+        "dien": dict(cfg=c.DIEN, loss=m.din_loss, serve=m.din_forward,
+                     flops=c.dien_flops_per_sample(c.DIEN), train_b=c.TRAIN_B,
+                     chunk=RS_CHUNK),
+        "two-tower-retrieval": dict(cfg=c.TWO_TOWER, loss=m.twotower_loss,
+                                    serve=m.pair_score, flops=c.TWOTOWER_SERVE_FLOPS,
+                                    train_b=RS_TT_TRAIN_B, chunk=None),
+    }
+
+
+def rs_serve_batch(rt, name, cfg, shape, b, seed, g, cache) -> dict:
+    """The batch of a serve shape: the port's numpy generators where the
+    host is quick (serve_p99; two-tower's uniform ids at every size), the
+    same distributions drawn on the card for the bulk and candidate shapes
+    of the Zipf-id models. DIN and DIEN share theirs (``cache``)."""
+    dev = g.device
+    if name == "two-tower-retrieval":
+        bt = rt.twotower_batch(b, cfg.n_user_fields, cfg.n_item_fields,
+                               cfg.vocab_per_field, seed=seed + b)
+        if shape == "retrieval_cand":
+            bt = {"user_ids": bt["user_ids"][:1], "cand_ids": bt["item_ids"]}
+        return {k: torch.as_tensor(v, device=dev) for k, v in bt.items()}
+    key = ("din" if name in ("din", "dien") else name, shape)
+    if key not in cache:
+        if shape == "serve_p99" and name == "dlrm-rm2":
+            cache[key] = rt.dlrm_batch(b, cfg.n_dense, cfg.n_sparse, cfg.vocab_per_field,
+                                       seed=seed + 11)
+        elif shape == "serve_p99":
+            cache[key] = rt.din_batch(b, cfg.seq_len, cfg.vocab, seed=seed + 12)
+        elif name == "dlrm-rm2":
+            cache[key] = rs_dlrm_batch(cfg, b, g)
+        else:
+            cache[key] = rs_din_batch(cfg, b, g)
+        cache[key] = {k: torch.as_tensor(v, device=dev)
+                      for k, v in cache[key].items() if k != "label"}
+    return cache[key]
+
+
+def rs_forward(rt, spec, shape):
+    """The serve shape's entry point: two-tower's retrieval_cand scores one
+    user against every candidate; every other shape scores its rows
+    (``chunk`` rows a call for DIN and DIEN)."""
+    if shape == "retrieval_cand" and spec["cfg"].name == "two-tower-retrieval":
+        return lambda params, cfg, batch, dev: rt.recsys.twotower_score(
+            params, cfg, batch, device=dev)
+    fn, step = spec["serve"], spec["chunk"]
+
+    def run(params, cfg, batch, dev):
+        n = len(next(iter(batch.values())))
+        if not step or step >= n:
+            return fn(params, cfg, batch, device=dev)
+        return torch.cat([fn(params, cfg, rs_rows(batch, slice(s, s + step)), device=dev)
+                          for s in range(0, n, step)])
+
+    return run
+
+
+def rs_check_rows(n: int, seed: int, dev) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randperm(n, generator=g)[:RS_SAMPLED].sort().values.to(dev)
+
+
+def rs_serve_check(rt, run, params, p64, cfg, batch, out, shape, seed, dev) -> dict:
+    """(a): ``RS_SAMPLED`` rows of the fp32 output against the same port
+    function in float64 (params and inputs cast), within the
+    configuration's ``RS_LIMIT_U``; the same rows in TF32 must exceed it."""
+    retrieval = "cand_ids" in batch
+    n = out.shape[0]
+    rows = rs_check_rows(n, seed, dev)
+    sub = ({"user_ids": batch["user_ids"], "cand_ids": batch["cand_ids"][rows]}
+           if retrieval else rs_rows(batch, rows))
+    sub64 = {k: v.double() if v.is_floating_point() else v for k, v in sub.items()}
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    y64 = run(p64, cfg64, sub64, dev).double()
+    with tf32_matmuls():
+        ytf = run(params, cfg, sub, dev).double()
+    limit = RS_LIMIT_U[cfg.name] * 2.0**-24 * max(1.0, float(y64.abs().max()))
+    err = float((out[rows].double() - y64).abs().max())
+    err_tf = float((ytf - y64).abs().max())
+    ratio, tf32_ratio = real_check(f"{cfg.name} {shape} (a)", err / limit, err_tf / limit)
+    return dict(err=err, limit=limit, ratio=ratio, tf32_err=err_tf, tf32_ratio=tf32_ratio)
+
+
+def rs_finite(what, *tensors):
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what} (c): a value is not finite")
+
+
+def rs_top(ev, n: int = 4) -> list:
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:n]
+    return [f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top]
+
+
+def rs_traced(fn) -> dict:
+    """``device_ms`` (the profiler's busy time), ``top`` and ``kernels`` of
+    one extra call of ``fn`` when ``RS_TRACES``, else nothing."""
+    if not RS_TRACES:
+        return {}
+    ev, busy = device_trace(fn)
+    return dict(device_ms=busy * 1e3, top=rs_top(ev), kernels=sum(e.count for e in ev))
+
+
+def rs_line(what, wall_s, samples, flops, peak, **extra) -> dict:
+    out = dict(wall_ms=wall_s * 1e3, samples_s=samples / wall_s,
+               tflops=flops / wall_s / 1e12, peak_gib=peak, **extra)
+    log(f"recsys {what}: {json.dumps(out)}")
+    return out
+
+
+def rs_same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def rs_train(rt, what, init, step_fn, batch, samples, flops, timed_steps) -> dict:
+    """A train shape: (b) one step from ``init()``'s fresh state under
+    ``deterministic()``, the same step again from a second fresh state:
+    params, m and v bit for bit; (c) loss and grad norm finite; then
+    ``timed_steps`` steps in torch's default mode and one traced."""
+    walls = []
+
+    def det_step():
+        params = init()
+        state = rt.train_state(params)
+        with deterministic():
+            t0 = sync_now()
+            params, state, m = step_fn(params, state, batch)
+            walls.append(sync_now() - t0)
+        return params, state, m
+
+    params, state, m0 = det_step()
+    p2, s2, _ = det_step()
+    equal = all(rs_same(rt.tree.leaves(a), rt.tree.leaves(b)) for a, b in (
+        (params, p2), (state["m"], s2["m"]), (state["v"], s2["v"])))
+    del p2, s2
+    if not equal:
+        raise AssertionError(f"{what} (b): two runs of the step differ")
+    rs_finite(what, m0["loss"], m0["grad_norm"])
+    gc.collect()  # the cache keeps its blocks: the timed steps reuse them
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for _ in range(timed_steps):
+        t0 = sync_now()
+        params, state, m = step_fn(params, state, batch)
+        timed.append(sync_now() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rs_finite(what, m["loss"], m["grad_norm"])
+
+    def traced():
+        nonlocal params, state
+        params, state, _ = step_fn(params, state, batch)
+
+    wall = sum(timed) / len(timed)
+    out = rs_line(f"{what} train step", wall, samples, flops * samples, peak,
+                  deterministic_ms=[w * 1e3 for w in walls],
+                  default_ms=[w * 1e3 for w in timed], loss=float(m0["loss"]),
+                  grad_norm=float(m0["grad_norm"]), rerun_bit_identical=equal,
+                  **rs_traced(traced))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rs_recsys_model(rt, name, spec, seed, cut, dev, cache) -> tuple:
+    """Every shape of one recsys configuration: serve_p99, serve_bulk,
+    retrieval_cand (forward only, each with (a) and (c)), then
+    train_batch ((b), (c)). Returns (lines, two-tower's params or None)."""
+    cfg = spec["cfg"]
+    g = torch.Generator(device=dev).manual_seed(seed + 101)
+    crec = rt.crec
+
+    def init():
+        return rt.init_params(cfg.param_specs(),
+                              torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    t0 = sync_now()
+    params = init()
+    log(f"recsys {name}: {cfg.param_count()} parameters "
+        f"({4 * cfg.param_count() / 2**30:.3f} GiB fp32) drawn in {sync_now() - t0:.3f} s")
+    lines = {}
+    p64 = {k: v.double() for k, v in params.items()}
+    serve_flops = spec["flops"]
+    for shape, b in (("serve_p99", crec.P99_B), ("serve_bulk", crec.BULK_B),
+                     ("retrieval_cand", crec.CAND_N)):
+        batch = rs_serve_batch(rt, name, cfg, shape, b, seed, g, cache)
+        run = rs_forward(rt, spec, shape)
+        flops = (crec.TWOTOWER_RETRIEVAL_FLOPS
+                 if shape == "retrieval_cand" and "cand_ids" in batch else serve_flops)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            t0 = sync_now()
+            out = run(params, cfg, batch, dev)
+            wall = sync_now() - t0
+            if tuple(out.shape) != (b,):
+                raise AssertionError(f"{name} {shape}: output {tuple(out.shape)}")
+            rs_finite(f"{name} {shape}", out)
+            a = rs_serve_check(rt, run, params, p64, cfg, batch, out, shape, seed, dev)
+            del out
+            if shape == "serve_p99":  # its first call's wall is mostly set-up
+                t0 = sync_now()
+                run(params, cfg, batch, dev)
+                wall = sync_now() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            traced = rs_traced(lambda: run(params, cfg, batch, dev))
+        lines[shape] = rs_line(f"{name} {shape}", wall, b, b * flops, peak, batch=b, a=a,
+                               **traced)
+        del batch
+    del p64
+    gc.collect()
+    torch.cuda.empty_cache()
+    tt = params if name == "two-tower-retrieval" else None
+    del params
+    b = spec["train_b"]
+    if name == "two-tower-retrieval":
+        batch = rt.twotower_batch(b, cfg.n_user_fields, cfg.n_item_fields,
+                                  cfg.vocab_per_field, seed=seed + 13)
+        flops = crec.twotower_train_flops(b)
+    elif name == "dlrm-rm2":
+        batch = rt.dlrm_batch(b, cfg.n_dense, cfg.n_sparse, cfg.vocab_per_field,
+                              seed=seed + 14)
+        flops = 3.0 * serve_flops
+    else:
+        if ("din", "train_batch") not in cache:
+            cache[("din", "train_batch")] = rt.din_batch(b, cfg.seq_len, cfg.vocab,
+                                                         seed=seed + 15)
+        batch = cache[("din", "train_batch")]
+        flops = 3.0 * serve_flops
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    loss = spec["loss"]
+    step_fn = rt.make_train_step(lambda p, bb: loss(p, cfg, bb, device=dev),
+                                 rt.AdamWConfig())
+    lines["train_batch"] = rs_train(rt, f"{name} train_batch (B {b})", init, step_fn,
+                                    batch, b, flops, 1 if cut else 2)
+    lines["train_batch"]["batch"] = b
+    return lines, tt
+
+
+def rs_gin_batch(rt, shape: str, seed: int, dev) -> tuple:
+    """gin-tu's ``shape`` as a padded batch on the card, its edges sorted
+    both ways (``gnn.prepare``): the real sizes, then the padding
+    (``pad_graph_batch``'s: padded edges of weight 0 into node 0, padded
+    labels -1). Structures from the port's ``data/graph.py``; features and
+    labels drawn on the card."""
+    spec = rt.cgnn.SHAPES[shape]
+    pad = rt.cgnn.padded(spec)
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    rng = np.random.default_rng(seed + 32)
+    n_classes = spec["n_classes"]
+    if shape == "molecule":
+        mb = rt.graph.molecule_batch(128, 30, 64, spec["d_in"], n_classes, seed=seed)
+        feats = torch.as_tensor(mb["feats"], device=dev)
+        edges = torch.as_tensor(mb["edges"], device=dev)
+        labels = torch.as_tensor(mb["labels"], device=dev)
+    elif shape == "minibatch_lg":
+        base = rt.graph.random_graph(*RS_REDDIT, seed=seed)
+        seeds = rng.choice(base.n_nodes, RS_SEEDS, replace=False)
+        sub, e, n_seed = rt.graph.neighbor_sample(base, seeds, RS_FANOUT, seed=seed)
+        del base
+        feats = torch.randn((len(sub), spec["d_in"]), generator=g, device=dev)
+        edges = torch.as_tensor(e, device=dev)
+        labels = torch.full((len(sub),), -1, dtype=torch.int32, device=dev)
+        labels[:n_seed] = torch.randint(0, n_classes, (n_seed,), generator=g,
+                                        device=dev, dtype=torch.int32)
+    else:
+        base = rt.graph.random_graph(spec["nodes"], spec["edges"] / spec["nodes"], seed=seed)
+        edges = torch.as_tensor(rt.graph.to_edge_list(base), device=dev)
+        del base
+        feats = torch.randn((spec["nodes"], spec["d_in"]), generator=g, device=dev)
+        labels = torch.randint(0, n_classes, (spec["nodes"],), generator=g, device=dev,
+                               dtype=torch.int32)
+    n, e = feats.shape[0], edges.shape[1]
+    if n > pad["nodes"] or e > pad["edges"]:
+        raise AssertionError(f"gin {shape}: ({n}, {e}) exceeds the pad {pad}")
+    batch = {"feats": torch.zeros((pad["nodes"], spec["d_in"]), device=dev),
+             "edges": torch.zeros((2, pad["edges"]), dtype=torch.int32, device=dev),
+             "edge_w": torch.zeros((pad["edges"],), device=dev),
+             "labels": torch.full((pad["nodes"],), -1, dtype=torch.int32, device=dev)}
+    batch["feats"][:n] = feats
+    batch["edges"][:, :e] = edges
+    batch["edge_w"][:e] = 1.0
+    batch["labels"][:n] = labels
+    del feats, edges, labels
+    t0 = sync_now()
+    batch = rt.gnn.prepare(batch, device=dev)
+    return batch, dict(nodes=n, edges=e, padded=pad, prepare_s=sync_now() - t0)
+
+
+def rs_gin(rt, seed, dev) -> tuple:
+    """gin-tu at its four shapes, one training step each (checked, then
+    timed). Returns (lines, ogb_products' batch for the segsum check)."""
+    lines, ogb = {}, None
+    for shape in rt.cgnn.SHAPES:
+        t0 = sync_now()
+        batch, sizes = rs_gin_batch(rt, shape, seed, dev)
+        sizes["data_s"] = sync_now() - t0
+        cfg = rt.cgnn.gin_config(shape)
+
+        def init(cfg=cfg):
+            return rt.init_params(cfg.param_specs(),
+                                  torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+        step_fn = rt.make_train_step(
+            lambda p, b, cfg=cfg: rt.gnn.loss_fn(p, cfg, b, device=dev), rt.AdamWConfig())
+        pad = sizes["padded"]
+        flops = 3.0 * rt.cgnn.gin_flops(cfg, pad["nodes"], pad["edges"])
+        lines[shape] = rs_train(rt, f"gin-tu {shape}", init, step_fn, batch, 1, flops, 1)
+        lines[shape].update(sizes)
+        if shape == "ogb_products":
+            ogb = batch
+        else:
+            del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines, ogb
+
+
+def rs_retrieval(rt, params, cfg, seed, dev) -> dict:
+    """(d): two-tower's 1M candidates through the port's index. The item
+    tower over the candidate id rows gives (1M, 256) L2-normalised rows;
+    ``build_tree`` (fanouts 32 x 32, Lloyd-refined twice), ``build_index``
+    (fp32 wire) and ``batch_search`` of 1,024 users' embeddings at k = 10,
+    probes 1 and 3, ``impl="pallas"`` (K1) and ``"fused"`` (K2): overflow
+    0, the two impls bit-identical, each user's ids a float64 brute force
+    over the rows of the leaves it probed, by (distance, row), up to ties
+    fp32 cannot order, distances within fp32's bound of the float64 ones
+    (``rs_brute_force``; P1's 1e-6 x ||q||^2 printed beside it). Recall@10
+    against the exact dense top-10 (dot product over every candidate) and
+    ``pairs`` as a share of the dense count are printed, not gated."""
+    crec = rt.crec
+    cand = rt.twotower_batch(crec.CAND_N, cfg.n_user_fields, cfg.n_item_fields,
+                             cfg.vocab_per_field, seed=seed + 21)["item_ids"]
+    users = rt.twotower_batch(RS_USERS, cfg.n_user_fields, cfg.n_item_fields,
+                              cfg.vocab_per_field, seed=seed + 22)["user_ids"]
+    with torch.no_grad():
+        t0 = sync_now()
+        items = rt.recsys.tower(params, cfg, "item", cand, device=dev)
+        u = rt.recsys.tower(params, cfg, "user", users, device=dev)
+        t_towers = sync_now() - t0
+        t0 = sync_now()
+        dense = torch.topk(u @ items.T, RS_K, dim=1).indices  # the exact top-10
+        t_dense = sync_now() - t0
+    t0 = sync_now()
+    tree = rt.build_tree(items, RS_FANOUTS, generator=torch.Generator().manual_seed(seed),
+                         refine_iters=2, device=dev)
+    t_tree = sync_now() - t0
+    t0 = sync_now()
+    index = rt.build_index(items, tree, wire_dtype=torch.float32, device=dev)
+    t_index = sync_now() - t0
+    if int(index.overflow) != 0:
+        raise AssertionError("recsys (d): index routing overflow")
+    leaf_rows = torch.bincount(index.leaves[index.ids >= 0].long(), minlength=index.n_leaves)
+    out = dict(towers_s=t_towers, dense_s=t_dense, build_tree_s=t_tree,
+               build_index_s=t_index, rows=index.rows,
+               leaf_rows=dict(mean=float(leaf_rows.float().mean()),
+                              max=int(leaf_rows.max()), empty=int((leaf_rows == 0).sum())))
+    row_of = torch.full((crec.CAND_N,), -1, dtype=torch.int64, device=dev)
+    valid = index.ids >= 0
+    row_of[index.ids[valid].long()] = torch.nonzero(valid)[:, 0]
+    for probes in RS_PROBES:
+        res = {}
+        for impl in ("pallas", "fused"):
+            t0 = sync_now()
+            r = rt.batch_search(index, tree, u, RS_K, probes=probes, impl=impl,
+                                q_cap=RS_Q_CAP, device=dev)
+            res[impl] = (r, sync_now() - t0)
+            if int(r.q_cap_overflow) != 0:
+                raise AssertionError(f"recsys (d) probes {probes} {impl}: q_cap overflow")
+        a, b = res["pallas"][0], res["fused"][0]
+        if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+                and torch.equal(a.pairs, b.pairs)):
+            raise AssertionError(f"recsys (d) probes {probes}: K1 and K2 differ")
+        check = rs_brute_force(rt, index, tree, items, u, a, probes, row_of)
+        recall = float(torch.tensor([len(set(x) & set(y)) for x, y in zip(
+            a.ids.tolist(), dense.tolist())], dtype=torch.float64).mean()) / RS_K
+        out[f"probes_{probes}"] = dict(
+            pallas_s=res["pallas"][1], fused_s=res["fused"][1], **check,
+            recall_at_10=recall, pairs=float(a.pairs),
+            pairs_share=float(a.pairs) / (RS_USERS * crec.CAND_N))
+    log(f"recsys (d): {json.dumps(out)}")
+    return dict(out, index=index, tree=tree, users=u, items=items)
+
+
+def rs_row_tol(rt, p, u, qn):
+    """Float64 distances of the rows ``p`` (Q, k, d) from their users ``u``
+    (Q, d), and each one's fp32 bound: the partial ``||p||^2 - 2 p.q``'s
+    (``topk_f64``'s), ||q||^2's own sum (gamma_d ||q||^2) and the final
+    add's rounding."""
+    g = rt.fp32_gamma(u.shape[1])
+    pn = p.square().sum(-1)
+    part = pn - 2.0 * (p * u[:, None]).sum(-1)
+    x = part + qn[:, None]
+    tol = (g * (pn + 2.0 * (p.abs() * u.abs()[:, None]).sum(-1)) + 2.0**-24 * part.abs()
+           + g * qn[:, None] + 2.0**-24 * x.abs())
+    return x, tol
+
+
+def rs_brute_force(rt, index, tree, items, u, res, probes, row_of) -> dict:
+    """Each user's top-10 in float64 over the rows of the leaves it probed
+    (``topk_f64`` over the probes' lookup rows, the probe lists merged by
+    (distance, row)) against the search's ids and distances. Each
+    returned distance lies within its row's fp32 bound (``rs_row_tol``) of
+    that row's float64 distance, and the i-th within the user's largest
+    bound of the brute force's i-th. Ids may leave the float64 order only
+    where fp32 can: a row returned before another, or returned where a
+    brute-force row is not, lies within the two rows' own bounds of it;
+    at most ``RS_MAX_SWAPS`` positions differ. P1's 1e-6 x ||q||^2, held
+    at d = 32, is printed beside (``p1_ratio``): at d = 256 it is tighter
+    than fp32's bound."""
+    lk = rt.build_lookup(tree, u, probes=probes)
+    pd, prow, ptol = rt.topk_f64(index.vecs, index.leaves, lk.vecs, lk.leaves, RS_K,
+                                 chunk_rows=RS_F64_ROWS)
+    Q, d = u.shape
+    ud = u.double()
+    qn = ud.square().sum(1)
+    slot = lk.qids.long()  # user * probes + probe rank
+    full = torch.full((Q * probes, RS_K), math.inf, dtype=torch.float64, device=u.device)
+    rows = torch.full((Q * probes, RS_K), -1, dtype=torch.int64, device=u.device)
+    full[slot] = pd + qn[slot // probes, None]
+    rows[slot] = prow
+    full = full.reshape(Q, probes * RS_K)
+    rows = rows.reshape(Q, probes * RS_K)
+    key = torch.where(rows >= 0, rows, torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, dim=1, stable=True)  # by row, then stably by distance
+    full, rows = full.gather(1, order), rows.gather(1, order)
+    order = torch.argsort(full, dim=1, stable=True)[:, :RS_K]
+    bd, brow = full.gather(1, order), rows.gather(1, order)
+    bid = torch.where(brow >= 0, index.ids[brow.clamp(min=0)].long(), -1)
+    part_tol = torch.zeros(Q, dtype=torch.float64, device=u.device).scatter_reduce(
+        0, slot // probes, ptol, reduce="amax")
+    fin = torch.isfinite(bd)
+    tol = (part_tol + rt.fp32_gamma(d) * qn)[:, None] + 2.0**-24 * torch.where(
+        fin, bd, 0.0)
+    p1 = 1e-6 * qn[:, None]
+    sid = res.ids.long()
+    found = sid >= 0
+    if not torch.equal(found, bid >= 0):
+        raise AssertionError(f"recsys (d) probes {probes}: result counts differ")
+    xs, ts = rs_row_tol(rt, items[sid.clamp(min=0)].double(), ud, qn)
+    xb, tb = rs_row_tol(rt, items[bid.clamp(min=0)].double(), ud, qn)
+    derr = (res.dists.double() - bd).abs()
+    own = (res.dists.double() - xs).abs()
+    if not (derr[fin] <= tol[fin]).all():
+        raise AssertionError(f"recsys (d) probes {probes}: distances off by "
+                             f"{float((derr / tol)[fin].max())} x fp32's bound")
+    if not (own[fin] <= ts[fin]).all():
+        raise AssertionError(f"recsys (d) probes {probes}: a distance is "
+                             f"{float((own / ts)[fin].max())} x its row's fp32 bound "
+                             f"off its row's")
+    # fp32 may order r before s (or return r, not s) only if x_r - x_s <= t_r + t_s
+    gap = xs[:, :, None] - xs[:, None, :] - ts[:, :, None] - ts[:, None, :]
+    before = torch.ones(RS_K, RS_K, dtype=torch.bool, device=u.device).triu(1)
+    out_b = ~(bid[:, :, None] == sid[:, None, :]).any(-1) & (bid >= 0)  # not returned
+    gap_b = xs[:, :, None] - xb[:, None, :] - ts[:, :, None] - tb[:, None, :]
+    wrong = (((gap > 0) & before & found[:, :, None] & found[:, None, :]).any()
+             or ((gap_b > 0) & found[:, :, None] & out_b[:, None, :]).any())
+    if bool(wrong):
+        raise AssertionError(f"recsys (d) probes {probes}: ids out of the float64 "
+                             f"order beyond the two rows' fp32 bounds")
+    # every returned id lies in a leaf its user probed
+    leaf = index.leaves[row_of[sid.clamp(min=0)]].long()
+    probed = rt.probe_leaves(tree, u, probes).long()
+    inside = (leaf[:, :, None] == probed[:, None, :]).any(-1) | ~found
+    if not bool(inside.all()):
+        raise AssertionError(f"recsys (d) probes {probes}: an id outside the probed leaves")
+    swaps = int(((sid != bid) & found).sum())
+    if swaps > RS_MAX_SWAPS:
+        raise AssertionError(f"recsys (d) probes {probes}: {swaps} ids out of the "
+                             f"float64 order (at most {RS_MAX_SWAPS})")
+    return dict(ids_equal=swaps == 0, near_tie_swaps=swaps,
+                ids_not_in_brute_force=int(((~(sid[:, :, None] == bid[:, None, :]).any(-1))
+                                            & found).sum()),
+                max_dist_err=float(derr[fin].max()),
+                fp32_bound_ratio=float((derr / tol)[fin].max()),
+                own_bound_ratio=float((own / ts)[fin].max()),
+                p1_ratio=float((derr / p1)[fin].max()),
+                max_tol=float(tol[fin].max()))
+
+
+def rs_kernel_checks(rt, rd, launches, kernels, seed) -> None:
+    """(e): K1 on one wave of the retrieval's pallas sweep, K2 on its fused
+    call and K3 on one of its build's waves, at d = 256 on the towers'
+    real-valued rows: each within ``fp32_bound``'s bound of a float64
+    oracle, which the plain version in TF32 must break (P5); timed beside
+    the plain version, a library yardstick and the bound. The K1, K2 and K3
+    rows of the kernels line gain these numbers and the phase's launches."""
+    index, tree, u, items = rd["index"], rd["tree"], rd["users"], rd["items"]
+    dev, d, k = u.device, u.shape[1], RS_K
+    Q = u.shape[0]
+    rows = {r["name"]: r for r in kernels}
+    lk = rt.build_lookup(tree, u, probes=1)
+
+    # K1: a wave of the probes-1 pallas sweep, its slab as the sweep cuts it
+    plan = rt.make_plan(rows=index.rows, n_leaves=index.n_leaves, n_queries=Q,
+                        n_shards=1, k=k, probes=1, impl="pallas", q_cap=RS_Q_CAP)
+    flk = rt.pad_lookup(lk, rt.lookup_q_total(plan, Q))
+    B, qc = plan.block_rows, plan.q_cap
+    # the sweep's wave with the most same-leaf pairs (most waves meet few
+    # users: 1,024 users over 1,024 leaves)
+    nl = index.n_leaves
+    real = (index.leaves >= 0) & (index.leaves < nl)
+    hq = torch.bincount(lk.leaves.long(), minlength=nl)
+    per_row = torch.where(real, hq[index.leaves.long().clamp(0, nl - 1)], 0)
+    s = int(per_row[:index.rows // B * B].reshape(-1, B).sum(1).argmax()) * B
+    plf = index.leaves[s:s + B]
+    slab = rt.leaf_slab(flk.offsets, plf[0], n_entries=index.n_leaves,
+                        total_rows=flk.vecs.shape[0], cap=qc)
+    st = int(slab.start)
+    wave = (index.vecs[s:s + B], plf, flk.vecs[st:st + qc].contiguous(),
+            flk.leaves[st:st + qc].contiguous())
+    kd, ki = rt.l2_topk(*wave, k=k)
+    pdd, pi = rt.l2_topk_ref(*wave, k)
+    fin = torch.isfinite(pdd)
+    err1 = float((kd - pdd)[fin].abs().max()) if bool(fin.any()) else 0.0
+    exact, _, tol = rt.topk_f64(*wave, k)
+    kr = rt.topk_error_ratio(kd, ki, wave[0], wave[2], exact, tol)
+    with tf32_matmuls():
+        tr = rt.topk_error_ratio(*rt.l2_topk_ref(*wave, k), wave[0], wave[2], exact, tol)
+    real_check("l2topk recsys", kr, tr)
+    pairs = int(rt.count_pairs(wave[1], wave[3]))
+    need = int(torch.isin(wave[1], wave[3]).sum())
+    matched = int(torch.isin(wave[3], wave[1]).sum())
+
+    def lib_topk(p, plf, q, qlf):
+        d2 = torch.where(qlf[:, None] == plf[None, :],
+                         torch.addmm((p * p).sum(1)[None, :], q, p.T, alpha=-2.0),
+                         torch.inf)
+        return torch.topk(d2, k, dim=1, largest=False)
+
+    kern = time_ms(lambda *w: rt.l2_topk(*w, k=k), [wave] * 20)
+    plain = time_ms(lambda *w: rt.l2_topk_ref(*w, k), [wave] * 20)
+    lib = time_ms(lib_topk, [wave] * 20)
+    bnd = bound((need + matched) * d * 4 + (B + qc) * 4 + qc * k * 8, (pairs + need) * 2 * d)
+    rows["l2topk"].update(recsys_launches=launches["l2topk"], recsys_shape=[B, qc, d, k],
+                          recsys_ms=kern[0], recsys_wall_ms=kern[1], recsys_plain_ms=plain[0],
+                          recsys_library_ms=lib[0], recsys_bound_ms=bnd[0],
+                          recsys_bound_by=bnd[1], recsys_max_abs_err=err1,
+                          recsys_fp32_bound_ratio=kr, recsys_tf32_bound_ratio=tr,
+                          recsys_pairs=pairs)
+
+    # K2: the probes-1 fused call, sampled rows against the plain version
+    fplan = rt.make_plan(rows=index.rows, n_leaves=index.n_leaves, n_queries=Q,
+                         n_shards=1, k=k, probes=1, impl="fused", q_cap=RS_Q_CAP)
+    flk2 = rt.pad_lookup(lk, rt.lookup_q_total(fplan, Q))
+    full = (index.vecs, index.leaves, index.ids, flk2.vecs, flk2.leaves)
+    kd, ki = rt.fused_topk(*full, k=k)
+    pick = sample_rows(flk2, RS_SAMPLED, seed + 23)
+    sq, sl = flk2.vecs[pick], flk2.leaves[pick]
+    want = rt.map_ids(*chunked_plain(rt, index.vecs, index.leaves, sq, sl, k), index.ids)
+    fin = torch.isfinite(want[0])
+    err2 = float((kd[pick] - want[0])[fin].abs().max())
+    rows_as_ids = torch.arange(index.rows, dtype=torch.int32, device=dev)
+    nd, nr = rt.fused_topk(index.vecs, index.leaves, rows_as_ids, flk2.vecs, flk2.leaves,
+                           k=k)
+    exact, _, tol = rt.topk_f64(index.vecs, index.leaves, sq, sl, k, chunk_rows=CHUNK_POINTS)
+    kr2 = rt.topk_error_ratio(nd[pick], nr[pick], index.vecs, sq, exact, tol)
+    with tf32_matmuls():
+        ctrl = chunked_plain(rt, index.vecs, index.leaves, sq, sl, k)
+    tr2 = rt.topk_error_ratio(*ctrl, index.vecs, sq, exact, tol)
+    real_check("fusedscan recsys", kr2, tr2)
+    del nd, nr, rows_as_ids
+    kern = fused_time(rt, full, k)
+    plain = time_ms(lambda q, ql: chunked_plain(rt, index.vecs, index.leaves, q, ql, k),
+                    [(sq, sl)], warmup=1)
+    need, pairs, Qf = fused_need(index, flk2)
+    bnd = fused_bound(need, pairs, Qf, d, k)
+    rows["fusedscan"].update(recsys_launches=launches["fusedscan"],
+                             recsys_shape=[index.rows, Qf, d, k], recsys_ms=kern[0],
+                             recsys_wall_ms=kern[1], recsys_plain_ms=plain[0],
+                             recsys_plain_rows=int(pick.numel()), recsys_library_ms=None,
+                             recsys_bound_ms=bnd[0], recsys_bound_by=bnd[1],
+                             recsys_max_abs_err=err2, recsys_fp32_bound_ratio=kr2,
+                             recsys_tf32_bound_ratio=tr2, recsys_pairs=pairs)
+
+    # K3: one 4,096-row wave of the build's assignment against level 0
+    x, c = items[len(items) // 2:len(items) // 2 + 4096].contiguous(), tree.levels[0]
+    ki3, kd3 = rt.l2_nearest(x, c)
+    pi3, pd3 = rt.l2_nearest_ref(x, c)
+    kr3 = rt.nearest_error_ratio(ki3, kd3, x, c)
+    with tf32_matmuls():
+        tr3 = rt.nearest_error_ratio(*rt.l2_nearest_ref(x, c), x, c)
+    real_check("l2nn recsys", kr3, tr3)
+    differ = ki3 != pi3
+    if bool(differ.any()) and not bool(rt.ties_within_bound(x, c, ki3, pi3)[differ].all()):
+        raise AssertionError("l2nn recsys: a nearest centroid differs outside a near-tie")
+    err3 = float((kd3 - pd3).abs().max())
+    kern = time_ms(rt.l2_nearest, [(x, c)] * 20)
+    plain = time_ms(lambda x, c: rt.l2_nearest_ref(x, c), [(x, c)] * 20)
+    lib = time_ms(lambda x, c: torch.cdist(x, c).min(1), [(x, c)] * 20)
+    n, C = x.shape[0], c.shape[0]
+    bnd = bound(n * d * 4 + C * d * 4 + n * 8, n * C * 2 * d + (n + C) * 2 * d)
+    rows["l2nn"].update(recsys_launches=launches["l2nn"], recsys_shape=[n, C, d],
+                        recsys_ms=kern[0], recsys_wall_ms=kern[1], recsys_plain_ms=plain[0],
+                        recsys_library_ms=lib[0], recsys_bound_ms=bnd[0],
+                        recsys_bound_by=bnd[1], recsys_max_abs_err=err3,
+                        recsys_fp32_bound_ratio=kr3, recsys_tf32_bound_ratio=tr3,
+                        recsys_argmin_near_ties=int(differ.sum()))
+    for name in ("l2topk", "fusedscan", "l2nn"):
+        log(f"{name} at d = {d} (recsys retrieval): " + json.dumps(
+            {key: v for key, v in rows[name].items() if key.startswith("recsys_")}))
+
+
+def rs_segsum_check(rt, batch, launches, seed) -> dict:
+    """segsum at ogb_products' shape (61.9M edges, d 64, a layer's width):
+    the forward's order (edges by destination) and the backward's (by
+    source, power-law rows split into items) against the plain version
+    (``index_add_``) and within ``fp32_bound.segsum_f64``'s bound, two runs
+    bit-identical; timed beside the plain version, ``torch.sparse.mm`` on
+    the same CSR (never called by the port) and the bound. Returns the
+    kernels line's row."""
+    graph = batch["graph"]
+    n = graph.fwd.n_rows
+    dev = batch["feats"].device
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    h = torch.randn((n, 64), generator=g, device=dev)
+    check = {}
+    for name, csr in (("fwd", graph.fwd), ("bwd", graph.bwd)):
+        out = rt.segsum(h, csr)
+        again = rt.segsum(h, csr)
+        plain = rt.segsum_ref(h, csr.indptr, csr.cols, csr.w)
+        exact, tol = rt.segsum_f64(h, csr)
+        check[name] = dict(
+            bit_identical=bool(torch.equal(out, again)),
+            max_abs_err=float((out - plain).abs().max()),
+            fp32_bound_ratio=rt.segsum_error_ratio(out, exact, tol),
+            plain_fp32_bound_ratio=rt.segsum_error_ratio(plain, exact, tol),
+            long_rows=int(csr.longs.shape[0]), items=int(csr.items.shape[0]),
+            longest_row=int((csr.indptr[1:] - csr.indptr[:-1]).max()))
+        del out, again, plain, exact, tol
+        if not (check[name]["bit_identical"] and check[name]["fp32_bound_ratio"] <= 1.0):
+            raise AssertionError(f"segsum {name}: {check[name]}")
+    csr = graph.fwd
+    E = int(csr.cols.shape[0])
+    kern = time_ms(lambda hh: rt.segsum(hh, csr), [(h,)] * 5)
+    plain = time_ms(lambda hh: rt.segsum_ref(hh, csr.indptr, csr.cols, csr.w), [(h,)] * 2,
+                    warmup=1)
+    a = torch.sparse_csr_tensor(csr.indptr, csr.cols, csr.w, size=(n, n))
+    lib = time_ms(lambda hh: torch.sparse.mm(a, hh), [(h,)] * 5)
+    d = h.shape[1]
+    byt = n * d * 4 + E * 8 + csr.items.numel() * 4 + n * d * 4
+    bnd = bound(byt, 2.0 * E * d)
+    row = dict(name="segsum", route="cuda", source="src/repro_torch/csrc/segsum.cu",
+               replaces="src/repro/models/gnn.py:66",
+               replaces_note="no TPU kernel: the reference's jax.ops.segment_sum over "
+                             "gathered messages (XLA); a kernel here for a deterministic "
+                             "sum without the (E, d) messages",
+               launches=launches["segsum"],
+               max_abs_err=max(c["max_abs_err"] for c in check.values()),
+               ms=kern[0], wall_ms=kern[1], plain_ms=plain[0], bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=lib[0], library="torch.sparse.mm (CSR)",
+               shape=[n, E, d], fp32_bound_ratio=max(c["fp32_bound_ratio"]
+                                                      for c in check.values()),
+               checks=check, gathered_gib=E * d * 4 / 2**30)
+    log(f"segsum at ogb_products' shape: {json.dumps(row)}")
+    return row
+
+
+def recsys_phase(rt, args, dev, kernels, t_start) -> dict:
+    """The recsys family and GIN at full width on the card: DLRM-rm2, DIN,
+    DIEN and two-tower at serve_p99, serve_bulk, retrieval_cand and
+    train_batch; two-tower's candidates through the vocabulary-tree index;
+    gin-tu at its four shapes. Checks (a)-(e) (``rs_*``); the kernels line
+    gains the retrieval path's K1, K2 and K3 numbers and a segsum row.
+    With ``RS_TRACES`` (``scripts/recsys_phase.py``) each line also gets
+    ``device_ms`` and its top ops from the profiler over one extra call;
+    ``chip_smoke.py`` leaves them out: this late in the script the
+    profiler's traces of this phase lost up to 60 ms of the card's work
+    each and came back empty for DLRM's serve shapes (a host sleep before
+    and after the call did not help)."""
+    t_phase = time.perf_counter()
+    elapsed = t_phase - t_start
+    cut = elapsed + RS_BUDGET_S + RS_AFTER_S > RS_LATEST_END_S
+    log(f"recsys: starts at {elapsed:.0f} s; "
+        + (f"cut: one timed step a train shape (the script would pass "
+           f"{RS_LATEST_END_S} s)" if cut else "no cut"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt.reset_counts()
+    lines, cache, tt = {}, {}, None
+    for name, spec in rs_models(rt).items():
+        lines[name], params = rs_recsys_model(rt, name, spec, args.seed, cut, dev, cache)
+        if params is not None:
+            tt = params
+        gc.collect()
+        torch.cuda.empty_cache()
+    del cache
+    rd = rs_retrieval(rt, tt, rt.crec.TWO_TOWER, args.seed, dev)
+    del tt
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines["gin-tu"], ogb = rs_gin(rt, args.seed, dev)
+    launches = rt.counts()
+    log(f"recsys: launches on the phase's path {json.dumps(launches)}")
+    for name in ("l2topk", "fusedscan", "l2nn", "segsum"):
+        if launches[name] <= 0:
+            raise AssertionError(f"recsys: {name} was not launched on the phase's path")
+    rs_kernel_checks(rt, rd, launches, kernels, args.seed)
+    del rd
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(rs_segsum_check(rt, ogb, launches, args.seed))
+    del ogb
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"recsys: phase {wall:.1f} s against a budget of {RS_BUDGET_S} s")
+    return dict(lines=lines, launches=launches, wall_s=wall, cut=cut)
+
+
 def examples_phase(dev):
     """The port's examples as a user runs them, on the card: the
     quickstart and the Copydays evaluation, each a subprocess; crop10
@@ -4882,7 +5712,15 @@ class Port:
         from repro_torch.kernels.l2topk.ops import l2_topk
         from repro_torch.kernels.l2topk.ref import l2_topk_ref
         from repro_torch.models import transformer as tfm
+        from repro_torch.models import gnn, recsys
         from repro_torch.models.module import init_one, init_params
+        from repro_torch.configs import gnn as cgnn
+        from repro_torch.configs import recsys as crec
+        from repro_torch.core.lookup import probe_leaves
+        from repro_torch.data import graph
+        from repro_torch.data.batches import din_batch, dlrm_batch, twotower_batch
+        from repro_torch.kernels.segsum import segsum
+        from repro_torch.kernels.segsum.ref import segsum_ref
         from repro_torch.distributed.checkpoint import CheckpointManager
         from repro_torch.train import AdamWConfig, make_train_step, tree
         from repro_torch.train.step import init_train_state
@@ -4941,10 +5779,17 @@ class Port:
         self.CheckpointManager, self.tree, self.train_cli = CheckpointManager, tree, train_cli
         self.AdamWConfig, self.make_train_step = AdamWConfig, make_train_step
         self.train_state = init_train_state
+        self.recsys, self.gnn, self.crec, self.cgnn = recsys, gnn, crec, cgnn
+        self.graph, self.probe_leaves = graph, probe_leaves
+        self.dlrm_batch, self.din_batch = dlrm_batch, din_batch
+        self.twotower_batch = twotower_batch
+        self.segsum, self.segsum_ref = segsum, segsum_ref
+        self.segsum_f64 = fp32_bound.segsum_f64
+        self.segsum_error_ratio = fp32_bound.segsum_error_ratio
         self.wrappers = {"l2topk": l2_topk, "fusedscan": fused_topk,
                          "l2nn": l2_nearest, "adcscan": adc_topk,
                          "fusedadc": fused_adc_topk, "flashattn": flash_attention,
-                         "flashattn_bwd": flash_attention_bwd}
+                         "flashattn_bwd": flash_attention_bwd, "segsum": segsum}
 
     def reset_counts(self):
         for fn in self.wrappers.values():
@@ -5048,6 +5893,11 @@ def main(argv=None) -> int:
     log(f"before the train phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
         f"allocated")
     train_phase(rt, args, dev, kernels, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the recsys phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated")
+    recsys_phase(rt, args, dev, kernels, t_start)
     examples_phase(dev)
     log(f"script: {time.perf_counter() - t_start:.1f} s to here")
     log(json.dumps({"kernels": kernels}))

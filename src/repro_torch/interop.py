@@ -96,14 +96,14 @@ def quantizer_from_numpy(codebooks, meta: dict | None = None
     return ProductQuantizer(np.array(codebooks, np.float32), meta=meta)
 
 
-def transformer_params_from_numpy(params, cfg, device: str | torch.device | None = "cuda",
-                                  dtype: torch.dtype | None = None):
-    """The port's transformer weights from the reference's params pytree as
-    numpy arrays: ``embed``, ``final_norm`` and ``layers`` with every
-    ``(L, ...)`` stack that ``cfg.param_specs()`` names. ``dtype`` casts
-    each weight once on ``device`` (the compute dtype gives the same bits
-    as the reference's cast at every use); by default they stay fp32.
-    Raises on a missing, extra or misshapen weight."""
+def params_from_numpy(params, cfg, device: str | torch.device | None = "cuda",
+                      dtype: torch.dtype | None = None):
+    """The port's weights from the reference's params pytree as numpy
+    arrays, one tensor a leaf of ``cfg.param_specs()`` under the
+    reference's names (stacked ``(L, ...)`` weights stay stacked).
+    ``dtype`` casts each weight once on ``device`` (the compute dtype gives
+    the same bits as the reference's cast at every use); by default they
+    stay fp32. Raises on a missing, extra or misshapen leaf."""
     dev = resolve(device)
     specs = cfg.param_specs()
 
@@ -123,6 +123,12 @@ def transformer_params_from_numpy(params, cfg, device: str | torch.device | None
     return carry(specs, params, "")
 
 
+# the names of each model family's carry: one function for every spec tree
+transformer_params_from_numpy = params_from_numpy
+recsys_params_from_numpy = params_from_numpy
+gin_params_from_numpy = params_from_numpy
+
+
 def cache_from_numpy(cache, device: str | torch.device | None = "cuda"):
     """A KV cache ``{"k", "v"}`` of shape ``(L, B, S, Hkv, hd)`` (the
     reference's ``prefill``/``init_cache`` output) on ``device``, in fp32."""
@@ -140,15 +146,16 @@ def train_state_from_numpy(params, state, cfg,
                            device: str | torch.device | None = "cuda"):
     """The port's ``(params, opt_state)`` from the reference's train state
     as numpy trees: fp32 weights, ``m``, ``v`` and (with compression)
-    ``feedback`` shaped as ``cfg.param_specs()``, and the int32 ``step``."""
+    ``feedback`` shaped as ``cfg.param_specs()`` (a transformer's, a
+    recsys model's or GIN's), and the int32 ``step``."""
     dev = resolve(device)
-    out = {key: transformer_params_from_numpy(state[key], cfg, dev)
+    out = {key: params_from_numpy(state[key], cfg, dev)
            for key in ("m", "v", "feedback") if key in state}
     out["step"] = torch.as_tensor(np.array(state["step"], np.int32), device=dev)
     extra = set(state) - set(out)
     if extra:
         raise ValueError(f"train state: unexpected keys {sorted(extra)}")
-    return transformer_params_from_numpy(params, cfg, dev), out
+    return params_from_numpy(params, cfg, dev), out
 
 
 def train_state_to_numpy(params, state):

@@ -17,7 +17,8 @@ distances lie within the bound of the oracle's. TF32, which rounds each
 product's inputs to 11 significant bits, misses it several times over.
 ``attention_f64`` does the same for flash attention (its bound is in its
 docstring), and ``attention_bf16_tol`` bounds the gap between a bf16
-attention kernel and its plain version.
+attention kernel and its plain version; ``segsum_f64`` for the segment sum
+of GIN's message passing.
 
 These run on any device; they are checks, not part of the search path.
 """
@@ -29,6 +30,7 @@ import math
 import torch
 
 from repro_torch.core.distance import topk_lex
+from repro_torch.kernels.segsum.ref import segsum_ref
 
 U32 = 2.0**-24  # unit roundoff of fp32
 
@@ -377,3 +379,26 @@ def grads_error_ratio(got, exact, tol) -> float:
         err = (g.double() - e).abs()
         out = max(out, float(torch.where(err == 0, 0.0, err / t).max()))
     return out
+
+
+def segsum_f64(h, csr):
+    """The segsum plain version in float64 over ``csr`` (a
+    ``kernels.segsum.SegmentCSR``), with each output's fp32 bound:
+    ``(exact (n_rows, d) f64, tol (n_rows, d) f64)``. A row of n edges
+    sums n rounded products in some order, so its fp32 value lies within
+    gamma_{n+1} * sum |w h| of the exact sum (each product's rounding is
+    one more term of the chain)."""
+    exact = segsum_ref(h.double(), csr.indptr, csr.cols, csr.w.double())
+    mag = segsum_ref(h.double().abs(), csr.indptr, csr.cols, csr.w.double().abs())
+    n = (csr.indptr[1:] - csr.indptr[:-1]).double() + 1
+    return exact, (n * U32 / (1 - n * U32))[:, None] * mag
+
+
+def segsum_error_ratio(out, exact, tol) -> float:
+    """max |out - exact| / tol; an output whose bound is 0 (a row with no
+    edge, or only zero terms) must be exact, else the ratio is inf."""
+    err = (out.double() - exact).abs()
+    zero = tol == 0
+    if bool((err[zero] > 0).any()):
+        return math.inf
+    return float((err[~zero] / tol[~zero]).max()) if bool((~zero).any()) else 0.0

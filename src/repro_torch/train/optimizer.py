@@ -9,7 +9,10 @@ fp32 tensor is rounded to fp32 first, as JAX's weakly typed scalars are).
 ``adamw_update`` updates in place: the moments, and the parameters under
 ``torch.no_grad()`` (each keeps its tensor, and so its ``requires_grad``),
 where the reference returns new arrays. At full width that saves a copy of
-the parameters and both moments.
+the parameters and both moments. Each leaf is updated in slices of at most
+``UPDATE_CHUNK`` entries: the update is elementwise, so the bits are the
+same, and its temporaries stay a slice's size (DLRM-rm2's 1.66 G table
+entries would otherwise need some 27 GB of them).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.train import tree
+
+UPDATE_CHUNK = 2**26  # entries of a leaf updated at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +71,17 @@ def global_norm(grads) -> torch.Tensor:
     return torch.stack(sums).sum().sqrt()
 
 
+def _update(p, g, m, v, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """One slice of a leaf: its moments and parameters in place."""
+    g = g.float() * scale if scale is not None else g.float()
+    m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    v.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)
+    delta = (m / bc1) / ((v / bc2).sqrt() + cfg.eps)
+    if cfg.weight_decay:
+        delta = delta + p.float() * cfg.weight_decay
+    p.copy_(p.float() - lr * delta)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig):
     """One AdamW step. Returns ``(params, state, metrics)``: the same
@@ -83,12 +99,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=sf.device), sf)
     for (_, p), g, m, v in zip(tree.items(params), tree.leaves(grads),
                                tree.leaves(state["m"]), tree.leaves(state["v"])):
-        g = g.float() * scale if scale is not None else g.float()
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)
-        delta = (m / bc1) / ((v / bc2).sqrt() + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + p.float() * cfg.weight_decay
-        p.copy_(p.float() - lr * delta)
+        pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
+        for s in range(0, pf.shape[0], UPDATE_CHUNK):
+            e = s + UPDATE_CHUNK
+            _update(pf[s:e], gf[s:e], mf[s:e], vf[s:e], scale, lr, bc1, bc2, cfg)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -12,11 +12,14 @@ import torch
 
 import repro_torch
 from repro_torch import interop
+from repro_torch.configs import gnn as cgnn
+from repro_torch.configs import recsys as crec
 from repro_torch.configs.lm import GEMMA3_4B_SMOKE, MOONSHOT_V1_16B_SMOKE
 from repro_torch.device import resolve
 from repro_torch.launch import index as index_cli
 from repro_torch.launch import serve
 from repro_torch.launch import train as train_cli
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import init_params
 from repro_torch.serving import SearchSession
@@ -50,6 +53,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.configs.sift100m\n"
         "import repro_torch.distributed.meshutil, repro_torch.distributed.collectives\n"
         "import repro_torch.core.dispatch\n"
+        "import repro_torch.models.recsys, repro_torch.models.gnn\n"
+        "import repro_torch.data.graph, repro_torch.kernels.segsum\n"
+        "import repro_torch.configs.recsys, repro_torch.configs.gnn\n"
         "import repro_torch.train, repro_torch.train.optimizer\n"
         "import repro_torch.train.grad_compress, repro_torch.train.step\n"
         "import repro_torch.train.tree, repro_torch.launch.train\n"
@@ -96,7 +102,9 @@ def _no_cuda():
                                    "SearchSession.load_or_build",
                                    "launch.serve", "launch.index",
                                    "local_mesh", "forward (MoE)", "launch.train",
-                                   "loss_fn", "train_state_from_numpy"])
+                                   "loss_fn", "train_state_from_numpy",
+                                   "dlrm_smoke", "gin_smoke", "dlrm_forward",
+                                   "gnn.prepare"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -105,6 +113,7 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
     cfg = GEMMA3_4B_SMOKE
     cpu_params = init_params(cfg.param_specs(), torch.Generator().manual_seed(0),
                              device="cpu")
+    dlrm = recsys.DLRMConfig(vocab_per_field=8, embed_dim=4, bot_mlp=(4,), top_mlp=(4, 1))
     calls = {
         "build_tree": lambda: repro_torch.build_tree(
             x, (2, 2), generator=torch.Generator().manual_seed(0)),
@@ -132,6 +141,13 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
             *interop.train_state_to_numpy(cpu_params, {
                 "m": cpu_params, "v": cpu_params,
                 "step": torch.zeros((), dtype=torch.int32)}), cfg),
+        "dlrm_smoke": lambda: crec.dlrm_smoke(),
+        "gin_smoke": lambda: cgnn.gin_smoke(),
+        "dlrm_forward": lambda: recsys.dlrm_forward(
+            init_params(dlrm.param_specs(), torch.Generator().manual_seed(0),
+                        device="cpu"), dlrm,
+            {"dense": np.zeros((2, 13), np.float32), "sparse": np.zeros((2, 26), np.int32)}),
+        "gnn.prepare": lambda: gnn.prepare({"feats": x, "edges": np.zeros((2, 3), np.int32)}),
         "forward (MoE)": lambda: tfm.forward(
             init_params(MOONSHOT_V1_16B_SMOKE.param_specs(),
                         torch.Generator().manual_seed(0), device="cpu"),
