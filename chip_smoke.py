@@ -157,7 +157,7 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      ``vote_images``; crop10 recall@1 must reach 0.9. J2-J5 read the store
      through a per-process block cache of this script. The kernels line
      gains each kernel's launches in J2, J3 and J5 (the child's are not
-     counted). If the script would pass 1,100 s, the job is cut to
+     counted). If the script would pass 1,000 s, the job is cut to
      ``--rows 2097149 --block-rows 1048576`` and says so;
   7. shards (both jobs over a ``DeviceMesh``), after the index job: half
      the main path's rows, 2^23 (``scripts/shards_phase.py`` runs all
@@ -325,7 +325,26 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      samples/s, TFLOP/s, peak memory and top device ops; the K1, K2 and K3
      rows gain the retrieval path's numbers, and a ``segsum`` row joins the
      kernels line;
- 12. the port's examples as subprocesses on the card:
+ 12. the cell registry's dry-run (``python -m repro_torch.launch.dryrun``,
+     after the recsys phase): ``--list`` (11 architectures, 44 cells), the
+     abstract records of all 44 cells on ``16x16``, ``2x16x16`` and the
+     card (how many fit one card whole), then the measured records of
+     llama3.2-3b ``prefill_32k`` at batch 1 of 32 (32,768 tokens through
+     K6 in every layer: its first run on the card), llama3.2-3b
+     ``decode_32k`` at the batch its KV cache allows, gin-tu ``molecule``
+     and sift100m ``search_32k`` (its corpus cut from 2^28 to 2^24 rows,
+     made on the card from the seed), each measured in a process of its
+     own as ``dryrun --all`` measures it (late in this one the profiler
+     loses the hand-written kernels' events), each a JSON line with its
+     roofline, peak memory, top device ops and launches in the traced
+     step; then K6 at 32,768 tokens held against its plain version (a GQA
+     group and 4,096 query rows at a time, within the bf16 tolerance,
+     with two broken plain variants that must fail) and timed alone
+     beside its bound, the plain version and
+     ``scaled_dot_product_attention``.
+     Past ``DR_LATEST_START_S`` only the abstract records and gin-tu
+     ``molecule`` run (printed as a cut);
+ 13. the port's examples as subprocesses on the card:
      ``examples/torch_quickstart.py`` and ``examples/torch_copydays_eval.py``
      (crop10 recall@1 at least 0.9).
 
@@ -341,6 +360,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -418,8 +438,8 @@ JOB_ROWS, JOB_BLOCK = 8388605, 2**22
 # first block, then one off-grid block of 1,048,573 rows
 JOB_CUT_ROWS, JOB_CUT_BLOCK = 2097149, 2**20
 JOB_BUDGET_S = 150  # the phase's time budget
-JOB_AFTER_S = 300  # the phases after it: shards, LM, MoE, train, recsys, examples
-JOB_LATEST_END_S = 1100  # the script's end past which the job is cut
+JOB_AFTER_S = 340  # the phases after it: shards, LM, MoE, train, recsys, dryrun, examples
+JOB_LATEST_END_S = 1000  # the script's end past which the job is cut
 JOB_VERIFY = 256  # --verify-queries of the compaction run
 JOB_CRASH_WAIT_S = 300  # how long J1 waits for the first commit
 CD_ORIGINALS = 127  # the paper's Copydays originals
@@ -448,10 +468,28 @@ SIZES = dict(index_rows=INDEX_ROWS, n_queries=N_QUERIES, sample_rows=SAMPLE_ROWS
              n_leaves=FANOUTS[0] * FANOUTS[1])
 # PQ codes at the JAX package's defaults (Index.enable_codes)
 PQ = dict(m=8, bits=8, sample=65_536, iters=16, seed=0)
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+
+
+def _port_module(name: str):
+    """``src/repro_torch/launch/<name>.py`` of this checkout, loaded from its
+    file alone (it imports torch only), so that ``Port(src=...)`` may still
+    import another checkout's package."""
+    path = Path(__file__).resolve().parent / "src" / "repro_torch" / "launch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_chip_smoke_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+# the one set of H100 peaks and timing helpers (launch/roofline.py) and the
+# trace helpers (launch/trace_cost.py)
+_roofline, _trace_cost = _port_module("roofline"), _port_module("trace_cost")
+HBM_BYTES_PER_S = _roofline.HBM_BW
+FP32_FLOPS = _roofline.PEAK_FLOPS_FP32
+BF16_FLOPS = _roofline.PEAK_FLOPS_BF16
+time_ms, bound = _roofline.time_ms, _roofline.bound
+device_trace = _trace_cost.device_trace
 # LM serving phase: gemma3-4b, 4 prompts of 2048 tokens, 32 decode steps
 LM_BATCH = 4
 LM_PROMPT = 2048
@@ -498,9 +536,17 @@ RS_PROBES = (1, 3)
 RS_Q_CAP = 4096  # (d): the lookup slab of a wave (benchmarks/ann_retrieval.py's)
 RS_F64_ROWS = 2**17  # index rows a chunk of (d)'s float64 brute force
 RS_MAX_SWAPS = 16  # (d): ids out of the float64 order, each within fp32's bounds (0-4 read)
-RS_REDDIT = (232965, 492)  # minibatch_lg's base graph: Reddit's nodes and mean degree
-RS_SEEDS = 1024  # minibatch_lg's seed nodes
-RS_FANOUT = (15, 10)
+# the dryrun phase: the cell registry, its abstract records and four cells
+# measured (arch, shape, batch: None for the card cut), one step traced
+DR_CELLS = (("llama3.2-3b", "prefill_32k", 1), ("llama3.2-3b", "decode_32k", None),
+            ("gin-tu", "molecule", None), ("sift100m", "search_32k", None))
+DR_CUT_CELLS = (("gin-tu", "molecule", None),)  # past DR_LATEST_START_S
+DR_STEPS = 2  # timed steps a cell
+DR_BUDGET_S = 90
+DR_LATEST_START_S = 1050
+# each measured cell's kernels, and the launches one traced step must show
+DR_KERNELS = {"prefill_32k": {"flashattn": 28}, "molecule": {"segsum": None},
+              "search_32k": {"fusedscan": 1}}
 
 
 T0 = time.perf_counter()  # the script's start, for the lines' time stamps
@@ -516,45 +562,6 @@ def log(msg: str) -> None:
 def sync_now() -> float:
     torch.cuda.synchronize()
     return time.perf_counter()
-
-
-def time_ms(fn, args_list, warmup: int = 2) -> tuple[float, float]:
-    """(ms, wall_ms) per call of ``fn(*args)`` over ``args_list``, from CUDA
-    events around the whole run, after a warm-up.
-
-    ``wall_ms``: the host issues the calls as it goes, so the card may wait
-    for it between calls. ``ms``: the stream is first held by a spin kernel
-    long enough for the host to enqueue every call, so the calls run back
-    to back and the events see device time only (none of the timed calls
-    synchronises inside, which would drain the hold).
-    """
-    for args in args_list[:warmup]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for args in args_list:
-        fn(*args)
-    end.record()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / len(args_list)
-    torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9))  # cycles at <= 2 GHz
-    start.record()
-    for args in args_list:
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / len(args_list), wall
-
-
-def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS
-          ) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 @contextlib.contextmanager
@@ -2654,24 +2661,8 @@ def trace_searches(rt, run, sizes):
                 f"trace_{tag}wall_s": wall})
 
 
-def device_trace(fn):
-    """(device-side profiler events, device busy s) of one call of ``fn``."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's device time repeats its kernels'
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return ev, sum(e.self_device_time_total for e in ev) / 1e6
-
-
 def log_trace(name, ev, busy, wall, n_top):
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:n_top]
-    log(f"trace {name}: device busy {busy} s of {wall} s wall "
-        f"(idle share {1 - busy / wall}); top device time: " + "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 1e3} ms x{e.count}"
-            for e in top))
+    log(_trace_cost.top_ops_line(name, ev, busy, wall, n_top))
 
 
 def trace_build(rt, args, dev, sizes, tree, wall):
@@ -3675,28 +3666,6 @@ def trace_lm(rt, lm):
 # ---------------------------------------------------------------------------
 
 
-def moe_params(rt, cfg, seed: int, dev, n_layers: int):
-    """bf16 weights of ``cfg``'s first ``n_layers`` layers, drawn on the
-    card from ``seed``: each layer of each stacked weight from a generator
-    of its own, so a shallower model holds a deeper one's first layers, and
-    the fp32 draw takes one layer's room at a time."""
-    specs, dt = cfg.param_specs(), cfg.compute_dtype
-
-    def gen(j, i):
-        return torch.Generator(device=dev).manual_seed(seed * 1_000_003 + j * 1009 + i)
-
-    out = {"embed": rt.init_one(specs["embed"], gen(0, 0), dev, dt),
-           "final_norm": rt.init_one(specs["final_norm"], gen(1, 0), dev, dt),
-           "layers": {}}
-    for j, (name, spec) in enumerate(sorted(specs["layers"].items())):
-        one = dataclasses.replace(spec, shape=spec.shape[1:], axes=spec.axes[1:])
-        t = torch.empty((n_layers,) + tuple(spec.shape[1:]), dtype=dt, device=dev)
-        for i in range(n_layers):
-            t[i] = rt.init_one(one, gen(j + 2, i), dev, dt)
-        out["layers"][name] = t
-    return out
-
-
 def moe_peak_gib(rt, cfg, n_layers: int, batch: int, prompt: int, max_seq: int
                  ) -> float:
     """The timed run's device memory, predicted: the bf16 weights, the
@@ -3898,7 +3867,7 @@ def moe_phase(rt, args, dev, kernels, t_start):
         rt.lm_batch(LM_BATCH, LM_PROMPT, cfg.vocab_size, seed=args.seed)["tokens"],
         device=dev)
     t0 = sync_now()
-    params = moe_params(rt, cfg, args.seed, dev, depth)
+    params = rt.lm.layered_params(cfg, args.seed, dev, depth)
     t_init = sync_now() - t0
     log(f"moe: starts at {t_phase - t_start:.0f} s; {full.name} at {depth} layers "
         f"({cut or 'full depth, no cut'}), {cfg.param_count()} parameters "
@@ -3966,7 +3935,7 @@ def moe_phase(rt, args, dev, kernels, t_start):
     # capacity factor where nothing drops ---
     torch.cuda.reset_peak_memory_stats()
     c8 = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS)
-    p8 = moe_params(rt, c8, args.seed, dev, MOE_CHECK_LAYERS)
+    p8 = rt.lm.layered_params(c8, args.seed, dev, MOE_CHECK_LAYERS)
     cf, n = MOE_CHECK_CF, LM_DECODE + 1
     captured = {}
     real_fa, real_ffn = rt.tfm.flash_attention, rt.tfm._moe_ffn
@@ -4852,47 +4821,6 @@ def train_phase(rt, args, dev, kernels, t_start):
 # ---------------------------------------------------------------------------
 
 
-def rs_zipf(a: float, vocab: int, shape, g) -> torch.Tensor:
-    """``min(zipf(a), vocab - 1)`` ids drawn on the card by the inverse CDF:
-    the distribution ``data/batches.py`` draws, not its numbers (numpy's
-    ``zipf`` takes about 160 ns an id on the host, 16 s for
-    retrieval_cand's 1M x 100). The tail past ``vocab - 2`` lands on
-    ``vocab - 1``; zeta(a) from Euler-Maclaurin at ``vocab - 1``."""
-    dev = g.device
-    k = torch.arange(1, vocab - 1, dtype=torch.float64, device=dev)
-    w = k ** -a
-    n = float(vocab - 1)
-    zeta = (float(w.sum()) + n ** (1 - a) / (a - 1) + 0.5 * n ** -a
-            + a * n ** (-a - 1) / 12)
-    cdf = torch.cumsum(w, 0) / zeta
-    del k, w
-    u = torch.rand(math.prod(shape), generator=g, dtype=torch.float64, device=dev)
-    ids = torch.searchsorted(cdf, u, right=True) + 1
-    return ids.clamp_(max=vocab - 1).reshape(shape).int()
-
-
-def rs_dlrm_batch(cfg, b: int, g) -> dict:
-    """``dlrm_batch``'s distributions drawn on the card (its planted label)."""
-    dense = torch.randn((b, cfg.n_dense), generator=g, device=g.device)
-    sparse = rs_zipf(1.2, cfg.vocab_per_field, (b, cfg.n_sparse), g)
-    logit = dense[:, 0] + 0.5 * ((sparse[:, 0] % 2) * 2 - 1)
-    noise = torch.randn((b,), generator=g, device=g.device)
-    return {"dense": dense, "sparse": sparse, "label": (logit + noise > 0).float()}
-
-
-def rs_din_batch(cfg, b: int, g) -> dict:
-    """``din_batch``'s distributions drawn on the card: half positives,
-    whose target comes from the history."""
-    dev = g.device
-    hist = rs_zipf(1.3, cfg.vocab, (b, cfg.seq_len), g)
-    pos = hist[torch.arange(b, device=dev),
-               torch.randint(0, cfg.seq_len, (b,), generator=g, device=dev)]
-    neg = rs_zipf(1.3, cfg.vocab, (b,), g)
-    label = (torch.rand((b,), generator=g, device=dev) < 0.5).float()
-    target = torch.where(label > 0, pos, neg).clamp(min=1)
-    return {"hist": hist, "target": target, "label": label}
-
-
 def rs_rows(batch: dict, rows) -> dict:
     return {k: v[rows] for k, v in batch.items()}
 
@@ -4936,9 +4864,9 @@ def rs_serve_batch(rt, name, cfg, shape, b, seed, g, cache) -> dict:
         elif shape == "serve_p99":
             cache[key] = rt.din_batch(b, cfg.seq_len, cfg.vocab, seed=seed + 12)
         elif name == "dlrm-rm2":
-            cache[key] = rs_dlrm_batch(cfg, b, g)
+            cache[key] = rt.crec.dlrm_batch_on(cfg, b, g)
         else:
-            cache[key] = rs_din_batch(cfg, b, g)
+            cache[key] = rt.crec.din_batch_on(cfg, b, g)
         cache[key] = {k: torch.as_tensor(v, device=dev)
                       for k, v in cache[key].items() if k != "label"}
     return cache[key]
@@ -5145,53 +5073,13 @@ def rs_recsys_model(rt, name, spec, seed, cut, dev, cache) -> tuple:
 
 
 def rs_gin_batch(rt, shape: str, seed: int, dev) -> tuple:
-    """gin-tu's ``shape`` as a padded batch on the card, its edges sorted
-    both ways (``gnn.prepare``): the real sizes, then the padding
-    (``pad_graph_batch``'s: padded edges of weight 0 into node 0, padded
-    labels -1). Structures from the port's ``data/graph.py``; features and
-    labels drawn on the card."""
-    spec = rt.cgnn.SHAPES[shape]
-    pad = rt.cgnn.padded(spec)
-    g = torch.Generator(device=dev).manual_seed(seed + 31)
-    rng = np.random.default_rng(seed + 32)
-    n_classes = spec["n_classes"]
-    if shape == "molecule":
-        mb = rt.graph.molecule_batch(128, 30, 64, spec["d_in"], n_classes, seed=seed)
-        feats = torch.as_tensor(mb["feats"], device=dev)
-        edges = torch.as_tensor(mb["edges"], device=dev)
-        labels = torch.as_tensor(mb["labels"], device=dev)
-    elif shape == "minibatch_lg":
-        base = rt.graph.random_graph(*RS_REDDIT, seed=seed)
-        seeds = rng.choice(base.n_nodes, RS_SEEDS, replace=False)
-        sub, e, n_seed = rt.graph.neighbor_sample(base, seeds, RS_FANOUT, seed=seed)
-        del base
-        feats = torch.randn((len(sub), spec["d_in"]), generator=g, device=dev)
-        edges = torch.as_tensor(e, device=dev)
-        labels = torch.full((len(sub),), -1, dtype=torch.int32, device=dev)
-        labels[:n_seed] = torch.randint(0, n_classes, (n_seed,), generator=g,
-                                        device=dev, dtype=torch.int32)
-    else:
-        base = rt.graph.random_graph(spec["nodes"], spec["edges"] / spec["nodes"], seed=seed)
-        edges = torch.as_tensor(rt.graph.to_edge_list(base), device=dev)
-        del base
-        feats = torch.randn((spec["nodes"], spec["d_in"]), generator=g, device=dev)
-        labels = torch.randint(0, n_classes, (spec["nodes"],), generator=g, device=dev,
-                               dtype=torch.int32)
-    n, e = feats.shape[0], edges.shape[1]
-    if n > pad["nodes"] or e > pad["edges"]:
-        raise AssertionError(f"gin {shape}: ({n}, {e}) exceeds the pad {pad}")
-    batch = {"feats": torch.zeros((pad["nodes"], spec["d_in"]), device=dev),
-             "edges": torch.zeros((2, pad["edges"]), dtype=torch.int32, device=dev),
-             "edge_w": torch.zeros((pad["edges"],), device=dev),
-             "labels": torch.full((pad["nodes"],), -1, dtype=torch.int32, device=dev)}
-    batch["feats"][:n] = feats
-    batch["edges"][:, :e] = edges
-    batch["edge_w"][:e] = 1.0
-    batch["labels"][:n] = labels
-    del feats, edges, labels
+    """gin-tu's ``shape`` as a padded batch on the card
+    (``configs.gnn.gin_batch``), its edges then sorted both ways
+    (``gnn.prepare``, timed)."""
+    batch, sizes = rt.cgnn.gin_batch(shape, seed, dev, prepare=False)
     t0 = sync_now()
     batch = rt.gnn.prepare(batch, device=dev)
-    return batch, dict(nodes=n, edges=e, padded=pad, prepare_s=sync_now() - t0)
+    return batch, dict(sizes, prepare_s=sync_now() - t0)
 
 
 def rs_gin(rt, seed, dev) -> tuple:
@@ -5615,6 +5503,190 @@ def recsys_phase(rt, args, dev, kernels, t_start) -> dict:
     return dict(lines=lines, launches=launches, wall_s=wall, cut=cut)
 
 
+def dryrun_phase(rt, args, dev, kernels, t_start) -> dict:
+    """The cell registry's dry-run (``launch/dryrun.py``): ``--list``, the
+    abstract records on three layouts, then :data:`DR_CELLS` measured on
+    the card, each in a process of its own, and K6 alone at 32,768
+    tokens (:func:`k6_at_32k`)."""
+    t0 = time.perf_counter()
+    start = t0 - t_start
+    cut = start > DR_LATEST_START_S
+    cells = DR_CUT_CELLS if cut else DR_CELLS
+    log(f"dryrun: starts at {start:.1f} s" + (
+        f"; past {DR_LATEST_START_S} s: the abstract records and "
+        f"{'/'.join(c[1] for c in cells)} only (a cut)" if cut else ""))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = rt.dryrun.main(["--list"])
+    listed = [line.split(" -> ") for line in buf.getvalue().splitlines()]
+    n_cells = sum(len(shapes.split(", ")) for _, shapes in listed)
+    if rc or len(listed) != 11 or n_cells != 44:
+        raise AssertionError(f"dryrun --list: rc {rc}, {len(listed)} architectures, "
+                             f"{n_cells} cells (11 and 44 expected)")
+    log(f"dryrun --list: {len(listed)} architectures, {n_cells} cells")
+    registry = rt.registry
+    recs = [rt.dryrun.abstract_record(registry[a].cell(s), mesh)
+            for a in registry for s in registry[a].cells
+            for mesh in ("16x16", "2x16x16", "card")]
+    card = [r for r in recs if r["mesh"] == "card"]
+    whole = [r for r in card if r["status"] == "ok"
+             and r["card_cut"]["batch"] == r["card_cut"]["full"]]
+    at_cut = [r for r in card if r["status"] == "ok" and r not in whole]
+    no_fit = [r for r in card if r["status"] == "skip" and "card_cut" in r]
+    log(f"dryrun --abstract: {len(recs)} records (44 cells x 16x16, 2x16x16, card); "
+        f"{len(whole)} of 44 cells fit one card whole, {len(at_cut)} more at a cut, "
+        f"{len(no_fit)} do not fit it at batch 1 "
+        f"({', '.join(r['arch'] + ' ' + r['shape'] for r in no_fit)}), "
+        f"{sum(r['status'] == 'skip' for r in card) - len(no_fit)} are the "
+        f"reference's own skips")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each cell in a process of its own, as `dryrun --all` runs it: late in
+    # this one the profiler's traces lose the hand-written kernels' events
+    recs = []
+    for arch, shape, batch in cells:
+        rec, rc = rt.dryrun.measured_in_child(arch, shape, argparse.Namespace(
+            device="cuda", seed=args.seed, steps=DR_STEPS, batch=batch), timeout=DR_BUDGET_S)
+        if rc:
+            raise AssertionError(f"dryrun {arch} {shape}: the measuring process exit {rc}: "
+                                 f"{rec.get('error') or rec.get('status')}")
+        recs.append(rec)
+    out = {}
+    for rec in recs:
+        arch, shape = rec["arch"], rec["shape"]
+        log(json.dumps(rec))
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape}: {rec['status']} "
+                                 f"{rec.get('skip_reason') or rec.get('error')}")
+        roof = rec["roofline"]
+        for key in ("wall_s", "device_s", "traced_wall_s", "mfu"):
+            if not (isinstance(roof[key], float) and math.isfinite(roof[key])
+                    and roof[key] > 0):
+                raise AssertionError(f"dryrun {arch} {shape}: {key} {roof[key]}")
+        if not roof["mfu"] < 1.0:
+            raise AssertionError(f"dryrun {arch} {shape}: mfu {roof['mfu']} over the peak")
+        if rec["launches"].get("flashattn.cuda_core"):  # bf16 at hd 128: tensor cores
+            raise AssertionError(f"dryrun {arch} {shape}: K6 launched its CUDA-core "
+                                 f"kernel {rec['launches']['flashattn.cuda_core']} times")
+        for name, n in DR_KERNELS.get(shape, {}).items():
+            got = rec["launches"].get(name, 0)
+            if got <= 0 or (n is not None and got != n):
+                raise AssertionError(f"dryrun {arch} {shape}: {name} launched {got} "
+                                     f"times in the traced step ({n} expected)")
+        log(f"dryrun {arch} {shape}: batch {rec['batch']} "
+            f"(reduced {json.dumps(rec['reduced'])}), wall {roof['wall_s']} s, device "
+            f"{roof['device_s']} s, idle share {roof['idle_share']}, mfu {roof['mfu']}, "
+            f"peak {rec['memory']['peak_bytes'] / 2**30:.3f} GiB, dominant "
+            f"{roof['dominant']}; launches in the traced step {json.dumps(rec['launches'])}")
+        out[shape] = rec
+    kernels_by_name = {kr["name"]: kr for kr in kernels}
+    for rec in out.values():
+        for name, n in rec["launches"].items():
+            if name in kernels_by_name:  # variant counts ("flashattn.tensor_core") aside
+                kernels_by_name[name].setdefault("dryrun_launches", {})[
+                    f"{rec['arch']} {rec['shape']}"] = n
+    if "prefill_32k" in out:
+        kernels_by_name["flashattn"]["k6_32k"] = k6_at_32k(rt, dev, args.seed,
+                                                           out["prefill_32k"])
+    log(f"dryrun: phase {time.perf_counter() - t0:.1f} s (budget {DR_BUDGET_S} s)")
+    return out
+
+
+def k6_at_32k(rt, dev, seed: int, rec: dict) -> dict:
+    """K6 at llama3.2-3b's 32,768-token layer (1 x 32768, 24 / 8 heads, hd
+    128, causal, bf16) on seeded inputs: held against its plain version
+    (:func:`k6_32k_check`), timed alone beside the plain version (in the
+    check's pieces) and ``scaled_dot_product_attention``, its device ms a
+    launch in the prefill's trace, and its bound (q, k, v read and out
+    written once; the causal half of the products at the bf16 peak)."""
+    cfg = rt.lm.LLAMA32_3B
+    S, Hq, Hkv, hd = rt.lm.PREFILL_32K["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed + 61)
+    q = torch.randn((1, S, Hq, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, S, Hkv, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, S, Hkv, hd), generator=g, device=dev).to(torch.bfloat16)
+    check = k6_32k_check(rt, q, k, v)
+    ms, _ = time_ms(lambda q, k, v: rt.flash_attention(q, k, v), [(q, k, v)] * 4, 1)
+    plain_ms, _ = time_ms(lambda q, k, v: [rt.flash_attention_ref(*piece) for _, _, piece
+                                           in k6_32k_pieces(q, k, v)], [(q, k, v)], 0)
+    # sdpa on keys and values repeated to the query heads (K6's GQA map),
+    # which keeps it on its flash backend
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(Hq // Hkv, 2),
+                                              v.repeat_interleave(Hq // Hkv, 2)))
+    sdpa_ms, _ = time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), [(qt, kt, vt)] * 4, 1)
+    flops = 4.0 * S * (S + 1) / 2 * Hq * hd
+    bytes_moved = S * (2 * Hq + 2 * Hkv) * hd * 2
+    bound_ms, by = bound(bytes_moved, flops, BF16_FLOPS)
+    traced = [op for op in rec["top_ops"] if "flash" in op["name"]]
+    row = dict(shape=[1, S, Hq, Hkv, hd], **check, ms=ms, plain_ms=plain_ms,
+               sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=by, tflops=flops / ms / 1e9,
+               trace_ms_a_launch=(traced[0]["device_ms"] / traced[0]["launches"]
+                                  if traced else None),
+               prefill_launches=rec["launches"].get("flashattn"))
+    log(f"K6 at 32,768 tokens: {check['bf16_tol_ratio']} x the bf16 tolerance (broken "
+        f"variants {json.dumps(check['broken_variant_ratios'])}); {ms} ms a call "
+        f"({row['tflops']} TFLOP/s), in the prefill's trace {row['trace_ms_a_launch']} ms "
+        f"a launch, plain {plain_ms} ms (in {K6_32K_ROWS}-row pieces a GQA group), sdpa "
+        f"{sdpa_ms} ms, bound {bound_ms} ms ({by})")
+    return row
+
+
+K6_32K_ROWS = 4096  # query rows a piece: a GQA group's float64 scores 3.2 GB
+
+
+def k6_32k_pieces(q, k, v):
+    """(rows, heads, (q, k, v)): pieces of one GQA group (its query heads
+    against its KV head) and ``K6_32K_ROWS`` query rows each, rows [i, e)
+    against keys [0, e), which under the causal mask is the whole
+    attention of those rows."""
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    for h in range(k.shape[2]):
+        for i in range(0, S, K6_32K_ROWS):
+            e = min(S, i + K6_32K_ROWS)
+            rows, heads = slice(i, e), slice(h * G, (h + 1) * G)
+            yield rows, heads, (q[:, rows, heads], k[:, :e, h:h + 1], v[:, :e, h:h + 1])
+
+
+def k6_32k_check(rt, q, k, v) -> dict:
+    """K6's output at 32k tokens against ``flash_attention_ref`` piece by
+    piece (:func:`k6_32k_pieces`), within ``attention_bf16_tol``; and two
+    broken plain variants on the first group that must fail: each row
+    missing its own key (rows 1 .. ``K6_32K_ROWS``), and the keys past the
+    last 2,048 dropped (``window=2048``, the last ``K6_32K_ROWS`` rows),
+    a fault that only rows past 2,048 keys can show."""
+    ref, tolf = rt.flash_attention_ref, rt.attention_bf16_tol
+    got = rt.flash_attention(q, k, v)
+    S, G, R = q.shape[1], q.shape[2] // k.shape[2], K6_32K_ROWS
+
+    def ratio(a, b, tol):
+        return float(((a.double() - b.double()).abs() / tol).max())
+
+    tol_ratio, err = 0.0, 0.0
+    for rows, heads, piece in k6_32k_pieces(q, k, v):
+        a, want = got[:, rows, heads], ref(*piece)
+        tol_ratio = max(tol_ratio, ratio(a, want, tolf(*piece)))
+        err = max(err, float((a.float() - want.float()).abs().max()))
+        del want
+    q0, k0, v0 = q[:, :, :G], k[:, :, :1], v[:, :, :1]
+    broken = {
+        "diagonal_off_by_one": ratio(got[:, 1:R + 1, :G],
+                                     ref(q0[:, 1:R + 1], k0[:, :R], v0[:, :R]),
+                                     tolf(q0[:, 1:R + 1], k0[:, :R + 1], v0[:, :R + 1])),
+        "keys_past_2048_dropped": ratio(got[:, S - R:, :G],
+                                        ref(q0[:, S - R:], k0, v0, window=2048),
+                                        tolf(q0[:, S - R:], k0, v0)),
+    }
+    del got
+    if not tol_ratio <= 1.0:
+        raise AssertionError(f"K6 at {S} tokens: {tol_ratio} x the bf16 tolerance")
+    for name, br in broken.items():
+        if not br > 1.0:
+            raise AssertionError(f"K6 at {S} tokens: the broken plain variant {name} "
+                                 f"passes the check ({br} x)")
+    return dict(bf16_tol_ratio=tol_ratio, max_abs_err=err, broken_variant_ratios=broken)
+
+
 def examples_phase(dev):
     """The port's examples as a user runs them, on the card: the
     quickstart and the Copydays evaluation, each a subprocess; crop10
@@ -5654,7 +5726,8 @@ class Port:
         from repro_torch import obs
         from repro_torch.codes import IndexRowReader, ProductQuantizer, rerank_exact
         from repro_torch.codes import pq as pq_module
-        from repro_torch.configs import lm
+        from repro_torch.configs import REGISTRY, lm
+        from repro_torch.launch import dryrun
         from repro_torch.core import route
         from repro_torch.core.engine.executors import (
             _build_adc_lut,
@@ -5764,6 +5837,7 @@ class Port:
         self.adc_topk, self.adc_topk_ref = adc_topk, adc_topk_ref
         self.fused_adc_topk = fused_adc_topk
         self.lm, self.tfm, self.lm_batch, self.init_params = lm, tfm, lm_batch, init_params
+        self.registry, self.dryrun = REGISTRY, dryrun
         self.init_one, self.fp32_gamma = init_one, fp32_bound.gamma
         self.flash_attention, self.flash_attention_ref = flash_attention, flash_attention_ref
         self.fa_variant = variant
@@ -5898,6 +5972,11 @@ def main(argv=None) -> int:
     log(f"before the recsys phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
         f"allocated")
     recsys_phase(rt, args, dev, kernels, t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the dryrun phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated")
+    dryrun_phase(rt, args, dev, kernels, t_start)
     examples_phase(dev)
     log(f"script: {time.perf_counter() - t_start:.1f} s to here")
     log(json.dumps({"kernels": kernels}))

@@ -4,8 +4,11 @@ configurations (``CONFIG`` of each, the numbers as the repository has
 them), the assigned shapes' batch sizes, the per-sample FLOP counts and
 the smoke entry points, which run one train step and one forward at a
 reduced size on ``device`` (the card unless the caller passes
-``device="cpu"``). The reference's ``Cell`` / ``ArchDef`` registry is not
-copied: it describes a TPU mesh.
+``device="cpu"``), and the sixteen cells with their ``ArchDef``s
+(``configs/recsys_common.py``'s ``standard_recsys_cells``; two-tower's
+own). On the card a cell is cut along its samples only; its batch is
+drawn there from the seed, in the numpy generators' distributions
+(``data/batches.py``).
 
 Shapes (assigned): train_batch (B = 65,536, train), serve_p99 (B = 512,
 online inference), serve_bulk (B = 262,144, offline scoring),
@@ -19,8 +22,10 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchDef, Cell, register
 from repro_torch.data.batches import din_batch, dlrm_batch, twotower_batch
 from repro_torch.device import resolve
+from repro_torch.distributed.shardutil import Arg, abstract_opt_state, abstract_params
 from repro_torch.models import recsys
 from repro_torch.models.module import init_params
 from repro_torch.train import AdamWConfig, make_train_step
@@ -182,3 +187,254 @@ def twotower_smoke(device: str | torch.device | None = "cuda") -> dict:
                                                      "cand_ids": cand}, device=dev)
     _finite(scores, 256, cfg.name)
     return {"loss": loss, "params": cfg.param_count()}
+
+
+# ---------------------------------------------------------------------------
+# cells (the reference's configs/recsys_common.py and the four configs)
+# ---------------------------------------------------------------------------
+
+
+def zipf_ids(a: float, vocab: int, shape, g: torch.Generator) -> torch.Tensor:
+    """``min(zipf(a), vocab - 1)`` int32 ids drawn on the generator's device
+    by the inverse CDF: the distribution ``data/batches.py`` draws, not its
+    numbers. The tail past ``vocab - 2`` lands on ``vocab - 1``; zeta(a)
+    from Euler-Maclaurin at ``vocab - 1``."""
+    dev = g.device
+    k = torch.arange(1, vocab - 1, dtype=torch.float64, device=dev)
+    w = k ** -a
+    n = float(vocab - 1)
+    zeta = (float(w.sum()) + n ** (1 - a) / (a - 1) + 0.5 * n ** -a
+            + a * n ** (-a - 1) / 12)
+    cdf = torch.cumsum(w, 0) / zeta
+    del k, w
+    u = torch.rand(math.prod(shape), generator=g, dtype=torch.float64, device=dev)
+    ids = torch.searchsorted(cdf, u, right=True) + 1
+    return ids.clamp_(max=vocab - 1).reshape(shape).int()
+
+
+def dlrm_batch_on(cfg: recsys.DLRMConfig, b: int, g: torch.Generator) -> dict:
+    """``dlrm_batch``'s distributions on the card (its planted label)."""
+    dense = torch.randn((b, cfg.n_dense), generator=g, device=g.device)
+    sparse = zipf_ids(1.2, cfg.vocab_per_field, (b, cfg.n_sparse), g)
+    logit = dense[:, 0] + 0.5 * ((sparse[:, 0] % 2) * 2 - 1)
+    noise = torch.randn((b,), generator=g, device=g.device)
+    return {"dense": dense, "sparse": sparse, "label": (logit + noise > 0).float()}
+
+
+def din_batch_on(cfg: recsys.DINConfig, b: int, g: torch.Generator) -> dict:
+    """``din_batch``'s distributions on the card: half positives, whose
+    target comes from the history."""
+    dev = g.device
+    hist = zipf_ids(1.3, cfg.vocab, (b, cfg.seq_len), g)
+    pos = hist[torch.arange(b, device=dev),
+               torch.randint(0, cfg.seq_len, (b,), generator=g, device=dev)]
+    neg = zipf_ids(1.3, cfg.vocab, (b,), g)
+    label = (torch.rand((b,), generator=g, device=dev) < 0.5).float()
+    target = torch.where(label > 0, pos, neg).clamp(min=1)
+    return {"hist": hist, "target": target, "label": label}
+
+
+def twotower_batch_on(cfg: recsys.TwoTowerConfig, b: int, g: torch.Generator) -> dict:
+    """``twotower_batch``'s distribution on the card: uniform ids, the
+    positive item's first field tied to the user's first."""
+    dev, v = g.device, cfg.vocab_per_field
+    user = torch.randint(0, v, (b, cfg.n_user_fields), generator=g, device=dev,
+                         dtype=torch.int32)
+    item = torch.randint(0, v, (b, cfg.n_item_fields), generator=g, device=dev,
+                         dtype=torch.int32)
+    item[:, 0] = ((user[:, 0].long() * 7919 + 13) % v).int()
+    return {"user_ids": user, "item_ids": item}
+
+
+def _args(**leaves) -> dict:
+    """Batch leaves ``name=(shape, dtype)``, each leading dim on the batch
+    axes (the reference's ``batch_tree_shardings``)."""
+    return {k: Arg(shape, dt, ("batch",) + (None,) * (len(shape) - 1))
+            for k, (shape, dt) in leaves.items()}
+
+
+def _dlrm_args(b: int, serve: bool) -> dict:
+    c = DLRM_RM2
+    out = _args(dense=((b, c.n_dense), torch.float32),
+                sparse=((b, c.n_sparse), torch.int32), label=((b,), torch.float32))
+    if serve:
+        del out["label"]
+    return out
+
+
+def _din_args(cfg):
+    def fn(b: int, serve: bool) -> dict:
+        out = _args(hist=((b, cfg.seq_len), torch.int32), target=((b,), torch.int32),
+                    label=((b,), torch.float32))
+        if serve:
+            del out["label"]
+        return out
+    return fn
+
+
+def _tt_args(b: int, serve: bool) -> dict:
+    c = TWO_TOWER
+    return _args(user_ids=((b, c.n_user_fields), torch.int32),
+                 item_ids=((b, c.n_item_fields), torch.int32))
+
+
+def _tt_retrieval_args(n: int, serve: bool) -> dict:
+    c = TWO_TOWER
+    return _args(user_ids=((1, c.n_user_fields), torch.int32),
+                 cand_ids=((n, c.n_item_fields), torch.int32))
+
+
+def sample_floats(cfg) -> float:
+    """fp32 values a sample's forward holds at once (its activation
+    estimate): the gathered embeddings and every layer's input and output."""
+    if isinstance(cfg, recsys.DLRMConfig):
+        n_vec = cfg.n_sparse + 1
+        return (cfg.n_sparse * cfg.embed_dim + cfg.n_dense + sum(cfg.bot_mlp)
+                + n_vec * cfg.embed_dim + n_vec * n_vec
+                + cfg.bot_mlp[-1] + n_vec * (n_vec - 1) / 2 + sum(cfg.top_mlp))
+    if isinstance(cfg, recsys.DINConfig):
+        # the attention MLP's input width as the FLOP counts take it: DIN's
+        # [hist, target, hist - target, hist * target], DIEN's GRU state and target
+        T, D, H = cfg.seq_len, cfg.embed_dim, cfg.gru_dim
+        att_in = H + D if H else 4 * D
+        att = T * (att_in + sum(cfg.attn_mlp) + 1)
+        return T * D + att + T * 2 * H + 3 * (H + D) + sum(cfg.mlp)
+    return 2 * (cfg.n_user_fields * cfg.field_dim + sum(cfg.tower_mlp))
+
+
+def recsys_work_bytes(cfg, kind: str, b: int) -> float:
+    """A step's bytes beyond its arguments: each sample's forward values
+    (twice over, for the products' temporaries); a train step keeps them
+    for the backward and holds their gradients (twice that), adds the fp32
+    gradients (4 bytes a parameter) and AdamW's slice temporaries (2 GiB),
+    and two-tower's in-batch softmax five (B, B) fp32 tensors (logits,
+    their softmax, its gradient and the loss's temporaries)."""
+    per = sample_floats(cfg) * 4.0 * 2
+    if kind != "train":
+        return b * per
+    extra = 5.0 * b * b * 4 if isinstance(cfg, recsys.TwoTowerConfig) else 0.0
+    return 2 * b * per + cfg.param_count() * 4.0 + 2 * 2**30 + extra
+
+
+_BATCH_ON = {"dlrm-rm2": dlrm_batch_on, "din": din_batch_on, "dien": din_batch_on,
+             "two-tower-retrieval": twotower_batch_on}
+
+
+def _batch_on(arch: str, cfg, b: int, g, serve: bool, retrieval: bool) -> dict:
+    if retrieval and arch == "two-tower-retrieval":
+        items = twotower_batch_on(cfg, b, g)
+        return {"user_ids": items["user_ids"][:1], "cand_ids": items["item_ids"]}
+    batch = _BATCH_ON[arch](cfg, b, g)
+    if serve:
+        batch.pop("label", None)
+    return batch
+
+
+def make_recsys_train_cell(arch: str, cfg, loss_fn, batch_args, flops_fn, *,
+                           batch: int = TRAIN_B, shape_name: str = "train_batch",
+                           step_flops_fn=None) -> Cell:
+    """``flops_fn(b)``: the cell's model FLOPs at ``b`` samples;
+    ``step_flops_fn(b)`` a step's, where they differ."""
+    def args_fn(b, layout, on_card):
+        p = abstract_params(cfg.param_specs())
+        return (p, abstract_opt_state(p), batch_args(b, False))
+
+    def build_fn(dev, b, seed):
+        params = init_params(cfg.param_specs(), torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+        step = make_train_step(lambda p, bb: loss_fn(p, cfg, bb, device=dev),
+                               AdamWConfig())
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        return step, (params, init_train_state(params),
+                      _batch_on(arch, cfg, b, g, False, False))
+
+    return Cell(arch=arch, shape=shape_name, kind="train", args_fn=args_fn,
+                flops_fn=flops_fn, work_fn=lambda b: recsys_work_bytes(cfg, "train", b),
+                build_fn=build_fn, batch=("samples", batch), donate=(0, 1), config=cfg,
+                step_flops_fn=step_flops_fn)
+
+
+def make_recsys_serve_cell(arch: str, cfg, forward, batch_args, flops_per_sample: float,
+                           *, batch: int, shape_name: str) -> Cell:
+    retrieval = shape_name == "retrieval_cand"
+
+    def args_fn(b, layout, on_card):
+        return (abstract_params(cfg.param_specs()), batch_args(b, True))
+
+    def build_fn(dev, b, seed):
+        params = init_params(cfg.param_specs(), torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+        @torch.no_grad()
+        def fn(params, bb):
+            return forward(params, cfg, bb, device=dev)
+
+        return fn, (params, _batch_on(arch, cfg, b, g, True, retrieval))
+
+    return Cell(arch=arch, shape=shape_name, kind="serve", args_fn=args_fn,
+                flops_fn=lambda b: flops_per_sample * b,
+                work_fn=lambda b: recsys_work_bytes(cfg, "serve", b),
+                build_fn=build_fn, batch=("candidates" if retrieval else "samples", batch),
+                config=cfg)
+
+
+def standard_recsys_cells(arch, cfg, loss_fn, forward, batch_args,
+                          flops_per_sample) -> dict:
+    """train_batch / serve_p99 / serve_bulk / retrieval_cand."""
+    return {
+        "train_batch": lambda: make_recsys_train_cell(
+            arch, cfg, loss_fn, batch_args, lambda b: 3.0 * flops_per_sample * b),
+        "serve_p99": lambda: make_recsys_serve_cell(
+            arch, cfg, forward, batch_args, flops_per_sample, batch=P99_B,
+            shape_name="serve_p99"),
+        "serve_bulk": lambda: make_recsys_serve_cell(
+            arch, cfg, forward, batch_args, flops_per_sample, batch=BULK_B,
+            shape_name="serve_bulk"),
+        "retrieval_cand": lambda: make_recsys_serve_cell(
+            arch, cfg, forward, batch_args, flops_per_sample, batch=CAND_N,
+            shape_name="retrieval_cand"),
+    }
+
+
+def _twotower_cells() -> dict:
+    a, c = "two-tower-retrieval", TWO_TOWER
+    return {
+        # train FLOPs include the B x B in-batch softmax logits product.
+        # The reference's model FLOPs count the step's factor of 3 twice
+        # (``twotower_train_flops`` holds it already); mfu reads the step's
+        "train_batch": lambda: make_recsys_train_cell(
+            a, c, recsys.twotower_loss, _tt_args,
+            lambda b: 3.0 * twotower_train_flops(b) * b,
+            step_flops_fn=lambda b: twotower_train_flops(b) * b),
+        "serve_p99": lambda: make_recsys_serve_cell(
+            a, c, recsys.pair_score, _tt_args, TWOTOWER_SERVE_FLOPS, batch=P99_B,
+            shape_name="serve_p99"),
+        "serve_bulk": lambda: make_recsys_serve_cell(
+            a, c, recsys.pair_score, _tt_args, TWOTOWER_SERVE_FLOPS, batch=BULK_B,
+            shape_name="serve_bulk"),
+        "retrieval_cand": lambda: make_recsys_serve_cell(
+            a, c, recsys.twotower_score, _tt_retrieval_args,
+            TWOTOWER_RETRIEVAL_FLOPS,  # item tower + dot per candidate
+            batch=CAND_N, shape_name="retrieval_cand"),
+    }
+
+
+register(ArchDef(
+    name="dlrm-rm2", family="recsys", config=DLRM_RM2,
+    cells=standard_recsys_cells("dlrm-rm2", DLRM_RM2, recsys.dlrm_loss,
+                                recsys.dlrm_forward, _dlrm_args, DLRM_FLOPS_PER_SAMPLE),
+    smoke=dlrm_smoke))
+register(ArchDef(
+    name="din", family="recsys", config=DIN,
+    cells=standard_recsys_cells("din", DIN, recsys.din_loss, recsys.din_forward,
+                                _din_args(DIN), din_flops_per_sample(DIN)),
+    smoke=lambda device="cuda": din_smoke(0, device=device)))
+register(ArchDef(
+    name="dien", family="recsys", config=DIEN,
+    cells=standard_recsys_cells("dien", DIEN, recsys.din_loss, recsys.din_forward,
+                                _din_args(DIEN), dien_flops_per_sample(DIEN)),
+    smoke=lambda device="cuda": din_smoke(16, device=device)))
+register(ArchDef(
+    name="two-tower-retrieval", family="recsys", config=TWO_TOWER,
+    cells=_twotower_cells(), smoke=twotower_smoke))

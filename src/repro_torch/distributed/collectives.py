@@ -7,6 +7,11 @@ tensor per shard, shard ``s``'s on ``mesh.devices[s]``. A copy between
 two cards is a peer copy (NVLink where the cards have it) that PyTorch
 orders after the source's and before the destination's current streams;
 a copy to the same device is none at all.
+
+``wire_bytes`` counts, by collective, the bytes each call moved between
+two distinct devices (a copy within one device counts 0); the dry-run's
+roofline reads it (``launch/roofline.py``) and ``reset_wire_bytes``
+zeroes it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,21 @@ from typing import Sequence
 import torch
 
 from repro_torch.distributed.meshutil import DeviceMesh
+
+wire_bytes = {"all_to_all": 0, "gather": 0, "psum": 0, "broadcast": 0}
+
+
+def reset_wire_bytes() -> None:
+    for op in wire_bytes:
+        wire_bytes[op] = 0
+
+
+def _moved(op: str, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``, its bytes counted under ``op`` when that is
+    another device."""
+    if t.device != dev:
+        wire_bytes[op] += t.numel() * t.element_size()
+    return t.to(dev, non_blocking=True)
 
 
 def _check(parts: Sequence[torch.Tensor], mesh: DeviceMesh) -> None:
@@ -39,25 +59,26 @@ def all_to_all(sends: Sequence[torch.Tensor], mesh: DeviceMesh
     if sends[0].shape[0] % n:
         raise ValueError(f"dim 0 ({sends[0].shape[0]}) does not split over {n}")
     c = sends[0].shape[0] // n
-    return [torch.cat([src[d * c:(d + 1) * c].to(dev, non_blocking=True)
+    return [torch.cat([_moved("all_to_all", src[d * c:(d + 1) * c], dev)
                        for src in sends])
             for d, dev in enumerate(mesh.devices)]
 
 
-def gather(parts: Sequence[torch.Tensor], mesh: DeviceMesh) -> torch.Tensor:
+def gather(parts: Sequence[torch.Tensor], mesh: DeviceMesh, *, op: str = "gather"
+           ) -> torch.Tensor:
     """The shards' tensors stacked on a new leading axis, on the first
-    device."""
+    device (their bytes counted under ``op``)."""
     _check(parts, mesh)
-    return torch.stack([t.to(mesh.first, non_blocking=True) for t in parts])
+    return torch.stack([_moved(op, t, mesh.first) for t in parts])
 
 
 def psum(parts: Sequence[torch.Tensor], mesh: DeviceMesh) -> torch.Tensor:
     """The sum of the shards' scalars, in shard order, on the first device,
     in their dtype (as ``jax.lax.psum``: int32 counts stay int32)."""
-    return gather(parts, mesh).sum(0, dtype=parts[0].dtype)
+    return gather(parts, mesh, op="psum").sum(0, dtype=parts[0].dtype)
 
 
 def broadcast(t: torch.Tensor, mesh: DeviceMesh) -> list[torch.Tensor]:
     """``t`` on every shard's device (one copy per distinct device)."""
-    on = {dev: t.to(dev, non_blocking=True) for dev in mesh.distinct}
+    on = {dev: _moved("broadcast", t, dev) for dev in mesh.distinct}
     return [on[dev] for dev in mesh.devices]

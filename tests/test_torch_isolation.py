@@ -16,6 +16,7 @@ from repro_torch.configs import gnn as cgnn
 from repro_torch.configs import recsys as crec
 from repro_torch.configs.lm import GEMMA3_4B_SMOKE, MOONSHOT_V1_16B_SMOKE
 from repro_torch.device import resolve
+from repro_torch.launch import dryrun
 from repro_torch.launch import index as index_cli
 from repro_torch.launch import serve
 from repro_torch.launch import train as train_cli
@@ -59,6 +60,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.train, repro_torch.train.optimizer\n"
         "import repro_torch.train.grad_compress, repro_torch.train.step\n"
         "import repro_torch.train.tree, repro_torch.launch.train\n"
+        "import repro_torch.configs, repro_torch.configs.base\n"
+        "import repro_torch.configs.variants, repro_torch.configs.sift_variants\n"
+        "import repro_torch.distributed.partitioning, repro_torch.distributed.shardutil\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.trace_cost, repro_torch.launch.dryrun\n"
         "import importlib.util, pathlib\n"
         "for name in EXAMPLES:\n"
         "    path = pathlib.Path(EXAMPLE_DIR) / (name + '.py')\n"
@@ -104,7 +110,7 @@ def _no_cuda():
                                    "local_mesh", "forward (MoE)", "launch.train",
                                    "loss_fn", "train_state_from_numpy",
                                    "dlrm_smoke", "gin_smoke", "dlrm_forward",
-                                   "gnn.prepare"])
+                                   "gnn.prepare", "launch.dryrun"])
 def test_default_device_raises_without_cuda(entry, tmp_path):
     _no_cuda()
     x = np.zeros((16, 4), np.float32)
@@ -148,6 +154,7 @@ def test_default_device_raises_without_cuda(entry, tmp_path):
                         device="cpu"), dlrm,
             {"dense": np.zeros((2, 13), np.float32), "sparse": np.zeros((2, 26), np.int32)}),
         "gnn.prepare": lambda: gnn.prepare({"feats": x, "edges": np.zeros((2, 3), np.int32)}),
+        "launch.dryrun": lambda: dryrun.main(["--arch", "gin-tu", "--shape", "molecule"]),
         "forward (MoE)": lambda: tfm.forward(
             init_params(MOONSHOT_V1_16B_SMOKE.param_specs(),
                         torch.Generator().manual_seed(0), device="cpu"),
