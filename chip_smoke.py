@@ -321,7 +321,8 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), then:
      on one wave, K2 on the fused call and K3 on a build wave at d = 256
      within ``fp32_bound``'s bound, which TF32 breaks, and segsum at
      ogb_products' shape within ``fp32_bound.segsum_f64``'s bound,
-     bit-identical over two runs. Prints each shape's wall and device ms,
+     bit-identical over two runs, each order's items pass and long rows'
+     tree timed apart with CUDA events. Prints each shape's wall and device ms,
      samples/s, TFLOP/s, peak memory and top device ops; the K1, K2 and K3
      rows gain the retrieval path's numbers, and a ``segsum`` row joins the
      kernels line;
@@ -394,8 +395,19 @@ TRACE_SHARE = 8  # the traced K1 and K4 sweeps cover the index's first 1/8
 N_REAL_WAVES = 8  # l2topk waves of the real-valued check
 # csrc/fusedscan.cu: rows of a group tile, runs split across a cluster past
 F_G, F_LONG = 8, 4096
-# the P7 phase: a k and a rerank depth past the KCAP kernels' lists (64, 128)
+# the P7 phase: a k and a rerank depth past the KCAP kernels' lists (64, 128),
+# then one past the wide range's lists of 256 (dense and codes)
 P7_K, P7_RERANK = 100, 256
+P7_BLOCK_K = 512
+# the route each of the P7 phase's calls takes (kernels/l2topk/ops.py route),
+# by depth: K1, K2 and K5 on their own kernels with lists of 256 up to 256,
+# K4 past 128 and every kernel past 256 on widetopk.cu's block list kernel
+P7_ROUTES = {"wide": {"l2topk": "wide_lists", "fusedscan": "wide_lists",
+                      "adcscan": "block_list", "fusedadc": "wide_lists"},
+             "block": dict.fromkeys(("l2topk", "fusedscan", "adcscan", "fusedadc"),
+                                    "block_list")}
+P7_SOURCES = {"l2topk": "l2topk.cu", "fusedscan": "fusedscan.cu",
+              "adcscan": "adcscan.cu", "fusedadc": "adcscan.cu (adcscan_kernel<true>)"}
 # the lifecycle phase: the index grown on disk in LC_APPENDS appends of the
 # main path's rows (halved while the disk is short, and to LC_MIN_ROWS in
 # all if the phase starts late), in a directory of this checkout's
@@ -1414,20 +1426,51 @@ def adc_plain_sample(rt, run, live, lt, qlf, r):
     return rt.map_ids(best_d, best_r, index.ids)
 
 
+def p7_source(key, name):
+    """The source of the kernel that P7's ``key`` calls of ``name`` run."""
+    if P7_ROUTES[key][name] == "wide_lists":
+        return f"src/repro_torch/csrc/{P7_SOURCES[name]} (KCAP 256)"
+    return "src/repro_torch/csrc/widetopk.cu (block list)"
+
+
 def p7_phase(rt, run, sizes, seed, kernels):
     """Every k the plan accepts, on the card (ROADMAP P7): ``batch_search``
     at k = P7_K and a codes search at rerank P7_RERANK, past the KCAP
-    kernels' lists, so that every call goes to the wide kernels. Checks the
-    sweep and the fused scan bit-identical, their launches, the k = 20
-    results as a prefix, in-leaf top-1 exactness, and the wide kernels
-    against their plain versions (real waves, sampled lookup rows of the
-    fused calls); puts their times on the K1, K2, K4 and K5 rows."""
+    kernels' lists (64, 128), then both at P7_BLOCK_K, past the wide
+    range's lists of 256, each call on the route ``P7_ROUTES`` gives it
+    (its launches counted by route). Checks the sweep and the fused scan
+    bit-identical, their launches, the k = 20 results as a prefix, in-leaf
+    top-1 exactness, and the kernels against their plain versions (real
+    waves, sampled lookup rows of the fused calls); puts their times, and
+    K1's and K4's library yardsticks (addmm + where + topk, gather + sum +
+    where + topk), on the K1, K2, K4 and K5 rows as ``wide_*`` (k = P7_K,
+    rerank P7_RERANK) and ``block_*`` (P7_BLOCK_K) fields."""
+    rows = {row["name"]: row for row in kernels}
+    for key, k, r in (("wide", P7_K, P7_RERANK), ("block", P7_BLOCK_K, P7_BLOCK_K)):
+        p7_dense(rt, run, sizes, rows, key, k, seed)
+        p7_codes(rt, run, sizes, rows, key, r, seed)
+
+
+def p7_launches(rt, key, names, n_waves):
+    """The launches of the search just run, checked against its waves and
+    ``P7_ROUTES``: every launch of each kernel on the route of ``key``."""
+    launches = rt.counts()
+    want = {}
+    for name, n in zip(names, (n_waves, 1)):
+        want[name] = want[f"{name}.{P7_ROUTES[key][name]}"] = n
+    if any(launches[name] != v for name, v in want.items()):
+        raise AssertionError(f"p7 {key}: launches {json.dumps(launches)}, expected "
+                             f"{json.dumps(want)}")
+    return launches
+
+
+def p7_dense(rt, run, sizes, rows, key, k, seed):
+    """P7's dense calls at ``k``: ``batch_search`` on both paths, then K1 on
+    the real waves and K2 on the fused call against their plain versions;
+    the ``<key>_*`` fields of the l2topk and fusedscan rows."""
     index, tree, queries = run["index"], run["tree"], run["queries"]
     dev, B, qc, d = index.vecs.device, sizes["block_rows"], sizes["q_cap"], DIM
-    rows = {row["name"]: row for row in kernels}
-    n, k, n_waves = queries.shape[0], P7_K, index.rows // B
-
-    # --- dense: batch_search at k = P7_K, both paths ---
+    n, n_waves = queries.shape[0], index.rows // B
     res, wall = {}, {}
     rt.reset_counts()
     for impl in ("pallas", "fused"):
@@ -1435,7 +1478,7 @@ def p7_phase(rt, run, sizes, seed, kernels):
         res[impl] = rt.batch_search(index, tree, queries, k, q_cap=qc, block_rows=B,
                                     impl=impl, device=dev)
         wall[impl] = sync_now() - t0
-    launches = rt.counts()
+    launches = p7_launches(rt, key, ("l2topk", "fusedscan"), n_waves)
     a, b = res["pallas"], res["fused"]
     for name, r in res.items():
         if int(r.q_cap_overflow) != 0 or r.ids.shape != (n, k):
@@ -1444,11 +1487,6 @@ def p7_phase(rt, run, sizes, seed, kernels):
     if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
             and torch.equal(a.pairs, b.pairs)):
         raise AssertionError(f"p7: the sweep and the fused scan differ at k = {k}")
-    want = {"l2topk": n_waves, "l2topk.wide": n_waves, "fusedscan": 1,
-            "fusedscan.wide": 1}
-    if any(launches[key] != v for key, v in want.items()):
-        raise AssertionError(f"p7: launches {json.dumps(launches)}, expected "
-                             f"{json.dumps(want)}")
     k20 = run["results"]["pallas"]
     if not (torch.equal(a.ids[:, :sizes["k"]], k20.ids)
             and torch.equal(a.dists[:, :sizes["k"]], k20.dists)):
@@ -1456,24 +1494,36 @@ def p7_phase(rt, run, sizes, seed, kernels):
                              f"columns of the k = {k} results")
     pick, _, _, qleaf = run["nn"]
     exact = in_leaf_top1(index, queries[pick], qleaf, a.ids[pick, 0])
+    del res, a, b
 
-    # the wide kernels at the shapes the two paths gave them
+    # the kernels at the shapes the two paths gave them
     lk = rt.build_lookup(tree, queries, probes=1)
     waves, _ = dense_waves(run, sizes, lk)
-    err = max(bitwise(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), "l2topk wide")
+    err = max(bitwise(rt.l2_topk(*w, k=k), rt.l2_topk_ref(*w, k), f"l2topk {key}")
               for w in waves)
     kern = time_ms(lambda *w: rt.l2_topk(*w, k=k), waves)
     plain = time_ms(lambda *w: rt.l2_topk_ref(*w, k), waves)
+
+    def lib_topk(p, plf, q, qlf):  # the library yardstick, never called by the port
+        d2 = torch.where(qlf[:, None] == plf[None, :],
+                         torch.addmm((p * p).sum(1)[None, :], q, p.T, alpha=-2.0),
+                         torch.inf)
+        return torch.topk(d2, k, dim=1, largest=False)
+
+    lib = time_ms(lib_topk, waves)
     need = sum(int(torch.isin(w[1], w[3]).sum()) for w in waves)
     matched = sum(int(torch.isin(w[3], w[1]).sum()) for w in waves)
     pairs = sum(int(rt.count_pairs(w[1], w[3])) for w in waves)
     nw = len(waves)
     bnd = bound(((need + matched) * d * 4 + nw * ((B + qc) * 4 + qc * k * 8)) / nw,
                 (pairs + need) * 2 * d / nw)
-    rows["l2topk"].update(wide_k=k, wide_ms=kern[0], wide_plain_ms=plain[0],
-                          wide_bound_ms=bnd[0], wide_bound_by=bnd[1],
-                          wide_launches=launches["l2topk.wide"],
-                          wide_max_abs_err=err, wide_search_wall_s=wall["pallas"])
+    rows["l2topk"].update({
+        f"{key}_k": k, f"{key}_route": P7_ROUTES[key]["l2topk"],
+        f"{key}_source": p7_source(key, "l2topk"), f"{key}_ms": kern[0],
+        f"{key}_plain_ms": plain[0], f"{key}_library_ms": lib[0],
+        f"{key}_bound_ms": bnd[0], f"{key}_bound_by": bnd[1],
+        f"{key}_launches": launches[f"l2topk.{P7_ROUTES[key]['l2topk']}"],
+        f"{key}_max_abs_err": err, f"{key}_search_wall_s": wall["pallas"]})
     flk, full = fused_inputs(rt, run, sizes, lk)
     kd, ki = rt.fused_topk(*full, k=k)
     fpick = sample_rows(flk, sizes["n_sample"], seed + 5)
@@ -1483,26 +1533,35 @@ def p7_phase(rt, run, sizes, seed, kernels):
         return rt.map_ids(*chunked_plain(rt, index.vecs, index.leaves, q, qlf, k),
                           index.ids)
 
-    err = bitwise((kd[fpick], ki[fpick]), plain_sample(sq, sl), "fusedscan wide")
+    err = bitwise((kd[fpick], ki[fpick]), plain_sample(sq, sl), f"fusedscan {key}")
     del kd, ki
     kern = fused_time(rt, full, k)
     plain = time_ms(plain_sample, [(sq, sl)], warmup=1)
     need, pairs, Q = fused_need(index, flk)
     bnd = fused_bound(need, pairs, Q, d, k)
-    rows["fusedscan"].update(wide_k=k, wide_ms=kern[0], wide_plain_ms=plain[0],
-                             wide_plain_rows=fpick.numel(), wide_bound_ms=bnd[0],
-                             wide_bound_by=bnd[1],
-                             wide_launches=launches["fusedscan.wide"],
-                             wide_max_abs_err=err, wide_search_wall_s=wall["fused"])
-    log(f"p7 dense: batch_search k = {k} pallas {wall['pallas']} s, fused "
+    rows["fusedscan"].update({
+        f"{key}_k": k, f"{key}_route": P7_ROUTES[key]["fusedscan"],
+        f"{key}_source": p7_source(key, "fusedscan"), f"{key}_ms": kern[0],
+        f"{key}_plain_ms": plain[0], f"{key}_plain_rows": fpick.numel(),
+        f"{key}_library_ms": None, f"{key}_bound_ms": bnd[0],
+        f"{key}_bound_by": bnd[1],
+        f"{key}_launches": launches[f"fusedscan.{P7_ROUTES[key]['fusedscan']}"],
+        f"{key}_max_abs_err": err, f"{key}_search_wall_s": wall["fused"]})
+    log(f"p7 dense at k = {k}: batch_search pallas {wall['pallas']} s, fused "
         f"{wall['fused']} s, bit-identical; the k = {sizes['k']} results their "
         f"prefix; in-leaf top-1 exact {exact}/{pick.numel()}; launches "
-        f"{json.dumps(launches)}; l2topk wide {rows['l2topk']['wide_ms']} ms a wave, "
-        f"fusedscan wide {kern[0]} ms")
-    del res, a, b
+        f"{json.dumps(launches)}; l2topk {rows['l2topk'][f'{key}_ms']} ms a wave "
+        f"(library {rows['l2topk'][f'{key}_library_ms']} ms), fusedscan {kern[0]} ms")
 
-    # --- codes: a search at rerank P7_RERANK, both paths ---
-    c, r = run["codes"], P7_RERANK
+
+def p7_codes(rt, run, sizes, rows, key, r, seed):
+    """P7's codes calls at rerank ``r``: a codes search on both paths, then
+    K4 on the real waves and K5 on the fused call against their plain
+    versions; the ``<key>_*`` fields of the adcscan and fusedadc rows."""
+    index, tree, queries = run["index"], run["tree"], run["queries"]
+    dev, B, qc = index.vecs.device, sizes["block_rows"], sizes["q_cap"]
+    n, n_waves = queries.shape[0], index.rows // B
+    c = run["codes"]
     pq = c["pq"]
     cand, wall = {}, {}
     rt.reset_counts()
@@ -1516,7 +1575,7 @@ def p7_phase(rt, run, sizes, seed, kernels):
         cand[impl] = rt.search_with_lookup(index, lookup, plan, n_queries=n,
                                            codes=c["codes"], codebooks=pq.codebooks)
         wall[impl] = sync_now() - t0
-    launches = rt.counts()
+    launches = p7_launches(rt, key, ("adcscan", "fusedadc"), n_waves)
     a, b = cand["pallas"], cand["fused"]
     if int(a.q_cap_overflow) != 0 or a.ids.shape != (n, r):
         raise AssertionError(f"p7 codes: overflow {int(a.q_cap_overflow)}, shape "
@@ -1524,11 +1583,6 @@ def p7_phase(rt, run, sizes, seed, kernels):
     if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
             and torch.equal(a.pairs, b.pairs)):
         raise AssertionError(f"p7: adcscan and fusedadc paths differ at rerank {r}")
-    want = {"adcscan": n_waves, "adcscan.wide": n_waves, "fusedadc": 1,
-            "fusedadc.wide": 1}
-    if any(launches[key] != v for key, v in want.items()):
-        raise AssertionError(f"p7 codes: launches {json.dumps(launches)}, expected "
-                             f"{json.dumps(want)}")
     c128 = c["results"]["pallas"]["cand"]
     w128 = c128.ids.shape[1]
     if not (torch.equal(a.ids[:, :w128], c128.ids)
@@ -1541,15 +1595,27 @@ def p7_phase(rt, run, sizes, seed, kernels):
     lut, qlf = ci["lut"], ci["flk"].leaves
     err = max(bitwise(rt.adc_topk(cd, plf, lut, qlf, k=r, point_ids=ids,
                                 q_start=start, q_rows=qc),
-                    rt.adc_topk_ref(*sw, r), "adcscan wide")
+                    rt.adc_topk_ref(*sw, r), f"adcscan {key}")
               for (cd, plf, ids, start), sw in zip(ci["waves"], ci["slabs"]))
     kern = k4_time(rt, ci, r)
     plain = time_ms(lambda *w: rt.adc_topk_ref(*w, r), ci["slabs"])
+    offs = torch.arange(m, device=dev) * C
+
+    def lib_adc(cd, plf, lt, ql):  # the library yardstick, never called by the port
+        d2 = lt.reshape(lt.shape[0], m * C)[:, (cd.long() + offs).view(-1)]
+        d2 = torch.where(ql[:, None] == plf[None, :],
+                         d2.view(lt.shape[0], -1, m).sum(-1), torch.inf)
+        return torch.topk(d2, r, dim=1, largest=False)
+
+    lib = time_ms(lib_adc, ci["slabs"])
     bnd = k4_bound(ci, B, qc, m, C, r)
-    rows["adcscan"].update(wide_k=r, wide_ms=kern[0], wide_plain_ms=plain[0],
-                           wide_bound_ms=bnd[0], wide_bound_by=bnd[1],
-                           wide_launches=launches["adcscan.wide"],
-                           wide_max_abs_err=err, wide_search_wall_s=wall["pallas"])
+    rows["adcscan"].update({
+        f"{key}_k": r, f"{key}_route": P7_ROUTES[key]["adcscan"],
+        f"{key}_source": p7_source(key, "adcscan"), f"{key}_ms": kern[0],
+        f"{key}_plain_ms": plain[0], f"{key}_library_ms": lib[0],
+        f"{key}_bound_ms": bnd[0], f"{key}_bound_by": bnd[1],
+        f"{key}_launches": launches[f"adcscan.{P7_ROUTES[key]['adcscan']}"],
+        f"{key}_max_abs_err": err, f"{key}_search_wall_s": wall["pallas"]})
     kd, ki = rt.fused_adc_topk(*ci["full"], k=r)
     fpick = sample_rows(ci["flk"], sizes["n_sample"], seed + 6)
     sq, sl = lut[fpick], qlf[fpick]
@@ -1557,20 +1623,23 @@ def p7_phase(rt, run, sizes, seed, kernels):
     def plain_adc(lt, ql):
         return adc_plain_sample(rt, run, ci["live"], lt, ql, r)
 
-    err = bitwise((kd[fpick], ki[fpick]), plain_adc(sq, sl), "fusedadc wide")
+    err = bitwise((kd[fpick], ki[fpick]), plain_adc(sq, sl), f"fusedadc {key}")
     del kd, ki
     kern = k5_time(rt, ci, r)
     plain = time_ms(plain_adc, [(sq, sl)], warmup=1)
     bnd, _ = k5_bound(ci, index, m, C, r)
-    rows["fusedadc"].update(wide_k=r, wide_ms=kern[0], wide_plain_ms=plain[0],
-                            wide_plain_rows=fpick.numel(), wide_bound_ms=bnd[0],
-                            wide_bound_by=bnd[1],
-                            wide_launches=launches["fusedadc.wide"],
-                            wide_max_abs_err=err, wide_search_wall_s=wall["fused"])
-    log(f"p7 codes: rerank {r} pallas {wall['pallas']} s, fused {wall['fused']} s, "
+    rows["fusedadc"].update({
+        f"{key}_k": r, f"{key}_route": P7_ROUTES[key]["fusedadc"],
+        f"{key}_source": p7_source(key, "fusedadc"), f"{key}_ms": kern[0],
+        f"{key}_plain_ms": plain[0], f"{key}_plain_rows": fpick.numel(),
+        f"{key}_library_ms": None, f"{key}_bound_ms": bnd[0],
+        f"{key}_bound_by": bnd[1],
+        f"{key}_launches": launches[f"fusedadc.{P7_ROUTES[key]['fusedadc']}"],
+        f"{key}_max_abs_err": err, f"{key}_search_wall_s": wall["fused"]})
+    log(f"p7 codes at rerank {r}: pallas {wall['pallas']} s, fused {wall['fused']} s, "
         f"bit-identical; the rerank {w128} candidates their prefix; launches "
-        f"{json.dumps(launches)}; adcscan wide {rows['adcscan']['wide_ms']} ms a "
-        f"wave, fusedadc wide {kern[0]} ms")
+        f"{json.dumps(launches)}; adcscan {rows['adcscan'][f'{key}_ms']} ms a wave "
+        f"(library {rows['adcscan'][f'{key}_library_ms']} ms), fusedadc {kern[0]} ms")
 
 
 def lc_segment_bytes(sizes, append_rows):
@@ -5402,8 +5471,8 @@ def rs_segsum_check(rt, batch, launches, seed) -> dict:
     source, power-law rows split into items) against the plain version
     (``index_add_``) and within ``fp32_bound.segsum_f64``'s bound, two runs
     bit-identical; timed beside the plain version, ``torch.sparse.mm`` on
-    the same CSR (never called by the port) and the bound. Returns the
-    kernels line's row."""
+    the same CSR (never called by the port) and the bound, and each order's
+    two passes timed alone (``passes``). Returns the kernels line's row."""
     graph = batch["graph"]
     n = graph.fwd.n_rows
     dev = batch["feats"].device
@@ -5435,6 +5504,23 @@ def rs_segsum_check(rt, batch, launches, seed) -> dict:
     d = h.shape[1]
     byt = n * d * 4 + E * 8 + csr.items.numel() * 4 + n * d * 4
     bnd = bound(byt, 2.0 * E * d)
+    # each order's two passes timed alone with CUDA events (late in the
+    # script the profiler's traces of this phase hold no segsum event): the
+    # items pass, and the long rows' tree, one launch a level, over the
+    # partial rows the items pass left; the passes in turn are the call
+    passes = {}
+    for name, c in (("fwd", graph.fwd), ("bwd", graph.bwd)):
+        out, part = rt.segsum_ops.items_pass(h, c)
+        rt.segsum_ops.tree_pass(part, out, c)
+        if not torch.equal(out, rt.segsum(h, c)):
+            raise AssertionError(f"segsum {name}: its two passes are not the call")
+        items = time_ms(lambda hh, c=c: rt.segsum_ops.items_pass(hh, c), [(h,)] * 5)
+        tree = time_ms(lambda c=c: rt.segsum_ops.tree_pass(part, out, c), [()] * 20)
+        passes[name] = dict(
+            items_ms=items[0], long_pass_ms=tree[0],
+            long_pass_launches=len(c.tree_levels) - 1,
+            tree_groups=int(c.tree.shape[0]), partial_rows=c.part_rows)
+        del out, part
     row = dict(name="segsum", route="cuda", source="src/repro_torch/csrc/segsum.cu",
                replaces="src/repro/models/gnn.py:66",
                replaces_note="no TPU kernel: the reference's jax.ops.segment_sum over "
@@ -5446,7 +5532,8 @@ def rs_segsum_check(rt, batch, launches, seed) -> dict:
                bound_by=bnd[1], library_ms=lib[0], library="torch.sparse.mm (CSR)",
                shape=[n, E, d], fp32_bound_ratio=max(c["fp32_bound_ratio"]
                                                       for c in check.values()),
-               checks=check, gathered_gib=E * d * 4 / 2**30)
+               checks=check, gathered_gib=E * d * 4 / 2**30,
+               gathered_floor_ms=E * d * 4 / HBM_BYTES_PER_S * 1e3, passes=passes)
     log(f"segsum at ogb_products' shape: {json.dumps(row)}")
     return row
 
@@ -5792,6 +5879,7 @@ class Port:
         from repro_torch.core.lookup import probe_leaves
         from repro_torch.data import graph
         from repro_torch.data.batches import din_batch, dlrm_batch, twotower_batch
+        from repro_torch.kernels.segsum import ops as segsum_ops
         from repro_torch.kernels.segsum import segsum
         from repro_torch.kernels.segsum.ref import segsum_ref
         from repro_torch.distributed.checkpoint import CheckpointManager
@@ -5858,6 +5946,7 @@ class Port:
         self.dlrm_batch, self.din_batch = dlrm_batch, din_batch
         self.twotower_batch = twotower_batch
         self.segsum, self.segsum_ref = segsum, segsum_ref
+        self.segsum_ops = segsum_ops
         self.segsum_f64 = fp32_bound.segsum_f64
         self.segsum_error_ratio = fp32_bound.segsum_error_ratio
         self.wrappers = {"l2topk": l2_topk, "fusedscan": fused_topk,
@@ -5869,17 +5958,19 @@ class Port:
         for fn in self.wrappers.values():
             fn.launches = 0
             fn.by_device.clear()
-            fn.wide_launches = 0
+            for r in getattr(fn, "route_launches", {}):
+                fn.route_launches[r] = 0
         for fn in (self.flash_attention, self.flash_attention_bwd):
             for name in fn.variant_launches:
                 fn.variant_launches[name] = 0
 
     def counts(self):
-        """Launches by wrapper; ``<name>.wide``: those of them that went
-        to the wide kernel (k past the KCAP kernels' lists)."""
+        """Launches by wrapper; ``<name>.<route>``: those of them on each
+        route of the scan kernels (``kernels/l2topk/ops.py route``)."""
         out = {name: fn.launches for name, fn in self.wrappers.items()}
-        for name in ("l2topk", "fusedscan", "adcscan", "fusedadc"):
-            out[f"{name}.wide"] = getattr(self.wrappers[name], "wide_launches", 0)
+        for name, fn in self.wrappers.items():
+            for r, n in getattr(fn, "route_launches", {}).items():
+                out[f"{name}.{r}"] = n
         for name, n in self.flash_attention.variant_launches.items():
             out[f"flashattn.{name}"] = n
         for name, n in self.flash_attention_bwd.variant_launches.items():

@@ -18,19 +18,20 @@ durable :class:`CalibrationStore` they share.
 budgets -- it never alters search results.
 
 Calibration is keyed by *backend*. A store belongs to one backend
-(:func:`backend_name`: ``"cpu"``, or ``"cuda:<device name>"``), records
-its measurements with a ``backend`` key inside each record's ``stats``,
-and consults only records of its own backend. Records and tile configs of
+(:func:`backend_name`: ``"cpu"``, or ``"cuda:<device name>"``) and
+consults only records of its own backend. Records and tile configs of
 another backend, or with no marker (every record the JAX package writes:
 CPU or TPU timings), are carried through ``to_json`` unchanged and never
-steer a plan here. The JAX package's ``from_json`` keeps each record's
-``stats`` whole, so a record's marker survives its rewrite of a manifest.
-Of a tile config it keeps only the key's strings and ``block_rows``,
-``ms`` and ``ts``, so the marker rides folded into the key's dtype
-(``"float32@cuda:<device name>"``): the rewrite keeps it whole, and the
-JAX package's planner, which looks a tile config up by the bare dtype
-name, never reads it. The bare ``backend`` key that earlier versions of
-the port wrote beside ``block_rows`` is still read.
+steer a plan here. The marker rides folded into a string of the key that
+the JAX package keeps whole and never matches against its own plans: a
+record's ``impl`` (``"xla@cuda:<device name>"``) and a tile config's
+dtype (``"float32@cpu"``). Its ``from_json`` keys records by (signature,
+shapes), so a record of each package under one plan signature and shapes
+stays two records through its rewrite of a manifest, and its planner
+fits, consults and looks up by the bare ``impl`` and dtype names, so it
+never reads the port's. The markers that earlier versions of the port
+wrote are still read: a ``backend`` key inside a record's ``stats`` or
+beside its ``signature``, and beside a tile config's ``block_rows``.
 """
 
 from __future__ import annotations
@@ -87,16 +88,19 @@ def backend_name(device=None) -> str:
     return dev.type
 
 
-#: joins a tile config's dtype and its backend in the manifest's dtype string
-TILE_MARK = "@"
+#: joins a key string (a record's impl, a tile config's dtype) and the
+#: backend in the manifest
+MARK = "@"
+#: the signature's field that carries a record's backend in the manifest
+MARKED_FIELD = SIGNATURE_FIELDS.index("impl")
 
 
-def split_tile_dtype(dtype: str) -> tuple[str, str | None]:
-    """A manifest tile config's dtype string as ``(dtype, backend)``:
-    ``"float32@cpu"`` -> ``("float32", "cpu")``; a bare ``"float32"`` (the
-    JAX package's, or an earlier port's) -> ``("float32", None)``."""
-    name, mark, backend = dtype.partition(TILE_MARK)
-    return name, (backend if mark else None)
+def split_marked(name: str) -> tuple[str, str | None]:
+    """A manifest key string as ``(name, backend)``: ``"float32@cpu"`` ->
+    ``("float32", "cpu")``; a bare ``"xla"`` or ``"float32"`` (the JAX
+    package's, or an earlier port's) -> (the name, ``None``)."""
+    bare, mark, backend = name.partition(MARK)
+    return bare, (backend if mark else None)
 
 
 def _age_weight(ts: float, now: float) -> float:
@@ -433,25 +437,25 @@ class CalibrationStore:
 
     def to_json(self) -> dict:
         """Versioned manifest payload (``calibration`` field): the JAX
-        package's, with ``backend`` inside each record's ``stats`` (which
-        the JAX package reads and writes back whole, so the marker
-        survives its rewrite of a manifest) and folded into each tile
-        config's dtype (``"float32@cpu"``: a key string it keeps whole);
-        carried records follow, unchanged."""
+        package's, with the backend folded into each record's ``impl``
+        (``"xla@cpu"``) and each tile config's dtype (``"float32@cpu"``),
+        key strings that the JAX package keeps whole; carried records
+        follow, unchanged."""
         with self._mu:
             return {
                 "format": CALIBRATION_FORMAT,
                 "records": [
-                    {"signature": list(sig),
-                     "stats": {**{k: v for k, v in o.items()
-                                  if k not in ("shapes", "seq")},
-                               "backend": self.backend},
+                    {"signature": [f"{v}{MARK}{self.backend}"
+                                   if i == MARKED_FIELD else v
+                                   for i, v in enumerate(sig)],
+                     "stats": {k: v for k, v in o.items()
+                               if k not in ("shapes", "seq")},
                      "shapes": o.get("shapes")}
                     for (sig, _), o in self._records.items()
                 ] + [dict(r) for r in self._carried],
                 "tile_configs": [
                     {"layout": layout, "dim": dim,
-                     "dtype": f"{dtype}{TILE_MARK}{self.backend}", **cfg}
+                     "dtype": f"{dtype}{MARK}{self.backend}", **cfg}
                     for (layout, dim, dtype), cfg
                     in self._tile_configs.items()
                 ] + [dict(c) for c in self._carried_tiles],
@@ -463,18 +467,22 @@ class CalibrationStore:
         """The store of ``backend`` (default :func:`backend_name`) over a
         manifest payload: records and tile configs whose ``backend`` is
         another, or absent, are carried, not consulted. A record's marker
-        is read from its ``stats``, or from the record itself, where
-        earlier versions of the port wrote it; a tile config's from its
-        dtype (``"float32@cpu"``), or from a ``backend`` key beside it,
-        where earlier versions wrote it."""
+        is read from its ``impl`` (``"xla@cpu"``), or from a ``backend``
+        key inside its ``stats`` or beside its ``signature``, where earlier
+        versions of the port wrote it; a tile config's from its dtype
+        (``"float32@cpu"``), or from a ``backend`` key beside it."""
         store = cls(backend)
         now = time.time()
         for rec in (d or {}).get("records", []):
             o = dict(rec["stats"])
-            if o.pop("backend", rec.get("backend")) != store.backend:
+            sig = list(rec["signature"])
+            impl, marked = split_marked(str(sig[MARKED_FIELD]))
+            earlier = o.pop("backend", rec.get("backend"))
+            if (marked or earlier) != store.backend:
                 store._carried.append(dict(rec))
                 continue
-            sig = tuple(rec["signature"])
+            sig[MARKED_FIELD] = impl
+            sig = tuple(sig)
             # format-1 records carry no timestamp: load them as fresh —
             # an undated measurement beats no calibration, and it ages
             # out on the normal window from here
@@ -488,7 +496,7 @@ class CalibrationStore:
             o["seq"] = store._seq
             store._records[(sig, shapes_key)] = o
         for cfg in (d or {}).get("tile_configs", []):
-            dtype, backend = split_tile_dtype(str(cfg["dtype"]))
+            dtype, backend = split_marked(str(cfg["dtype"]))
             if (backend or cfg.get("backend")) != store.backend:
                 store._carried_tiles.append(dict(cfg))
                 continue

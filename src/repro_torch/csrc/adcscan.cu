@@ -42,8 +42,21 @@
 // Keys (distance, row) are unique, so the result is the k smallest of the
 // run in that order whatever the split: bit for bit the plain version's.
 // The codes are read as uint8, never widened. k <= 128 (the lists'
-// register capacity); kernels/adcscan/ops.py sends a larger k to the wide
-// kernel (widetopk.cu).
+// register capacity, KCAP = ADC_KCAP).
+//
+// The wide range, 128 < k <= 256, is K5's alone (KCAP = WIDE_KCAP): a PQ
+// search's rerank depth of 256, say. Its one list shifts through KCAP / 32
+// = 8 registers a lane, and it takes 8 rows a thread a step (twice the
+// loads in flight during its longer merges). K4 sends a k past 128, and
+// K5 a k past 256, to the block list kernel (widetopk.cu; routes in
+// kernels/l2topk/ops.py). A K4 with lists of 256, its 8 lists folded by
+// rank in the LUT's room, took 0.0322-0.0345 ms a wave at rerank 256
+// against the block list kernel's 0.0324-0.0328 in the same calls: no
+// resolved gain, so it went. Measured at rerank 256 (scripts/
+// wide_segsum_ab.py and chip_smoke.py's P7 phase, NVIDIA H100 80GB HBM3,
+// 700.00 W): K5 1.469-1.476 ms (1.00-1.01 at 128; 1.54-1.55 at 4 rows a
+// step; a histogram gate that offered only the bins reaching k took 2.38:
+// its pass of distances cost what the merges it saved did).
 //
 // K5 (fusedadc.cu) is this kernel over the whole shard: P its rows, no
 // q_start, and FUSED set: rows leave through point_ids (-1 where the
@@ -61,6 +74,9 @@ using namespace rt;
 
 constexpr int K5_WARPS = 1;  // a whole-shard call's block: one warp
 constexpr int K5_ROWS = 4;   // rows a thread a step in a whole-shard call
+// in the wide range: twice the rows a step, twice the loads in flight
+// during the longer merges of lists of 256
+constexpr int K5_WIDE_ROWS = 8;
 
 // K5's selection (FUSED): one list for the block (warp 0's) in place of a
 // list a warp. Each step the block's threads take K5_ROWS rows each (their
@@ -73,48 +89,53 @@ constexpr int K5_ROWS = 4;   // rows a thread a step in a whole-shard call
 // merge takes 32 candidates, not the few of one step: over the whole shard
 // (about 2,100 rows a lookup row, k = 128) that is about 15 merges a
 // lookup row in place of about 94. Rows leave through pids.
+template <int KCAP>
 __device__ inline void adc_block_select(
     const uint8_t* __restrict__ codes, const int* __restrict__ pids,
     const float* wl, float* rd, int* ri, float* bd, int* bi, int* n_buf,
     long long lo, long long hi, int m, int C, int k, float* od, int* oi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int step = K5_ROWS * blockDim.x;
+  constexpr int ROWS = KCAP > ADC_KCAP ? K5_WIDE_ROWS : K5_ROWS;
+  const int step = ROWS * blockDim.x;
   // m = 8 (the PQ default): a row's codes are one 8-byte load
   const bool w8 = m == 8 && reinterpret_cast<uintptr_t>(codes) % 8 == 0;
-  uint2 cw[K5_ROWS];  // the step's codes (w8) and ids, fetched a step ahead
-  int id[K5_ROWS];
+  uint2 cw[ROWS];  // the step's codes (w8) and ids, fetched a step ahead
+  int id[ROWS];
   auto fetch = [&](long long b) {
 #pragma unroll
-    for (int i = 0; i < K5_ROWS; ++i) {
+    for (int i = 0; i < ROWS; ++i) {
       const long long p = b + i * blockDim.x + threadIdx.x;
       id[i] = p < hi ? pids[p] : -1;
       cw[i] = p < hi && w8 ? reinterpret_cast<const uint2*>(codes)[p]
                            : make_uint2(0, 0);
     }
   };
+  // row p's distance from its codes c (w8) and id (inf: a tombstone)
+  auto dist = [&](uint2 c, int rid, long long p) {
+    float acc = CUDART_INF_F;
+    if (rid >= 0 && w8) {
+      acc = 0.f;  // adc_dist's order: j = 0..7 from 0
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned w = j < 4 ? c.x : c.y;
+        acc = __fadd_rn(acc, wl[j * C + ((w >> (8 * (j & 3))) & 0xff)]);
+      }
+    } else if (rid >= 0) {
+      acc = adc_dist(wl, codes + p * m, m, C);
+    }
+    return acc;
+  };
   fetch(lo);
   for (long long base = lo; base < hi; base += step) {  // block-uniform
-    float dv[K5_ROWS];
+    float dv[ROWS];
 #pragma unroll
-    for (int i = 0; i < K5_ROWS; ++i) {
-      float acc = CUDART_INF_F;
-      if (id[i] >= 0 && w8) {
-        acc = 0.f;  // adc_dist's order: j = 0..7 from 0
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const unsigned w = j < 4 ? cw[i].x : cw[i].y;
-          acc = __fadd_rn(acc, wl[j * C + ((w >> (8 * (j & 3))) & 0xff)]);
-        }
-      } else if (id[i] >= 0) {
-        acc = adc_dist(wl, codes + (base + i * blockDim.x + threadIdx.x) * m, m, C);
-      }
-      dv[i] = acc;
-    }
+    for (int i = 0; i < ROWS; ++i)
+      dv[i] = dist(cw[i], id[i], base + i * blockDim.x + threadIdx.x);
     if (base + step < hi) fetch(base + step);  // in flight during the merges
     const float kd = rd[k - 1];
     const int kr = ri[k - 1];
 #pragma unroll
-    for (int i = 0; i < K5_ROWS; ++i) {
+    for (int i = 0; i < ROWS; ++i) {
       const int p = (int)(base + i * blockDim.x + threadIdx.x);
       const bool ok = dv[i] < CUDART_INF_F && lex_less(dv[i], p, kd, kr);
       const unsigned mk = __ballot_sync(FULL, ok);
@@ -133,8 +154,8 @@ __device__ inline void adc_block_select(
       int done = 0;
       for (; n - done >= 32 || (last && done < n); done += 32) {
         const int j = done + lane;
-        warp_merge_offer<ADC_KCAP>(rd, ri, k, j < n ? bd[j] : CUDART_INF_F,
-                                   j < n ? bi[j] : -1, j < n);
+        warp_merge_offer<KCAP>(rd, ri, k, j < n ? bd[j] : CUDART_INF_F,
+                               j < n ? bi[j] : -1, j < n);
       }
       const int rest = done < n ? n - done : 0;  // < 32: to the front
       if (done > 0 && rest > 0) {
@@ -153,7 +174,7 @@ __device__ inline void adc_block_select(
   if (warp == 0) adc_emit(rd, ri, k, od, oi, [=](int r) { return pids[r]; });
 }
 
-template <bool FUSED>
+template <bool FUSED, int KCAP>
 __global__ void __launch_bounds__(THREADS)
 adcscan_kernel(const uint8_t* __restrict__ codes,
                const int* __restrict__ pleaves, const int* __restrict__ pids,
@@ -191,16 +212,17 @@ adcscan_kernel(const uint8_t* __restrict__ codes,
   for (int j = threadIdx.x; j < lut_n; j += blockDim.x) wl[j] = src[j];
   if constexpr (FUSED) {
     __shared__ int n_buf;
-    // [K5_ROWS * blockDim.x + 32]
+    constexpr int ROWS = KCAP > ADC_KCAP ? K5_WIDE_ROWS : K5_ROWS;
+    // [ROWS * blockDim.x + 32]
     float* bd = reinterpret_cast<float*>(lists_i + nw * k);
-    int* bi = reinterpret_cast<int*>(bd + K5_ROWS * blockDim.x + 32);
+    int* bi = reinterpret_cast<int*>(bd + ROWS * blockDim.x + 32);
     if (threadIdx.x == 0) n_buf = 0;
     __syncthreads();
-    adc_block_select(codes, pids, wl, lists_d, lists_i, bd, bi, &n_buf, lo, hi,
-                     m, C, k, od, oi);
+    adc_block_select<KCAP>(codes, pids, wl, lists_d, lists_i, bd, bi, &n_buf,
+                           lo, hi, m, C, k, od, oi);
     return;
   }
-  __syncthreads();
+  __syncthreads();  // K4: lists of ADC_KCAP only
   for (long long base = lo + warp * 32; base < hi; base += nw * 32) {
     const long long p = base + lane;
     const bool in = p < hi && (!pids || pids[p] >= 0);
@@ -217,9 +239,10 @@ adcscan_kernel(const uint8_t* __restrict__ codes,
 }
 
 // pids may be null: every row is live (K4 only). K4: one block of up to 8
-// warps per lookup row, as many as shared memory holds beside the LUT.
-// K5 (fused): one block of K5_WARPS warps per lookup row, the lists' space
-// (only warp 0's is used) and the candidate buffer beside the LUT.
+// warps per lookup row, as many as shared memory holds beside the LUT, at
+// k <= 128 only. K5 (fused): one block of K5_WARPS warps per lookup row,
+// the lists' space (only warp 0's is used) and the candidate buffer beside
+// the LUT; k <= 128 runs at KCAP 128, 128 < k <= 256 at KCAP 256.
 int adcscan_run(bool fused, const void* codes, const void* pleaves,
                 const void* pids, const void* lut, const void* qleaves,
                 const void* q_start, void* out_d, void* out_i, int P, int Q,
@@ -228,22 +251,26 @@ int adcscan_run(bool fused, const void* codes, const void* pleaves,
   const size_t lut_bytes = sizeof(float) * (size_t)m * C;
   const size_t list_bytes = (sizeof(float) + sizeof(int)) * (size_t)k;
   const size_t cap = 227 * 1024 - 64;  // H100 opt-in shared memory
-  if (P < 1 || Q < 1 || k < 1 || k > ADC_KCAP || lut_bytes + list_bytes > cap ||
-      (fused && !pids))
+  const bool wide = k > ADC_KCAP;
+  if (P < 1 || Q < 1 || k < 1 || k > (fused ? WIDE_KCAP : ADC_KCAP) ||
+      lut_bytes + list_bytes > cap || (fused && !pids))
     return (int)cudaErrorInvalidValue;
   int nw;
   size_t smem;
   if (fused) {
     nw = K5_WARPS;
     smem = lut_bytes + nw * list_bytes +
-           (sizeof(float) + sizeof(int)) * (size_t)(K5_ROWS * nw * 32 + 32);
+           (sizeof(float) + sizeof(int)) *
+               (size_t)((wide ? K5_WIDE_ROWS : K5_ROWS) * nw * 32 + 32);
     if (smem > cap) return (int)cudaErrorInvalidValue;
   } else {
     const size_t fit = (cap - lut_bytes) / list_bytes;
     nw = fit < (size_t)(THREADS / 32) ? (int)fit : THREADS / 32;
     smem = lut_bytes + nw * list_bytes;
   }
-  auto kernel = fused ? adcscan_kernel<true> : adcscan_kernel<false>;
+  auto kernel = !fused ? adcscan_kernel<false, ADC_KCAP>
+                       : wide ? adcscan_kernel<true, WIDE_KCAP>
+                              : adcscan_kernel<true, ADC_KCAP>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kernel<<<Q, nw * 32, smem, st>>>(

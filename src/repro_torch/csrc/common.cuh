@@ -33,9 +33,14 @@
 // does not depend on the order candidates arrive in. The list capacity
 // KCAP (a multiple of 32, k <= KCAP) of the register-shifted lists is a
 // template parameter: each lane keeps KCAP / 32 registers while it shifts
-// a list, so the dense kernels stay at 64 and the codes kernels, whose k
-// is the rerank depth, at 128. A larger k (any k up to the rows scanned)
-// goes to the wide kernels, whose lists live in shared or device memory.
+// a list, so the dense kernels run at 64 and the codes kernels, whose k
+// is the rerank depth, at 128. The same kernels, instantiated at
+// WIDE_KCAP = 256 (whose lists of k <= 128 shift through 128), serve the
+// wide range up to 256 (every rerank depth and k-NN list a search asks
+// for in practice); there the lists of a block's warps, and of a
+// cluster's blocks, are folded by rank with the whole block
+// (block_merge_pairs), not 32 entries at a time by one warp. A k past 256
+// (any k up to the rows scanned) goes to widetopk.cu's block-list kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +53,7 @@ constexpr int THREADS = 256;    // K1, K3, K4: 8 warps
 constexpr int MAX_D = 256;
 constexpr int DENSE_KCAP = 64;  // largest k of K1 and K2 (kernels/l2topk/ops.py)
 constexpr int ADC_KCAP = 128;   // largest k of K4 and K5: the rerank depth
+constexpr int WIDE_KCAP = 256;  // the wide range's lists (kernels/l2topk/ops.py)
 constexpr unsigned FULL = 0xffffffffu;
 
 // Function attributes and occupancy are per device, and a launch runs on
@@ -202,6 +208,16 @@ __device__ __forceinline__ void warp_sort32(float& d, int& r) {
 template <int KCAP>
 __device__ inline void warp_merge_offer(float* rd, int* ri, int k, float dv,
                                         int row, bool ok) {
+  if constexpr (KCAP > ADC_KCAP) {
+    // the wide lists: a list of k <= KCAP / 2 shifts through half the
+    // registers. The register slots' shuffle searches below are
+    // independent, so the card interleaves them; a guard on each (to skip
+    // the slots past k) would put them in a row.
+    if (k <= KCAP / 2) {
+      warp_merge_offer<KCAP / 2>(rd, ri, k, dv, row, ok);
+      return;
+    }
+  }
   const int lane = threadIdx.x & 31;
   ok = ok && lex_less(dv, row, rd[k - 1], ri[k - 1]);
   const unsigned any = __ballot_sync(FULL, ok);
@@ -311,6 +327,104 @@ __device__ inline void warp_merge_list(float* rd, int* ri, const float* sd,
     warp_merge_offer<KCAP>(rd, ri, k, dv, j < k ? si[j] : -1,
                            dv < CUDART_INF_F);
   }
+}
+
+// Entries of the ascending (d, r) array [0, n) before (dv, rv); with
+// or_equal, also an entry equal to it.
+__device__ __forceinline__ int count_before(const float* d, const int* r,
+                                            int n, float dv, int rv,
+                                            bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool before = or_equal ? !lex_less(dv, rv, d[mid], r[mid])
+                                 : lex_less(d[mid], r[mid], dv, rv);
+    if (before) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+constexpr int FOLD_LISTS = 32;  // most lists a block folds at once
+
+// The finite entries of each of the n_lists sorted lists of k entries (at
+// src(l) in sd/si) into n[l], with the block: the empty (inf, -1) entries
+// fill a list's tail. The caller synchronises the block after.
+template <class Src>
+__device__ inline void block_count_lists(const float* sd, const int* si,
+                                         Src src, int n_lists, int k, int* n) {
+  for (int l = threadIdx.x; l < n_lists; l += blockDim.x)
+    n[l] = count_before(sd + src(l), si + src(l), k, CUDART_INF_F, -1, false);
+}
+
+// Fold n_lists sorted (distance, row) lists of k entries, n_in[l] of them
+// finite, into (n_lists + 1) / 2 lists of the k smallest of each pair,
+// with the whole block: lists 2p and 2p + 1 (at src(2p), src(2p + 1) in
+// sd/si) into list p (at dst(p) in dd/di), its finite count into n_out[p];
+// an odd last list is copied. A finite entry's place is its index plus
+// the other list's finite entries before it (rows are unique, so no two
+// tie), found by a binary search of that list's finite prefix; an empty
+// entry i of the first list lands at i plus the second's finite count,
+// which fills the merged list's tail, and the second's empty entries land
+// past k. So the first k places are each written once. The lists must not
+// overlap the destination; the caller synchronises the block before and
+// after.
+template <class Src, class Dst>
+__device__ inline void block_merge_pairs(const float* sd, const int* si,
+                                         Src src, const int* n_in, float* dd,
+                                         int* di, Dst dst, int* n_out,
+                                         int n_lists, int k) {
+  const int n_pairs = (n_lists + 1) / 2;
+  for (int e = threadIdx.x; e < n_pairs * 2 * k; e += blockDim.x) {
+    const int p = e / (2 * k), j = e - p * 2 * k;
+    const bool second = j >= k, alone = 2 * p + 1 >= n_lists;
+    const int i = second ? j - k : j;
+    const int na = n_in[2 * p], nb = alone ? 0 : n_in[2 * p + 1];
+    if (j == 0) n_out[p] = min(k, na + nb);
+    if (second ? i >= nb : i >= na) {
+      if (!second && i + nb < k) {  // an empty entry: the merged list's tail
+        dd[dst(p) + i + nb] = CUDART_INF_F;
+        di[dst(p) + i + nb] = -1;
+      }
+      continue;
+    }
+    const int own = src(2 * p + second);
+    const float dv = sd[own + i];
+    const int rv = si[own + i];
+    int to = i;
+    if (!alone) {
+      const int other = src(2 * p + !second);
+      to += count_before(sd + other, si + other, second ? na : nb, dv, rv,
+                         false);
+    }
+    if (to < k) {
+      dd[dst(p) + to] = dv;
+      di[dst(p) + to] = rv;
+    }
+  }
+}
+
+// Fold the n_lists <= FOLD_LISTS lists of k entries at list * k in
+// (ad, ai) into one, through room for (n_lists + 1) / 2 lists at (bd, bi),
+// with the whole block. Returns whether the folded list is at bd (else
+// ad). The caller synchronises the block before; the result is
+// synchronised.
+__device__ inline bool block_fold_lists(float* ad, int* ai, float* bd, int* bi,
+                                        int n_lists, int k) {
+  __shared__ int fold_n[2][FOLD_LISTS];  // the lists' finite counts
+  const auto at = [k](int l) { return l * k; };
+  block_count_lists(ad, ai, at, n_lists, k, fold_n[0]);
+  __syncthreads();
+  bool in_b = false;
+  while (n_lists > 1) {
+    if (in_b)
+      block_merge_pairs(bd, bi, at, fold_n[1], ad, ai, at, fold_n[0], n_lists, k);
+    else
+      block_merge_pairs(ad, ai, at, fold_n[0], bd, bi, at, fold_n[1], n_lists, k);
+    __syncthreads();
+    in_b = !in_b;
+    n_lists = (n_lists + 1) / 2;
+  }
+  return in_b;
 }
 
 // ---- ADC (K4, K5): a query row's LUT and lists in shared memory ----

@@ -29,9 +29,9 @@
 // list 32 at a time (warp_merge_offer): about 15 merges a lookup row in
 // place of about 94. The selection is the same (the k smallest by
 // (distance, row)), so the fused and the wave-sweep codes paths agree bit
-// for bit. k <= 128; kernels/fusedscan/ops.py sends a larger k to the wide
-// kernel (widetopk.cu). The row count stays 32-bit (the wrapper checks
-// P < 2^31).
+// for bit. k <= 128 at KCAP 128, 128 < k <= 256 (the wide range) at KCAP
+// 256; kernels/fusedscan/ops.py sends a larger k to the block list kernel
+// (widetopk.cu). The row count stays 32-bit (the wrapper checks P < 2^31).
 #include "common.cuh"
 
 int adcscan_run(bool fused, const void* codes, const void* pleaves,

@@ -7,9 +7,10 @@
 // ascending by (distance, shard row), ids mapped through point_ids, with
 // inf / -1 where fewer than k match or the kept row is tombstoned (id < 0).
 // The point leaves must ascend (a DistributedIndex's do); query leaves may
-// come in any order. k <= 64 (the lists' register capacity);
-// kernels/fusedscan/ops.py sends a larger k to the wide kernel
-// (widetopk.cu).
+// come in any order. k <= 64 (the lists' register capacity, KCAP =
+// DENSE_KCAP); the same kernels at KCAP = WIDE_KCAP serve 64 < k <= 256
+// (below), and kernels/fusedscan/ops.py sends a larger k to the block
+// list kernel (widetopk.cu).
 //
 // Bound on the H100: only same-leaf pairs carry work, and a pair needs its
 // point row once. At the main path's call (2^25 index rows, 2^15 lookup
@@ -61,6 +62,20 @@
 //    tiles c, c + n, ... Without the split, the largest leaf's tile alone
 //    (about 15 MB through one SM) would take most of a millisecond.
 // The tombstone rule stays: a kept row with id < 0 is emitted as -1 / inf.
+//
+// The wide range (64 < k <= 256, KCAP = WIDE_KCAP): the same tiles, runs,
+// clusters, staging and buffered merges, with each warp's list of k for
+// each tile row in shared memory (4 x 8 x k entries: 25.6 KB at k = 100,
+// three blocks an SM); the merges shift KCAP / 32 = 8 registers a lane
+// (4 for a list of k <= 128). A tile row's 4 lists (16 over a cluster)
+// are folded by rank with the whole block
+// (block_merge_pairs: 2 levels through the ring, which the scan no longer
+// needs; the cluster's other blocks' lists copied in through distributed
+// shared memory first), not 32 entries a merge on one warp, which would
+// take ceil(k / 32) merges a list. Measured at k = 100 on the main path's
+// call (scripts/wide_segsum_ab.py and chip_smoke.py's P7 phase, H100 80GB
+// HBM3, 700.00 W): 5.07-5.19 ms (3.75-3.78 at k = 20; the block list
+// kernel 10.92-10.97).
 //
 // Device: launches on the current device, which the wrapper makes the
 // tensors' own; its resident cluster count is kept per device.
@@ -124,7 +139,7 @@ __device__ inline FSmem f_smem(void* base, int d, int k) {
 // wbd/wbi ([F_G][32], counts wnb [F_G]): the row groups of 32 starting at
 // lo + gw * 32, every stride rows (gw is the warp's index in its cluster).
 // Chunk c is row group c / nslice, columns (c % nslice) * F_CK ...
-template <bool VEC>
+template <bool VEC, int KCAP>
 __device__ inline void f_scan(float* ring, const float* qs, int nt,
                               const float* __restrict__ points, long long lo,
                               long long hi, int gw, int stride, int d, int k,
@@ -189,22 +204,41 @@ __device__ inline void f_scan(float* ring, const float* qs, int nt,
       const long long p = first + (long long)(c / nslice) * stride + lane;
 #pragma unroll 1
       for (int j = 0; j < nt; ++j)
-        warp_buffered_offer<DENSE_KCAP>(wld + j * k, wli + j * k, k,
-                                        wbd + j * 32, wbi + j * 32, wnb + j,
-                                        buf[j * 32 + lane], (int)p, p < hi);
+        warp_buffered_offer<KCAP>(wld + j * k, wli + j * k, k, wbd + j * 32,
+                                  wbi + j * 32, wnb + j, buf[j * 32 + lane],
+                                  (int)p, p < hi);
       __syncwarp();  // every lane has read the distances
     }
   }
   cp_async_wait<0>();
 #pragma unroll 1
   for (int j = 0; j < nt; ++j)
-    warp_flush<DENSE_KCAP>(wld + j * k, wli + j * k, k, wbd + j * 32,
-                           wbi + j * 32, wnb + j);
+    warp_flush<KCAP>(wld + j * k, wli + j * k, k, wbd + j * 32, wbi + j * 32,
+                     wnb + j);
+}
+
+// The wide range's fold of the tile's nt rows' F_WARPS lists each (row j's
+// list of warp w at (w * F_G + j) * k) into row j's list of warp 0, by rank
+// with the whole block, through the ring. The caller synchronises before.
+__device__ inline void f_fold_rows(const FSmem& s, int nt, int k) {
+  static_assert(F_WARPS == 4, "two levels of pairs");
+  static_assert(F_G * F_WARPS <= FOLD_LISTS, "a tile's lists");
+  __shared__ int n[2][F_G * F_WARPS];  // the lists' finite counts
+  float* td = s.ring;  // [nt][2][k] distances, then rows
+  int* ti = reinterpret_cast<int*>(s.ring + 2 * F_G * k);
+  const auto by_row = [k](int l) { return ((l % F_WARPS) * F_G + l / F_WARPS) * k; };
+  const auto flat = [k](int l) { return l * k; };
+  block_count_lists(s.ld, s.li, by_row, nt * F_WARPS, k, n[0]);
+  __syncthreads();
+  block_merge_pairs(s.ld, s.li, by_row, n[0], td, ti, flat, n[1], nt * F_WARPS, k);
+  __syncthreads();
+  block_merge_pairs(td, ti, flat, n[1], s.ld, s.li, flat, n[0], nt * 2, k);
+  __syncthreads();
 }
 
 // One group tile, lookup rows q0 .. q0 + nt - 1 of leaf run [lo, hi), by
 // the CL blocks of a cluster (CL = 1: one block); rank is the block's.
-template <bool VEC, int CL>
+template <bool VEC, int CL, int KCAP>
 __device__ inline void f_tile(const FSmem& s, cg::cluster_group* cluster,
                               int rank, const float* __restrict__ points,
                               const int* __restrict__ pids,
@@ -224,29 +258,50 @@ __device__ inline void f_tile(const FSmem& s, cg::cluster_group* cluster,
   }
   if (threadIdx.x < F_WARPS * F_G) s.nb[threadIdx.x] = 0;
   __syncthreads();  // the query rows are staged, the lists and buffers reset
-  f_scan<VEC>(s.ring + warp * F_NBUF * F_CHUNK, s.qs, nt, points, lo, hi,
-              rank * F_WARPS + warp, CL * F_WARPS * 32, d, k,
-              s.ld + warp * F_G * k, s.li + warp * F_G * k,
-              s.bd + warp * F_G * 32, s.bi + warp * F_G * 32, s.nb + warp * F_G);
+  f_scan<VEC, KCAP>(s.ring + warp * F_NBUF * F_CHUNK, s.qs, nt, points, lo, hi,
+                    rank * F_WARPS + warp, CL * F_WARPS * 32, d, k,
+                    s.ld + warp * F_G * k, s.li + warp * F_G * k,
+                    s.bd + warp * F_G * 32, s.bi + warp * F_G * 32,
+                    s.nb + warp * F_G);
   __syncthreads();
-  if constexpr (CL > 1) cluster->sync();  // every block's lists are final
-  if (rank == 0) {
-    // query row j: warp j % F_WARPS folds every other list of row j (the
-    // cluster's other blocks' through distributed shared memory) into
-    // warp 0's
-    for (int j = warp; j < nt; j += F_WARPS)
-      for (int r = 0; r < CL; ++r)
-        for (int w = r == 0 ? 1 : 0; w < F_WARPS; ++w) {
-          const float* sd = s.ld + (w * F_G + j) * k;
-          const int* si = s.li + (w * F_G + j) * k;
-          if constexpr (CL > 1) {
-            if (r > 0) {
-              sd = cluster->map_shared_rank(sd, r);
-              si = cluster->map_shared_rank(si, r);
+  if constexpr (KCAP == DENSE_KCAP) {
+    if constexpr (CL > 1) cluster->sync();  // every block's lists are final
+    if (rank == 0) {
+      // query row j: warp j % F_WARPS folds every other list of row j (the
+      // cluster's other blocks' through distributed shared memory) into
+      // warp 0's
+      for (int j = warp; j < nt; j += F_WARPS)
+        for (int r = 0; r < CL; ++r)
+          for (int w = r == 0 ? 1 : 0; w < F_WARPS; ++w) {
+            const float* sd = s.ld + (w * F_G + j) * k;
+            const int* si = s.li + (w * F_G + j) * k;
+            if constexpr (CL > 1) {
+              if (r > 0) {
+                sd = cluster->map_shared_rank(sd, r);
+                si = cluster->map_shared_rank(si, r);
+              }
             }
+            warp_merge_list<DENSE_KCAP>(s.ld + j * k, s.li + j * k, sd, si, k);
           }
-          warp_merge_list<DENSE_KCAP>(s.ld + j * k, s.li + j * k, sd, si, k);
+    }
+  } else {
+    f_fold_rows(s, nt, k);  // each block's rows into its warp 0's lists
+    if constexpr (CL > 1) {
+      static_assert(CL == F_WARPS, "the blocks' lists take the warps' places");
+      cluster->sync();  // every block's lists are final
+      if (rank == 0) {
+        // block r's list of row j into this block's list of warp r, row j
+        for (int t = threadIdx.x; t < (CL - 1) * nt * k; t += F_THREADS) {
+          const int r = 1 + t / (nt * k), jt = t % (nt * k);
+          s.ld[r * F_G * k + jt] = cluster->map_shared_rank(s.ld, r)[jt];
+          s.li[r * F_G * k + jt] = cluster->map_shared_rank(s.li, r)[jt];
         }
+        __syncthreads();
+        f_fold_rows(s, nt, k);
+      }
+    }
+  }
+  if (rank == 0) {
     __syncthreads();
     for (int t = threadIdx.x; t < nt * k; t += F_THREADS) {
       const float dv = s.ld[t];
@@ -272,8 +327,8 @@ __device__ inline void f_write_empty(float* out_d, int* out_i, int q0,
 
 // One block per lookup row; the first row of each group does the group's
 // work, or appends its tiles to long_tiles when its run is long.
-template <bool VEC>
-__global__ void __launch_bounds__(F_THREADS, 4)
+template <bool VEC, int KCAP>
+__global__ void __launch_bounds__(F_THREADS, KCAP == DENSE_KCAP ? 4 : 3)
 fusedscan_kernel(const float* __restrict__ points,
                  const int* __restrict__ pleaves, const int* __restrict__ pids,
                  const float* __restrict__ queries,
@@ -313,12 +368,13 @@ fusedscan_kernel(const float* __restrict__ points,
   }
   const FSmem s = f_smem(smem_raw, d, k);
   for (int t0 = q; t0 < end; t0 += F_G)
-    f_tile<VEC, 1>(s, nullptr, 0, points, pids, queries, out_d, out_i, t0,
-                   min(F_G, end - t0), lo, hi, d, k);
+    f_tile<VEC, 1, KCAP>(s, nullptr, 0, points, pids, queries, out_d, out_i, t0,
+                         min(F_G, end - t0), lo, hi, d, k);
 }
 
-template <bool VEC>
-__global__ void __cluster_dims__(F_CLUSTER, 1, 1) __launch_bounds__(F_THREADS, 4)
+template <bool VEC, int KCAP>
+__global__ void __cluster_dims__(F_CLUSTER, 1, 1)
+__launch_bounds__(F_THREADS, KCAP == DENSE_KCAP ? 4 : 3)
 fusedscan_long_kernel(const float* __restrict__ points,
                       const int* __restrict__ pids,
                       const float* __restrict__ queries, float* out_d,
@@ -332,15 +388,16 @@ fusedscan_long_kernel(const float* __restrict__ points,
   const int n = *n_long;
   for (int t = cl; t < n; t += n_cl) {
     const int4 tile = long_tiles[t];
-    f_tile<VEC, F_CLUSTER>(s, &cluster, rank, points, pids, queries, out_d,
-                           out_i, tile.x, tile.y, tile.z, tile.w, d, k);
+    f_tile<VEC, F_CLUSTER, KCAP>(s, &cluster, rank, points, pids, queries,
+                                 out_d, out_i, tile.x, tile.y, tile.z, tile.w,
+                                 d, k);
   }
 }
 
 // The clusters of 4 blocks the card holds at once at this shared memory
 // size on the current device (cudaOccupancyMaxActiveClusters, read again
 // only when it changes there).
-template <bool VEC>
+template <bool VEC, int KCAP>
 int f_clusters(int smem, int* out) {
   static int last_smem_of[MAX_DEVICES] = {}, clusters_of[MAX_DEVICES] = {};
   const int dev = current_device();
@@ -355,7 +412,7 @@ int f_clusters(int smem, int* out) {
     cfg.dynamicSmemBytes = smem;
     int n = 0;  // the cluster shape comes from __cluster_dims__
     const cudaError_t e = cudaOccupancyMaxActiveClusters(
-        &n, fusedscan_long_kernel<VEC>, &cfg);
+        &n, fusedscan_long_kernel<VEC, KCAP>, &cfg);
     if (e != cudaSuccess) return (int)e;
     if (n < 1) return (int)cudaErrorInvalidConfiguration;
     clusters = n;
@@ -365,50 +422,55 @@ int f_clusters(int smem, int* out) {
   return 0;
 }
 
-template <bool VEC>
+template <bool VEC, int KCAP>
 int f_launch(const float* points, const int* pleaves, const int* pids,
              const float* queries, const int* qleaves, float* out_d,
              int* out_i, int* scratch, int P, int Q, int d, int k,
              cudaStream_t st) {
   const int smem = (int)f_smem_bytes(d, k);
   cudaError_t e = cudaFuncSetAttribute(
-      fusedscan_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fusedscan_kernel<VEC, KCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fusedscan_long_kernel<VEC>,
+    e = cudaFuncSetAttribute(fusedscan_long_kernel<VEC, KCAP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   int clusters = 0;
-  const int ce = f_clusters<VEC>(smem, &clusters);
+  const int ce = f_clusters<VEC, KCAP>(smem, &clusters);
   if (ce) return ce;
   int* n_long = scratch;  // scratch: the counter, 3 ints of padding, tiles
   int4* long_tiles = reinterpret_cast<int4*>(scratch + 4);
   e = cudaMemsetAsync(n_long, 0, sizeof(int), st);
   if (e != cudaSuccess) return (int)e;
-  fusedscan_kernel<VEC><<<Q, F_THREADS, smem, st>>>(
+  fusedscan_kernel<VEC, KCAP><<<Q, F_THREADS, smem, st>>>(
       points, pleaves, pids, queries, qleaves, out_d, out_i, long_tiles,
       n_long, P, Q, d, k);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fusedscan_long_kernel<VEC><<<clusters * F_CLUSTER, F_THREADS, smem, st>>>(
+  fusedscan_long_kernel<VEC, KCAP><<<clusters * F_CLUSTER, F_THREADS, smem, st>>>(
       points, pids, queries, out_d, out_i, long_tiles, n_long, d, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: 4 + 4 * Q int32, 16-byte aligned (the long tiles' list).
+// scratch: 4 + 4 * Q int32, 16-byte aligned (the long tiles' list). k <= 64
+// runs at KCAP 64, 64 < k <= 256 (the wide range) at KCAP 256.
 extern "C" int fusedscan_launch(const void* points, const void* pleaves,
                                 const void* pids, const void* queries,
                                 const void* qleaves, void* out_d, void* out_i,
                                 void* scratch, int P, int Q, int d, int k,
                                 void* stream) {
-  if (P < 1 || Q < 1 || d < 1 || d > MAX_D || k < 1 || k > DENSE_KCAP ||
+  if (P < 1 || Q < 1 || d < 1 || d > MAX_D || k < 1 || k > WIDE_KCAP ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   // 16-byte copies need 16-byte aligned rows
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
-  auto launch = vec ? f_launch<true> : f_launch<false>;
+  auto launch = k <= DENSE_KCAP ? (vec ? f_launch<true, DENSE_KCAP>
+                                       : f_launch<false, DENSE_KCAP>)
+                                : (vec ? f_launch<true, WIDE_KCAP>
+                                       : f_launch<false, WIDE_KCAP>);
   return launch((const float*)points, (const int*)pleaves, (const int*)pids,
                 (const float*)queries, (const int*)qleaves, (float*)out_d,
                 (int*)out_i, (int*)scratch, P, Q, d, k, st);

@@ -48,8 +48,24 @@
 // the cluster folds the other 3 blocks' lists through distributed shared
 // memory. Keys are unique, so the result is the plain version's whatever
 // the split. One launch a wave; no merge kernel, no scratch. k <= 64 (the
-// lists' register capacity); kernels/l2topk/ops.py sends a larger k to the
-// wide kernel.
+// lists' register capacity, KCAP = DENSE_KCAP).
+//
+// The wide range, 64 < k <= 256 (KCAP = WIDE_KCAP, the same kernel): a
+// k-NN list of 100 for copy-detection voting, say. Each warp's list of k
+// in shared memory shifts through KCAP / 32 = 8 registers a lane (4 for a
+// list of k <= 128). Folding a list 32 entries a merge, as
+// warp_merge_list does, would take ceil(k / 32) merges a list on one
+// warp, 24 in a row at k = 100 (3 tree levels and 3 cluster folds); so
+// the block folds its 8 lists by rank instead
+// (block_merge_pairs: each entry finds its place in its pair's merged list
+// by one binary search, the whole block at once, 3 levels through the
+// ring, which the scan no longer needs), and block 0 of the cluster copies
+// the other 3 blocks' lists in through distributed shared memory and folds
+// the 4 the same way. kernels/l2topk/ops.py sends k past 256 to the block
+// list kernel (widetopk.cu). Measured at k = 100 (scripts/wide_segsum_ab.py
+// and chip_smoke.py's P7 phase, H100 80GB HBM3, 700.00 W): 0.0262-0.0264
+// ms a real wave (0.0205 at k = 20; the block list kernel 0.0685-0.0689),
+// 0.0323-0.0325 on the wave with the most pairs (0.132-0.133).
 //
 // Query tiles (the query-routed executor): p_start, when not null, is a
 // one-element int64 on the device; the kernel then scans the P rows from
@@ -89,7 +105,7 @@ inline size_t k1_smem_bytes(int d, int k) {
 // the row groups of 32 starting at lo + gw * 32, every stride rows (gw is
 // the warp's index in its cluster). Chunk c is row group c / nslice,
 // columns (c % nslice) * K1_CK ...
-template <bool VEC>
+template <bool VEC, int KCAP>
 __device__ inline void k1_scan_run(float* ring, const float* qs,
                                    const float* __restrict__ points,
                                    long long lo, long long hi, int gw,
@@ -137,8 +153,8 @@ __device__ inline void k1_scan_run(float* ring, const float* qs,
     __syncwarp();  // every lane has read chunk c before its buffer refills
     if (slice == nslice - 1) {
       const long long p = first + (long long)(c / nslice) * stride + lane;
-      warp_merge_offer<DENSE_KCAP>(rd, ri, k, __fsub_rn(pn, 2.0f * dot),
-                                   (int)p, p < hi);
+      warp_merge_offer<KCAP>(rd, ri, k, __fsub_rn(pn, 2.0f * dot), (int)p,
+                             p < hi);
     }
   }
   cp_async_wait<0>();
@@ -152,7 +168,7 @@ __device__ inline void k1_write_empty(float* od, int* oi, int k, int t,
   }
 }
 
-template <bool VEC>
+template <bool VEC, int KCAP>
 __global__ void __cluster_dims__(K1_CLUSTER, 1, 1) __launch_bounds__(THREADS)
 l2topk_kernel(const float* __restrict__ points,
               const int* __restrict__ pleaves,
@@ -225,21 +241,53 @@ l2topk_kernel(const float* __restrict__ points,
       if (threadIdx.x < dpad) qs[threadIdx.x] = qv;
       adc_reset_list(rd, ri, k);
       __syncthreads();  // the query row is staged
-      k1_scan_run<VEC>(ring + warp * K1_NBUF * K1_CHUNK, qs, points, lo, hi,
-                       rank * K1_WARPS + warp, K1_CLUSTER * K1_WARPS * 32, d, k,
-                       rd, ri);
-      for (int s = 1; s < K1_WARPS; s <<= 1) {
-        __syncthreads();  // warp + s finished its list
-        if ((warp & (2 * s - 1)) == 0 && warp + s < K1_WARPS)
-          warp_merge_list<DENSE_KCAP>(rd, ri, lists_d + (warp + s) * k,
-                                      lists_i + (warp + s) * k, k);
-      }
-      cluster.sync();  // every block's list (its warp 0's) is final
-      if (rank == 0 && warp == 0) {
-        for (int r = 1; r < K1_CLUSTER; ++r)
-          warp_merge_list<DENSE_KCAP>(rd, ri, cluster.map_shared_rank(lists_d, r),
-                                      cluster.map_shared_rank(lists_i, r), k);
-        adc_emit(rd, ri, k, od, oi, [](int r) { return r; });
+      k1_scan_run<VEC, KCAP>(ring + warp * K1_NBUF * K1_CHUNK, qs, points, lo,
+                             hi, rank * K1_WARPS + warp,
+                             K1_CLUSTER * K1_WARPS * 32, d, k, rd, ri);
+      if constexpr (KCAP == DENSE_KCAP) {
+        for (int s = 1; s < K1_WARPS; s <<= 1) {
+          __syncthreads();  // warp + s finished its list
+          if ((warp & (2 * s - 1)) == 0 && warp + s < K1_WARPS)
+            warp_merge_list<DENSE_KCAP>(rd, ri, lists_d + (warp + s) * k,
+                                        lists_i + (warp + s) * k, k);
+        }
+        cluster.sync();  // every block's list (its warp 0's) is final
+        if (rank == 0 && warp == 0) {
+          for (int r = 1; r < K1_CLUSTER; ++r)
+            warp_merge_list<DENSE_KCAP>(rd, ri, cluster.map_shared_rank(lists_d, r),
+                                        cluster.map_shared_rank(lists_i, r), k);
+          adc_emit(rd, ri, k, od, oi, [](int r) { return r; });
+        }
+      } else {
+        // the wide range: the block's 8 lists folded by rank through the
+        // ring (room for 4 lists), into lists_d/_i's first list
+        float* td = ring;
+        int* ti = reinterpret_cast<int*>(ring + K1_WARPS / 2 * k);
+        __syncthreads();  // every warp's list is final, the ring free
+        if (block_fold_lists(lists_d, lists_i, td, ti, K1_WARPS, k)) {
+          for (int j = threadIdx.x; j < k; j += THREADS) {
+            lists_d[j] = td[j];
+            lists_i[j] = ti[j];
+          }
+        }
+        cluster.sync();  // every block's list (its first) is final
+        if (rank == 0) {
+          // the other blocks' lists into this block's lists 1 .. 3
+          for (int j = threadIdx.x; j < (K1_CLUSTER - 1) * k; j += THREADS) {
+            const int r = 1 + j / k;
+            lists_d[k + j] = cluster.map_shared_rank(lists_d, r)[j % k];
+            lists_i[k + j] = cluster.map_shared_rank(lists_i, r)[j % k];
+          }
+          __syncthreads();
+          const bool in_t =
+              block_fold_lists(lists_d, lists_i, td, ti, K1_CLUSTER, k);
+          const float* fd = in_t ? td : lists_d;
+          const int* fi = in_t ? ti : lists_i;
+          for (int j = threadIdx.x; j < k; j += THREADS) {
+            od[j] = fd[j];
+            oi[j] = fd[j] < CUDART_INF_F ? fi[j] : -1;
+          }
+        }
       }
       cluster.sync();  // rank 0 has read every list; lists and query free
     }
@@ -252,16 +300,17 @@ l2topk_kernel(const float* __restrict__ points,
 // lies inside one GPC, so this can be fewer than SMs / 4 (30, not 33, on
 // an H100 80GB HBM3); a grid larger than it would run its last clusters
 // as a second wave.
-template <bool VEC>
+template <bool VEC, int KCAP>
 int k1_clusters(int* out) {
   static int clusters_of[MAX_DEVICES] = {};
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
   int& clusters = clusters_of[dev];
   if (!clusters) {
-    const int smem = (int)k1_smem_bytes(MAX_D, DENSE_KCAP);
+    const int smem = (int)k1_smem_bytes(MAX_D, KCAP);
     cudaError_t e = cudaFuncSetAttribute(
-        l2topk_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        l2topk_kernel<VEC, KCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
     int sms = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -270,7 +319,7 @@ int k1_clusters(int* out) {
     cfg.blockDim = dim3(THREADS);
     cfg.dynamicSmemBytes = smem;
     int n = 0;  // the cluster shape comes from __cluster_dims__
-    e = cudaOccupancyMaxActiveClusters(&n, l2topk_kernel<VEC>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&n, l2topk_kernel<VEC, KCAP>, &cfg);
     if (e != cudaSuccess) return (int)e;
     if (n < 1) return (int)cudaErrorInvalidConfiguration;
     clusters = n;
@@ -279,42 +328,54 @@ int k1_clusters(int* out) {
   return 0;
 }
 
-template <bool VEC>
+template <bool VEC, int KCAP>
 int k1_launch(const float* points, const int* pleaves, const float* queries,
               const int* qleaves, const long long* p_start, float* out_d,
               int* out_i, int P, int Q, int d, int k, cudaStream_t st) {
   int clusters = 0;
-  const int e = k1_clusters<VEC>(&clusters);
+  const int e = k1_clusters<VEC, KCAP>(&clusters);
   if (e) return e;
   if (Q < clusters) clusters = Q;
-  l2topk_kernel<VEC><<<clusters * K1_CLUSTER, THREADS, k1_smem_bytes(d, k), st>>>(
+  l2topk_kernel<VEC, KCAP><<<clusters * K1_CLUSTER, THREADS,
+                             k1_smem_bytes(d, k), st>>>(
       points, pleaves, queries, qleaves, p_start, out_d, out_i, P, Q, d, k);
   return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int k1_launch_k(const float* points, const int* pleaves, const float* queries,
+                const int* qleaves, const long long* p_start, float* out_d,
+                int* out_i, int P, int Q, int d, int k, cudaStream_t st) {
+  auto launch = k <= DENSE_KCAP ? k1_launch<VEC, DENSE_KCAP>
+                                : k1_launch<VEC, WIDE_KCAP>;
+  return launch(points, pleaves, queries, qleaves, p_start, out_d, out_i, P, Q,
+                d, k, st);
 }
 
 }  // namespace
 
 // p_start may be null (rows from 0) or a device int64: the first of the P
-// rows to scan, which stay inside the points the caller holds.
+// rows to scan, which stay inside the points the caller holds. k <= 64 runs
+// at KCAP 64, 64 < k <= 256 (the wide range) at KCAP 256.
 extern "C" int l2topk_launch(const void* points, const void* pleaves,
                              const void* queries, const void* qleaves,
                              const void* p_start, void* out_d, void* out_i,
                              int P, int Q, int d, int k, void* stream) {
-  if (P < 1 || Q < 1 || d < 1 || d > MAX_D || k < 1 || k > DENSE_KCAP)
+  if (P < 1 || Q < 1 || d < 1 || d > MAX_D || k < 1 || k > WIDE_KCAP)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   // 16-byte copies need 16-byte aligned rows
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
   const long long* ps = (const long long*)p_start;
-  return vec ? k1_launch<true>((const float*)points, (const int*)pleaves,
-                               (const float*)queries, (const int*)qleaves, ps,
-                               (float*)out_d, (int*)out_i, P, Q, d, k, st)
-             : k1_launch<false>((const float*)points, (const int*)pleaves,
-                                (const float*)queries, (const int*)qleaves, ps,
-                                (float*)out_d, (int*)out_i, P, Q, d, k, st);
+  return vec ? k1_launch_k<true>((const float*)points, (const int*)pleaves,
+                                 (const float*)queries, (const int*)qleaves, ps,
+                                 (float*)out_d, (int*)out_i, P, Q, d, k, st)
+             : k1_launch_k<false>((const float*)points, (const int*)pleaves,
+                                  (const float*)queries, (const int*)qleaves, ps,
+                                  (float*)out_d, (int*)out_i, P, Q, d, k, st);
 }
 
 // The clusters of 4 blocks that K1's grid holds (see k1_clusters).
 extern "C" int l2topk_clusters(void* out) {
-  return k1_clusters<true>(static_cast<int*>(out));
+  return k1_clusters<true, DENSE_KCAP>(static_cast<int*>(out));
 }

@@ -26,11 +26,29 @@
 // lane, and broadcast by shuffles; the gathered row reads of a warp are
 // 128 contiguous bytes. A row of one chunk writes its output directly
 // (from 0, in edge order: the plain version's sum bit for bit); a longer
-// row's chunks write partial rows, which segsum_long_kernel adds in chunk
-// order. So a power-law hub (458,564 out-edges in ogb_products' random
-// graph, the backward's longest row) spreads over 1,792 warps, and every
-// output has one order of adds: a rerun gives the same bits. No atomics,
+// row's chunks write partial rows. So a power-law hub (458,564 out-edges in
+// ogb_products' random graph, the backward's longest row) spreads over
+// 1,792 warps.
+//
+// The long rows' partial rows are added as a tree of fixed shape
+// (segsum_tree_kernel, one launch a level): each group of up to 32
+// consecutive nodes of a level (kernels/segsum/ops.py tree_plan) is added
+// in order by one warp into a node of the next level, until one node, the
+// output row, remains. The plan depends on a row's partial count alone,
+// never on the grid or the device, so every output has one order of adds
+// and a rerun gives the same bits. The padding row of ogb_products'
+// forward (1,241,246 edges into node 0: 4,849 partial rows) takes 3 levels
+// of 152, 5 and 1 warps, not 4,849 adds in a row on one warp. No atomics,
 // no (E, d) tensor.
+//
+// Measured (scripts/wide_segsum_ab.py, NVIDIA H100 80GB HBM3, 700.00 W, at
+// ogb_products' layer, d = 64): the forward 4.976 ms a call (5.93 with the
+// serial long pass), its items pass 4.966-4.969 ms and the tree 0.0143 ms
+// in 3 launches (the serial pass 0.96 ms in 1); the backward 6.168 ms
+// (7.12), the tree 0.018-0.019 ms. The items pass is the gathered rows:
+// 15.8 GB, 4.73 ms at 3.35 TB/s; the forward reads them at 3.18 TB/s (the
+// power-law sources' rows hit L2), the backward at 2.57 TB/s (each a
+// random 256-byte read).
 //
 // Device: launches on the current device, which the wrapper makes the
 // tensors' own; no function attribute to set.
@@ -84,20 +102,32 @@ segsum_items_kernel(const float* __restrict__ h, const int* __restrict__ cols,
   }
 }
 
-// One warp a long row: its partial rows (slots first .. first + n - 1)
-// added in chunk order.
+// One warp a group of one level of the long rows' tree: its count partial
+// rows (slots first ..) added in slot order into a partial row (dst >= 0,
+// a node of a later level) or output row -dst - 1. A level's groups read
+// only rows that earlier launches wrote, and write rows no other group of
+// the level touches.
 __global__ void __launch_bounds__(32 * SEG_WARPS)
-segsum_long_kernel(const float* __restrict__ part, const int4* __restrict__ longs,
-                   float* __restrict__ out, int n_long, int d) {
-  const int li = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
+segsum_tree_kernel(float* part, const int4* __restrict__ groups,
+                   float* __restrict__ out, long long n_groups, int d) {
+  const long long gi = (long long)blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (li >= n_long) return;
-  const int4 lr = longs[li];  // (row, first slot, slots, unused)
+  if (gi >= n_groups) return;
+  const int4 g = groups[gi];  // (dst, first source, count, unused)
+  const float* src = part + (long long)g.y * d;
+  float* dst = g.x < 0 ? out + (long long)(-g.x - 1) * d : part + (long long)g.x * d;
   for (int c = lane; c < d; c += 32) {
-    float acc = part[(long long)lr.y * d + c];
-    for (int s = 1; s < lr.z; ++s)
-      acc = __fadd_rn(acc, part[(long long)(lr.y + s) * d + c]);
-    out[(long long)lr.x * d + c] = acc;
+    float acc = src[c];
+    int s = 1;
+    for (; s + 8 <= g.z; s += 8) {  // eight loads in flight, added in order
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = src[(long long)(s + i) * d + c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = __fadd_rn(acc, v[i]);
+    }
+    for (; s < g.z; ++s) acc = __fadd_rn(acc, src[(long long)s * d + c]);
+    dst[c] = acc;
   }
 }
 
@@ -112,11 +142,13 @@ void items_launch(const float* h, const int* cols, const float* w, const int4* i
 
 }  // namespace
 
-extern "C" int segsum_launch(const void* h, const void* cols, const void* w,
-                             const void* items, const void* longs, void* out,
-                             void* part, long long n_items, int n_long, int d,
-                             void* stream) {
-  if (d < 1 || n_items < 1 || n_long < 0 ||
+// The items pass: every work item's sum, into its output row (a row of
+// one item) or its partial slot.
+extern "C" int segsum_items_launch(const void* h, const void* cols,
+                                   const void* w, const void* items, void* out,
+                                   void* part, long long n_items, int d,
+                                   void* stream) {
+  if (d < 1 || n_items < 1 ||
       (n_items + SEG_WARPS - 1) / SEG_WARPS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -132,9 +164,26 @@ extern "C" int segsum_launch(const void* h, const void* cols, const void* w,
     items_launch<2>(hf, ci, wf, it, o, p, n_items, d, st);
   else
     items_launch<4>(hf, ci, wf, it, o, p, n_items, d, st);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_long == 0) return (int)e;
-  segsum_long_kernel<<<(n_long + SEG_WARPS - 1) / SEG_WARPS, 32 * SEG_WARPS, 0, st>>>(
-      p, static_cast<const int4*>(longs), o, n_long, d);
   return (int)cudaGetLastError();
+}
+
+// The long rows' pass, after the items pass: tree holds their groups,
+// level i at [levels[i], levels[i + 1]) (a host array of n_levels + 1
+// offsets); each level is one launch, in order.
+extern "C" int segsum_tree_launch(void* part, const void* tree,
+                                  const void* levels, void* out, int n_levels,
+                                  int d, void* stream) {
+  if (d < 1 || n_levels < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const long long* lv = static_cast<const long long*>(levels);
+  cudaError_t e = cudaSuccess;
+  for (int l = 0; e == cudaSuccess && l < n_levels; ++l) {
+    const long long n = lv[l + 1] - lv[l];
+    segsum_tree_kernel<<<(unsigned)((n + SEG_WARPS - 1) / SEG_WARPS),
+                         32 * SEG_WARPS, 0, st>>>(
+        static_cast<float*>(part), static_cast<const int4*>(tree) + lv[l],
+        static_cast<float*>(out), n, d);
+    e = cudaGetLastError();
+  }
+  return (int)e;
 }

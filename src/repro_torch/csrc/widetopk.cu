@@ -1,41 +1,64 @@
 // Wide lists: the scan kernels' function for any k (ROADMAP P7).
 //
 // K1 (l2topk.cu) and K2 (fusedscan.cu) keep their lists in registers while
-// they shift them, so they take k <= 64; K4 and K5 (adcscan.cu) take
-// k <= 128. The reference serves any k <= block_rows, and a codes search's
-// rerank depth is k itself past 128 (core/engine/plan.py default_rerank).
-// The wrappers (kernels/*/ops.py) send a larger k here: l2topk_wide for the
-// dense calls of K1 and K2, adctopk_wide for the ADC calls of K4 and K5.
-// Each computes its kernel's plain version (kernels/l2topk/ref.py,
-// fusedscan/ref.py, adcscan/ref.py) bit for bit, at every k up to the rows
-// it scans.
+// they shift them, at a capacity of 64; K4 and K5 (adcscan.cu) at 128. The
+// reference serves any k <= block_rows, and a codes search's rerank depth
+// is k itself past 128 (core/engine/plan.py default_rerank). The wrappers
+// (kernels/l2topk/ops.py route) split the range past those capacities in
+// two:
+//  * 64 / 128 < k <= 256 ("wide_lists", the range real searches use: a
+//    k-NN list of 100 for copy-detection voting, a rerank depth of 256):
+//    the scan kernels K1, K2 and K5 themselves, instantiated with lists of
+//    WIDE_KCAP = 256 (their leaf runs, K1's 4-SM clusters, K2's leaf-group
+//    tiles and long-run clusters, cp.async staging at a conflict-free
+//    pitch, K2's and K5's buffered merges behind a gate on the k-th
+//    entry), each warp's list of k in shared memory shifting through 8
+//    registers a lane (4 for k <= 128), and the lists of a block's warps
+//    and of a cluster's blocks folded by rank with the whole block
+//    (common.cuh block_merge_pairs) instead of 32 entries a merge. See
+//    the headers of l2topk.cu, fusedscan.cu and adcscan.cu.
+//  * k > 256 ("block_list"), and K4 past 128: this file's kernel, one list
+//    a block. K4 has no wide range: with lists of 256 folded by rank it
+//    gained nothing resolved over this kernel at rerank 256 (adcscan.cu).
+// The split sits at 256 because a list of 256 still shifts through 8
+// registers a lane without spilling (nvcc -Xptxas -v, sm_90a): K1 at
+// KCAP 256 80 registers (4 B spilled, as K1 spills 24-36 B at 64), K2's
+// kernels 133-136 (none), K5 104 (none); past it the register slots would
+// double again. At the P7 phase's calls (chip_smoke.py and
+// scripts/wide_segsum_ab.py, this kernel's times in parentheses; H100 80GB
+// HBM3, 700.00 W): K1 at k = 100 0.0262-0.0264 ms a wave (0.0685-0.0689),
+// K2 5.07-5.19 ms (10.86-10.97), K5 at rerank 256 1.469-1.476 (2.88-2.91);
+// K4 at rerank 256 runs this kernel, 0.0324-0.0328 ms a wave.
 //
-// Design: one block of 256 threads per output row. The block finds its
-// leaf's run [lo, hi) in the sorted point leaves with a warp-wide search
-// (common.cuh warp_run_i32, as K1 and K4 do; a row whose leaf lies outside
-// [leaves[0], leaves[P - 1]] gets its empty list at once), stages its
-// query row or its m x C LUT in shared memory, and walks the run 256 rows
-// a batch, one row a thread: the distance arithmetic of K1 (one fmaf chain
-// for ||p||^2 and one for q.p, c = 0..d-1, then __fsub_rn(pn, 2 * dot)) or
-// of K4 (adc_dist, j = 0..m-1). The batch's candidates that beat the list's
-// k-th entry are sorted across the block (a bitonic sort in each warp, then
-// each candidate's rank among the other warps' by binary search) and
-// merged into the block's sorted (distance, row) list of k by rank, as
-// warp_merge_offer does at warp width: every entry moves to its own index
-// plus the number of entries on the other side that precede it, into a
-// second buffer. Keys are unique, so the list is the plain version's
-// whatever the batching, and K1/K2 and K4/K5 stay bit-identical at every k.
-// The two buffers of the list live in shared memory up to k = 4096
-// (64 KiB), else in the output row and a scratch row that the wrapper
-// allocates. The ids: K2's rule (a kept row whose id is < 0 is emitted as
-// -1 / inf) where map_ids is given; ADC rows with id < 0 are skipped in
-// the scan where skip_ids is given (tombstones, K4 and K5).
+// This kernel: one block of 256 threads per output row. The block finds
+// its leaf's run [lo, hi) in the sorted point leaves with a warp-wide
+// search (common.cuh warp_run_i32, as K1 and K4 do; a row whose leaf lies
+// outside [leaves[0], leaves[P - 1]] gets its empty list at once), stages
+// its query row or its m x C LUT in shared memory, and walks the run 256
+// rows a batch, one row a thread: the distance arithmetic of K1 (one fmaf
+// chain for ||p||^2 and one for q.p, c = 0..d-1, then
+// __fsub_rn(pn, 2 * dot)) or of K4 (adc_dist, j = 0..m-1). The batch's
+// candidates that beat the list's k-th entry are sorted across the block
+// (a bitonic sort in each warp, then each candidate's rank among the other
+// warps' by binary search) and merged into the block's sorted (distance,
+// row) list of k by rank, as warp_merge_offer does at warp width: every
+// entry moves to its own index plus the number of entries on the other
+// side that precede it, into a second buffer. Keys are unique, so the
+// list is the plain version's whatever the batching, and K1/K2 and K4/K5
+// stay bit-identical at every k. The two buffers of the list live in
+// shared memory up to k = 4096 (64 KiB), else in the output row and a
+// scratch row that the wrapper allocates. The ids: K2's rule (a kept row
+// whose id is < 0 is emitted as -1 / inf) where map_ids is given; ADC
+// rows with id < 0 are skipped in the scan where skip_ids is given
+// (tombstones, K4 and K5). 48 registers (58 in the float4 dense form), no
+// spills (nvcc -Xptxas -v for sm_90a).
 //
-// Bound on the H100: the same bytes as the KCAP kernels (the run's rows
+// Bound on the H100: the same bytes as the scan kernels (the run's rows
 // and the query row or LUT, once each). Each row is read by the block of
-// every lookup row of its leaf, from L2 after the first; a thread reads its
-// own row, so the loads are not coalesced. A simple kernel that is right:
-// its times are in PERF.md, not tuned.
+// every lookup row of its leaf, from L2 after the first; a thread reads
+// its own row, so the loads are not coalesced. It serves K4's rerank
+// depths past 128 and every k past 256 (chip_smoke.py's P7 phase runs it
+// at k = 512 on both paths, dense and codes); it is kept simple and right.
 //
 // Device: launches on the current device, which the wrapper makes the
 // tensors' own; it sets its shared-memory size on every launch.
@@ -105,17 +128,6 @@ struct AdcRows {
     return adc_dist(lt, codes + p * m, m, C);
   }
 };
-
-// Number of entries of the ascending (d, r) array [0, n) before (dv, rv).
-__device__ __forceinline__ int rank_in(const float* d, const int* r, int n,
-                                       float dv, int rv) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (lex_less(d[mid], r[mid], dv, rv)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // Output row q: lookup row *q_start + q of n_q (the query or LUT table).
 // The P point rows start at row *p_start of the arrays (p_start may be
@@ -195,7 +207,8 @@ wide_kernel(Rows rows, const int* __restrict__ pleaves,
     if (sd < CUDART_INF_F) {  // its rank among the n: its lane plus the
       int rank = lane;       // other warps' candidates before it
       for (int w = 0; w < W_WARPS; ++w)
-        if (w != warp) rank += rank_in(wd + 32 * w, wr + 32 * w, 32, sd, sr);
+        if (w != warp)
+          rank += count_before(wd + 32 * w, wr + 32 * w, 32, sd, sr, false);
       cd[rank] = sd;
       cr[rank] = sr;
     }
@@ -203,14 +216,14 @@ wide_kernel(Rows rows, const int* __restrict__ pleaves,
     for (int e = t; e < k; e += W_THREADS) {
       const float dv2 = Ld[e];
       const int r2 = Li[e];
-      const int to = e + rank_in(cd, cr, n, dv2, r2);
+      const int to = e + count_before(cd, cr, n, dv2, r2, false);
       if (to < k) {
         Nd[to] = dv2;
         Ni[to] = r2;
       }
     }
     if (t < n) {
-      const int to = t + rank_in(Ld, Li, k, cd[t], cr[t]);
+      const int to = t + count_before(Ld, Li, k, cd[t], cr[t], false);
       if (to < k) {
         Nd[to] = cd[t];
         Ni[to] = cr[t];

@@ -51,7 +51,8 @@ SIGNATURES = {
     "flashattn_tc_launch": [_VP] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
     "flashattn_bwd_launch": [_VP] * 10 + [_I] * 8 + [_F] + [_LL] * 9 + [_VP],
     "flashattn_bwd_tc_launch": [_VP] * 10 + [_I] * 7 + [_F] + [_LL] * 9 + [_VP],
-    "segsum_launch": [_VP] * 7 + [_LL, _I, _I] + [_VP],
+    "segsum_items_launch": [_VP] * 6 + [_LL, _I] + [_VP],
+    "segsum_tree_launch": [_VP] * 4 + [_I] * 2 + [_VP],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,8 @@
 """Same-leaf ADC top-k tile wrapper: the plain version for a CPU tensor,
-the K4 CUDA kernel (``csrc/adcscan.cu``) for a CUDA tensor at ``k <= 128``,
-the wide kernel (``csrc/widetopk.cu``) past that, up to the wave's rows.
+the K4 CUDA kernel (``csrc/adcscan.cu``) for a CUDA tensor at ``k <= 128``
+(its lists' capacity), the block list kernel (``csrc/widetopk.cu``) past
+that, up to the wave's rows (``l2topk.ops.route`` with no wide range: K4
+with lists of 256 gained nothing resolved over the block list kernel).
 
 The kernel takes a wave's point leaves in ascending order, as the
 leaf-sorted shard holds them, with the wave's ids: one block per lookup
@@ -22,7 +24,12 @@ from repro_torch.core.sentinels import PAD_TILE_POINT_LEAF
 from repro_torch.device import check_kernel_inputs
 from repro_torch.kernels import _build
 from repro_torch.kernels.adcscan.ref import adc_topk_ref
-from repro_torch.kernels.l2topk.ops import WIDE_SMEM_K, wide_scratch
+from repro_torch.kernels.l2topk.ops import (
+    WIDE_SMEM_K,
+    route,
+    route_counters,
+    wide_scratch,
+)
 
 MAX_K = 128  # csrc/common.cuh ADC_KCAP: the K4/K5 lists' capacity
 # the LUT and the lists must fit a block's shared memory (csrc/adcscan.cu,
@@ -31,18 +38,21 @@ MAX_SMEM = 227 * 1024 - 64
 WIDE_STATIC_SMEM = 4096  # csrc/widetopk.cu: the batch's sort arrays
 
 
-def _smem_bytes(m: int, C: int, k: int) -> int:
-    """Shared memory a block of the kernel that serves ``k`` needs: the
-    LUT and one warp's list (K4), or the LUT, the batch's arrays and the
-    two list buffers where they fit (the wide kernel)."""
-    if k <= MAX_K:
+def _smem_bytes(m: int, C: int, k: int, wide: int = MAX_K) -> int:
+    """Shared memory a block of the kernel that serves ``k`` needs at the
+    least (``wide``: the scan kernel's wide capacity, ``route``'s): the LUT
+    and one list (K4 at its capacity, K5 up to 256), or the LUT, the
+    batch's arrays and the two list buffers where they fit (the block list
+    kernel)."""
+    if not route(k, MAX_K, wide).startswith("block_list"):
         return 4 * (m * C + 2 * k)
     return 4 * m * C + WIDE_STATIC_SMEM + (16 * k if k <= WIDE_SMEM_K else 0)
 
 
 def check_adc_shapes(name: str, codes, point_leaves, lut, query_leaves, k,
-                     point_ids=None) -> None:
-    """Raise unless the shapes and ``k`` are ones the ADC kernels take."""
+                     point_ids=None, wide: int = MAX_K) -> None:
+    """Raise unless the shapes and ``k`` are ones the ADC kernels take
+    (``wide`` as for :func:`_smem_bytes`)."""
     P, m = codes.shape
     Q, lm, C = lut.shape
     if (lm != m or point_leaves.shape != (P,) or query_leaves.shape != (Q,)
@@ -50,13 +60,14 @@ def check_adc_shapes(name: str, codes, point_leaves, lut, query_leaves, k,
         raise ValueError(f"{name}: mismatched shapes")
     if m < 1 or C < 1 or Q < 1 or not 1 <= k <= P or P >= 2**31:
         raise ValueError(f"{name}: unsupported {P=} {Q=} {m=} {C=} {k=}")
-    if _smem_bytes(m, C, k) > MAX_SMEM:
+    if _smem_bytes(m, C, k, wide) > MAX_SMEM:
         raise ValueError(f"{name}: a {m} x {C} LUT does not fit shared memory")
 
 
 def wide_adc(codes, point_leaves, skip_ids, map_ids, lut, query_leaves, k,
              q_start=None, q_rows=None):
-    """Launch the ADC wide kernel: (dists (Q, k), rows or ids (Q, k)).
+    """Launch the ADC block list kernel (route ``"block_list"``): (dists
+    (Q, k), rows or ids (Q, k)).
     Rows whose ``skip_ids`` is < 0 never match; rows leave through
     ``map_ids`` where it is given. Output row q is LUT row
     ``q_start + q`` (``q_rows`` of them) or q."""
@@ -113,10 +124,10 @@ def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
         dtypes=(torch.uint8, torch.int32, torch.float32, torch.int32, torch.int32))
     check_adc_shapes("adc_topk", codes, point_leaves, lut, query_leaves, k,
                      point_ids)
-    if k > MAX_K:
+    r = route(k, MAX_K, MAX_K)
+    if r.startswith("block_list"):
         out = wide_adc(codes, point_leaves, point_ids, None, lut, query_leaves,
                        k, q_start, q_rows)
-        adc_topk.wide_launches += 1
     else:
         P, m = codes.shape
         n_lut, _, C = lut.shape
@@ -128,9 +139,10 @@ def adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
             codes.data_ptr(), point_leaves.data_ptr(), _build.ptr(point_ids),
             lut.data_ptr(), query_leaves.data_ptr(), _build.ptr(q_start),
             out[0].data_ptr(), out[1].data_ptr(), P, Q, n_lut, m, C, k)
+    adc_topk.route_launches[r] += 1
     _build.count(adc_topk, codes)
     return out
 
 
-_build.counters(adc_topk)  # every launch: K4's and the wide kernel's
-adc_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
+_build.counters(adc_topk)  # every launch, whatever its route
+route_counters(adc_topk)

@@ -1,8 +1,10 @@
 """Whole-shard fused scan wrappers: the plain versions for a CPU tensor,
 the CUDA kernels for a CUDA tensor -- K2 (``csrc/fusedscan.cu``) for dense
-rows at ``k <= 64``, K5 (``csrc/fusedadc.cu``: K4's kernel over the whole
-shard) for PQ code rows at ``k <= 128``, and the wide kernel
-(``csrc/widetopk.cu``) for a larger ``k``, up to the shard's rows.
+rows, K5 (``csrc/fusedadc.cu``: K4's kernel over the whole shard) for PQ
+code rows, each at ``k <= 256`` (their lists' capacity 64 / 128, or 256 in
+the wide range past that), and the block list kernel
+(``csrc/widetopk.cu``) for a larger ``k``, up to the shard's rows
+(``l2topk.ops.route``).
 
 Unlike the per-tile kernel this returns *global descriptor ids* (mapped
 through ``point_ids``, -1 where no match or tombstoned), because the whole
@@ -18,7 +20,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.adcscan.ops import MAX_K as ADC_MAX_K
 from repro_torch.kernels.adcscan.ops import check_adc_shapes, wide_adc
 from repro_torch.kernels.fusedscan.ref import fused_adc_topk_ref, fused_topk_ref
-from repro_torch.kernels.l2topk.ops import MAX_D, MAX_K, wide_dense
+from repro_torch.kernels.l2topk.ops import (
+    MAX_D,
+    WIDE_KCAP,
+    route,
+    route_counters,
+    wide_dense,
+)
 
 
 def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
@@ -48,10 +56,10 @@ def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
         raise ValueError("fused_topk: mismatched shapes")
     if not 1 <= d <= MAX_D or not 1 <= k <= P or Q < 1 or P >= 2**31:
         raise ValueError(f"fused_topk: unsupported {P=} {Q=} {d=} {k=}")
-    if k > MAX_K:
+    r = route(k)
+    if r.startswith("block_list"):
         out = wide_dense(points, point_leaves, point_ids, queries,
                          query_leaves, k)
-        fused_topk.wide_launches += 1
     else:
         out = (torch.empty((Q, k), dtype=torch.float32, device=points.device),
                torch.empty((Q, k), dtype=torch.int32, device=points.device))
@@ -62,12 +70,13 @@ def fused_topk(points: torch.Tensor, point_leaves: torch.Tensor,
             points.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
             queries.data_ptr(), query_leaves.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), scratch.data_ptr(), P, Q, d, k)
+    fused_topk.route_launches[r] += 1
     _build.count(fused_topk, points)
     return out
 
 
-_build.counters(fused_topk)  # every launch: K2's and the wide kernel's
-fused_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
+_build.counters(fused_topk)  # every launch, whatever its route
+route_counters(fused_topk)
 
 
 def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
@@ -91,11 +100,11 @@ def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
         dtypes=(torch.uint8, torch.int32, torch.int32, torch.float32,
                 torch.int32))
     check_adc_shapes("fused_adc_topk", codes, point_leaves, lut, query_leaves,
-                     k, point_ids)
-    if k > ADC_MAX_K:
+                     k, point_ids, wide=WIDE_KCAP)
+    r = route(k, ADC_MAX_K)
+    if r.startswith("block_list"):
         out = wide_adc(codes, point_leaves, point_ids, point_ids, lut,
                        query_leaves, k)
-        fused_adc_topk.wide_launches += 1
     else:
         P, m = codes.shape
         Q, _, C = lut.shape
@@ -106,9 +115,10 @@ def fused_adc_topk(codes: torch.Tensor, point_leaves: torch.Tensor,
             codes.data_ptr(), point_leaves.data_ptr(), point_ids.data_ptr(),
             lut.data_ptr(), query_leaves.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), P, Q, m, C, k)
+    fused_adc_topk.route_launches[r] += 1
     _build.count(fused_adc_topk, codes)
     return out
 
 
-_build.counters(fused_adc_topk)  # every launch: K5's and the wide kernel's
-fused_adc_topk.wide_launches = 0  # the wide kernel's (k > ADC_MAX_K)
+_build.counters(fused_adc_topk)  # every launch, whatever its route
+route_counters(fused_adc_topk)

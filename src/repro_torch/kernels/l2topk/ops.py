@@ -1,7 +1,8 @@
 """Same-leaf distance + top-k tile wrapper: the plain version for a CPU
 tensor, the K1 CUDA kernel (``csrc/l2topk.cu``) for a CUDA tensor at
-``k <= 64``, the wide kernel (``csrc/widetopk.cu``) past that, up to the
-wave's rows (the reference serves any ``k <= block_rows``).
+``k <= 256`` (its lists' capacity 64, or 256 in the wide range past 64),
+the block list kernel (``csrc/widetopk.cu``) past that, up to the wave's
+rows (the reference serves any ``k <= block_rows``): :func:`route`.
 
 On the card the point leaves must be ascending, as every wave of a
 leaf-sorted ``DistributedIndex`` is (``index_from_numpy`` checks arrays
@@ -30,7 +31,31 @@ from repro_torch.kernels.l2topk.ref import l2_topk_ref
 
 MAX_D = 256
 MAX_K = 64  # csrc/common.cuh DENSE_KCAP: the K1/K2 lists' capacity
+WIDE_KCAP = 256  # csrc/common.cuh WIDE_KCAP: the wide range's lists
 WIDE_SMEM_K = 4096  # csrc/widetopk.cu W_SMEM_K: past it the lists need scratch
+ROUTES = ("lists", "wide_lists", "block_list", "block_list_scratch")
+
+
+def route(k: int, kcap: int = MAX_K, wide: int = WIDE_KCAP) -> str:
+    """The kernel that serves a call at ``k`` (1 <= k, checked by the
+    caller), for scan kernels whose own lists hold ``kcap`` (64 dense, 128
+    ADC) and whose wide instantiation holds ``wide`` (256; K4 has none, its
+    ``wide`` is its ``kcap``): ``"lists"`` the scan kernel at its capacity;
+    ``"wide_lists"`` (up to ``wide``) the same kernel with lists of 256;
+    past that ``"block_list"``, widetopk.cu's one list a block in shared
+    memory, or ``"block_list_scratch"`` past ``WIDE_SMEM_K``, its lists in
+    device memory."""
+    if k <= kcap:
+        return "lists"
+    if k <= wide:
+        return "wide_lists"
+    return "block_list" if k <= WIDE_SMEM_K else "block_list_scratch"
+
+
+def route_counters(fn) -> None:
+    """Give a wrapper a launch count per route, ``fn.route_launches``,
+    beside its count of every launch (``_build.counters``)."""
+    fn.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def wide_scratch(rows: int, k: int, device) -> tuple:
@@ -45,9 +70,10 @@ def wide_scratch(rows: int, k: int, device) -> tuple:
 
 def wide_dense(points, point_leaves, map_ids, queries, query_leaves, k,
                p_start=None, p_rows=None):
-    """Launch the dense wide kernel: (dists (Q, k), rows or ids (Q, k)),
-    rows mapped through ``map_ids`` where it is given (K2's rule); with
-    ``p_start``, over the ``p_rows`` point rows from there."""
+    """Launch the dense block list kernel (k past ``WIDE_KCAP``): (dists
+    (Q, k), rows or ids (Q, k)), rows mapped through ``map_ids`` where it
+    is given (K2's rule); with ``p_start``, over the ``p_rows`` point rows
+    from there."""
     P, d = points.shape
     if p_start is not None:
         P = p_rows
@@ -100,10 +126,10 @@ def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
         P = p_rows
     if not 1 <= d <= MAX_D or not 1 <= k <= P or Q < 1:
         raise ValueError(f"l2_topk: unsupported {P=} {Q=} {d=} {k=}")
-    if k > MAX_K:
+    r = route(k)
+    if r.startswith("block_list"):
         out = wide_dense(points, point_leaves, None, queries, query_leaves, k,
                          p_start, p_rows)
-        l2_topk.wide_launches += 1
     else:
         out = (torch.empty((Q, k), dtype=torch.float32, device=points.device),
                torch.empty((Q, k), dtype=torch.int32, device=points.device))
@@ -112,12 +138,13 @@ def l2_topk(points: torch.Tensor, point_leaves: torch.Tensor,
             points.data_ptr(), point_leaves.data_ptr(), queries.data_ptr(),
             query_leaves.data_ptr(), _build.ptr(p_start), out[0].data_ptr(),
             out[1].data_ptr(), P, Q, d, k)
+    l2_topk.route_launches[r] += 1
     _build.count(l2_topk, points)
     return out
 
 
-_build.counters(l2_topk)  # every launch: K1's and the wide kernel's
-l2_topk.wide_launches = 0  # the wide kernel's (k > MAX_K)
+_build.counters(l2_topk)  # every launch, whatever its route
+route_counters(l2_topk)
 
 
 def resident_clusters() -> int:

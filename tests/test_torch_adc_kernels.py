@@ -26,6 +26,7 @@ from repro_torch.kernels.adcscan.ops import adc_topk
 from repro_torch.kernels.adcscan.ref import adc_topk_ref
 from repro_torch.kernels.fusedscan.ops import fused_adc_topk
 from repro_torch.kernels.fusedscan.ref import fused_adc_topk_ref
+from repro_torch.kernels.l2topk.ops import route
 
 
 def _adc_case(seed, P, Q, m, C, n_leaves, *, integer, sort=False,
@@ -109,7 +110,7 @@ def test_fused_adc_plain_matches_jax_ref(P, Q, m, C, n_leaves, k, integer):
 
 
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("k", [129, 512])
+@pytest.mark.parametrize("k", [129, 256, 512])
 def test_adc_plain_versions_match_jax_refs_at_wide_k(k, integer):
     # rerank depths past the K4/K5 lists' capacity (128), as default_rerank
     # gives for k > 128 (ROADMAP P7)
@@ -332,7 +333,7 @@ def test_cuda_adc_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [20, 128, 129, 512])
+@pytest.mark.parametrize("k", [20, 128, 129, 256, 257, 512])
 def test_cuda_fused_adc_is_k4_over_the_whole_shard(cuda, k):
     # K5 is K4's kernel over the whole shard with the ids mapped at emit:
     # bit for bit K4's rows through the ids, with tombstones, at every k
@@ -351,3 +352,58 @@ def test_cuda_fused_adc_is_k4_over_the_whole_shard(cuda, k):
     assert torch.equal(fd, rd) and torch.equal(fi, ri)
     assert torch.isfinite(fd[:, -1]).any() and (fi >= 0).all() == bool(
         torch.isfinite(fd).all())
+
+
+# the list-capacity edges of the routes and the main path's rerank 256
+_EDGE_K = [128, 129, 200, 256, 257, 4096, 4097, 8192]
+
+
+def _edge_codes(seed):
+    """8,192 leaf-sorted code rows (m 8, C 256) in runs of 5 to 3,000 rows
+    (longer than a wave's), a fifth of them tombstoned, and 1,500 LUT rows
+    whose leaves fall on the runs, between them and outside them."""
+    rng = np.random.default_rng(seed)
+    runs = [5, 3000, 40, 1800, 300, 2000, 1047]
+    plf = np.repeat(10 + 2 * np.arange(len(runs)), runs).astype(np.int32)
+    P, m, C, n_lut = plf.size, 8, 256, 1500
+    codes = rng.integers(0, C, size=(P, m)).astype(np.uint8)
+    codes[4000:4100] = codes[100:200]  # exact ties
+    pid = rng.permutation(10 * P)[:P].astype(np.int32)
+    pid[rng.random(P) < 0.2] = -1
+    lut = rng.standard_normal((n_lut, m, C)).astype(np.float32)
+    qlf = rng.choice(np.arange(5, 30), size=n_lut).astype(np.int32)
+    return codes, plf, pid, lut, qlf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", _EDGE_K)
+def test_cuda_adc_wide_routes_on_a_wave_slab(cuda, k):
+    # K4 as the sweep calls it: a slab of lookup rows from a nonzero start,
+    # the wave's ids skipping tombstones (they keep their leaf)
+    codes, plf, pid, lut, qlf = _t(*_edge_codes(k), device=cuda)
+    start, rows = 300, 1024
+    masked = torch.where(pid >= 0, plf, PAD_TILE_POINT_LEAF)
+    rd, ri = adc_topk_ref(codes, masked, lut[start:start + rows],
+                          qlf[start:start + rows], k=k)
+    r = route(k, 128, 128)  # K4: no wide range, past 128 the block list
+    n0, w0 = adc_topk.launches, adc_topk.route_launches[r]
+    kd, ki = adc_topk(codes, plf, lut, qlf, k=k, point_ids=pid,
+                      q_start=torch.tensor([start], device=cuda), q_rows=rows)
+    torch.cuda.synchronize()
+    assert (adc_topk.launches, adc_topk.route_launches[r]) == (n0 + 1, w0 + 1)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", _EDGE_K)
+def test_cuda_fused_adc_wide_routes(cuda, k):
+    args = _t(*_edge_codes(k + 1), device=cuda)
+    rd, ri = fused_adc_topk_ref(*args, k=k)
+    r = route(k, 128)
+    n0, w0 = fused_adc_topk.launches, fused_adc_topk.route_launches[r]
+    kd, ki = fused_adc_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert (fused_adc_topk.launches, fused_adc_topk.route_launches[r]) == (
+        n0 + 1, w0 + 1)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    assert torch.isfinite(kd[:, min(k, 2000) - 1]).any()

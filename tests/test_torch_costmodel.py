@@ -7,12 +7,15 @@ the heuristic, observed, fitted and default chains; the
 tile configs of another backend (or of none, as the JAX package writes
 them) are carried through and never consulted, at the store and through
 an ``Index`` manifest; the port's records and tile configs survive the
-reference's rewrite of a manifest and still steer the port's plans.
+reference's rewrite of a manifest and still steer the port's plans, also
+where both packages recorded the same (signature, shapes) key, and the
+reference's plans stay the ones its own records give.
 """
 
 import copy
 import importlib
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -42,21 +45,33 @@ def _key(p):
     return tuple(getattr(p, f) for f in FIELDS)
 
 
-def _tagged(d, backend=BACKEND, *, where="stats"):
-    """The JSON with ``backend`` in every record's ``stats`` and folded
-    into every tile config's dtype (``"float32@cpu"``), as the port writes
-    them; with ``where="record"``, where earlier versions of the port
-    wrote them: beside the record's ``signature`` and as a ``backend`` key
-    beside the tile config's ``block_rows``."""
+def _tagged(d, backend=BACKEND, *, where="impl"):
+    """The JSON with ``backend`` folded into every record's ``impl``
+    (``"xla@cpu"``) and every tile config's dtype (``"float32@cpu"``), as
+    the port writes them; with ``where="stats"`` or ``"record"``, where
+    earlier versions of the port wrote a record's marker: a ``backend``
+    key inside its ``stats`` (the tile configs' folded into their dtype),
+    or beside its ``signature`` (and a ``backend`` key beside the tile
+    config's ``block_rows``)."""
     d = copy.deepcopy(d)
     for rec in d["records"]:
-        (rec["stats"] if where == "stats" else rec)["backend"] = backend
-    for cfg in d["tile_configs"]:
-        if where == "stats":
-            cfg["dtype"] = f"{cfg['dtype']}@{backend}"
+        if where == "impl":
+            rec["signature"][3] = f"{rec['signature'][3]}@{backend}"
         else:
+            (rec["stats"] if where == "stats" else rec)["backend"] = backend
+    for cfg in d["tile_configs"]:
+        if where == "record":
             cfg["backend"] = backend
+        else:
+            cfg["dtype"] = f"{cfg['dtype']}@{backend}"
     return d
+
+
+def _marked_keys(snapshot, backend=BACKEND):
+    """A snapshot's signature keys with ``backend`` folded into the impl,
+    as the reference keys the port's records."""
+    return {re.sub(r"/impl=([^/]+)/", rf"/impl=\1@{backend}/", key): v
+            for key, v in snapshot.items()}
 
 
 @pytest.fixture(scope="module")
@@ -149,10 +164,10 @@ def test_calibration_json_roundtrips_against_the_reference(calibration_json):
     assert len(carried) == 0 and carried.n_carried == len(
         calibration_json["records"]) + len(calibration_json["tile_configs"])
     assert carried.to_json() == calibration_json
-    # records of this backend come back out with their backend key, and
-    # the reference reads them into the same store; its rewrite keeps the
-    # records' markers (inside stats) and the tile configs' (inside the
-    # key's dtype string)
+    # records of this backend come back out with their backend marker,
+    # and the reference reads them into a store of its own; its rewrite
+    # keeps the markers (folded into each record's impl and each tile
+    # config's dtype, key strings it keeps whole)
     own = tcm.CalibrationStore.from_json(_tagged(calibration_json),
                                          backend=BACKEND)
     out = own.to_json()
@@ -161,16 +176,18 @@ def test_calibration_json_roundtrips_against_the_reference(calibration_json):
     rewritten = back.to_json()
     assert rewritten["records"] == out["records"]
     assert rewritten["tile_configs"] == out["tile_configs"]
-    assert own.snapshot() == back.snapshot()
+    assert _marked_keys(own.snapshot()) == back.snapshot()
     again = tcm.CalibrationStore.from_json(rewritten, backend=BACKEND)
     assert len(again) == len(own) and again.n_carried == 0
+    assert again.snapshot() == own.snapshot()
     assert again.tile_config("point_major", 32, "float32")["block_rows"] == 2048
-    # the markers of earlier versions (beside the record's signature, a
-    # tile config's backend key) are still read
-    old = tcm.CalibrationStore.from_json(
-        _tagged(calibration_json, where="record"), backend=BACKEND)
-    assert len(old) == len(own) and old.n_carried == 0
-    assert old.to_json() == out
+    # the markers of earlier versions (inside the record's stats or beside
+    # its signature, a tile config's backend key) are still read
+    for where in ("stats", "record"):
+        old = tcm.CalibrationStore.from_json(
+            _tagged(calibration_json, where=where), backend=BACKEND)
+        assert len(old) == len(own) and old.n_carried == 0
+        assert old.to_json() == out
 
 
 def test_other_backends_are_carried_not_consulted(calibration_json):
@@ -197,7 +214,8 @@ def test_other_backends_are_carried_not_consulted(calibration_json):
     # foreign records ride along unchanged
     foreign.record(tplan.plan(layout="point_major", **SHAPES), 9.0)
     out = foreign.to_json()
-    assert out["records"][0]["stats"]["backend"] == BACKEND
+    assert out["records"][0]["signature"][3].endswith(f"@{BACKEND}")
+    assert "backend" not in out["records"][0]["stats"]
     assert out["records"][1:] == _tagged(calibration_json,
                                          "cuda:Another GPU")["records"]
     with pytest.raises(ValueError, match="cannot merge"):
@@ -244,7 +262,8 @@ def test_port_calibration_survives_a_reference_commit(calibration_json, tmp_path
     """A directory the port committed with its own records, then the
     reference opened, appended to and committed, then the port reopened:
     the port's records are still its own and still steer its plans (the
-    marker rides inside ``stats``, which the reference writes back whole)."""
+    marker rides folded into each record's impl, a key string the
+    reference writes back whole)."""
     mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
     x, _ = synth.sample_descriptors(512, 8, seed=1, n_centers=8)
     jt = j_build_tree(jnp.asarray(x), (4, 2), key=jax.random.PRNGKey(0))
@@ -321,3 +340,79 @@ def test_port_tile_config_steers_its_plan_across_a_reference_commit(tmp_path):
                                            backend="cuda:Another GPU")
     assert other.tile_config("point_major", 8, "float32") is None
     assert len(other) == 0 and other.n_carried == 2  # the record and the tile
+
+
+def _scaled(d, by_layout):
+    """The JSON with every record's times multiplied by its layout's
+    factor in ``by_layout``."""
+    d = copy.deepcopy(d)
+    for rec in d["records"]:
+        f = by_layout.get(rec["signature"][0], 1.0)
+        for key in ("total_ms", "min_ms", "max_ms", "last_ms"):
+            rec["stats"][key] *= f
+    return d
+
+
+def test_both_packages_records_of_one_key_survive_a_reference_commit(
+        calibration_json, tmp_path):
+    """ROADMAP P8: the port records a calibration under every (signature,
+    shapes) key that the reference then records too, with times that
+    would flip the reference's layouts if it read them; the reference
+    opens the directory on the Auto mesh, records its own, fits, plans,
+    appends and commits. Both packages' records survive, each package
+    reopens exactly its own, and the reference's plans under every model
+    are the ones its own records alone give."""
+    mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
+    x, _ = synth.sample_descriptors(512, 8, seed=3, n_centers=8)
+    jt = j_build_tree(jnp.asarray(x), (4, 2), key=jax.random.PRNGKey(0))
+    d = str(tmp_path / "idx")
+    ji = JIndex.create(jt, d, mesh=mesh)
+    ji.append(x)
+    ji.commit()
+    flipped = _scaled(calibration_json, {"point_major": 1e-3, "query_routed": 1e3})
+    port = tcm.CalibrationStore.from_json(_tagged(flipped), backend=BACKEND)
+    ti = Index.open(d, device="cpu")
+    ti.calibration.merge(port)
+    ti.commit()
+    n = len(calibration_json["records"])
+    assert len(ti.calibration) == n
+
+    ji = JIndex.open(d, mesh=mesh)
+    ji.calibration.merge(jcm.CalibrationStore.from_json(calibration_json))
+    assert len(ji.calibration) == 2 * n  # one record of each package a key
+    assert len(ji.calibration.fit_rows()) == 2 * (n - 1)  # one is shapeless
+    fitted = jcm.FittedModel(ji.calibration)
+    assert set(fitted.coefficients) >= {("point_major", "xla"),
+                                        ("query_routed", "xla")}
+    ji.append(x[:64] + 1.0)
+    ji.commit()
+    raw = manifest_lib.latest(d).calibration["records"]
+    assert len(raw) == 2 * n
+    assert sum(r["signature"][3].endswith(f"@{BACKEND}") for r in raw) == n
+
+    # each package reopens exactly its own records
+    ti = Index.open(d, device="cpu")
+    assert ti.calibration.snapshot() == port.snapshot()
+    # the reference's records and tile config ride along, unread
+    assert ti.calibration.n_carried == n + len(calibration_json["tile_configs"])
+    ji = JIndex.open(d, mesh=mesh)
+    alone = jcm.CalibrationStore.from_json(calibration_json)
+    with_port = jcm.CalibrationStore.from_json(
+        jcm.CalibrationStore.from_json(flipped).to_json())
+    flips = 0
+    for kw in GRID:
+        for model in ("heuristic", "observed", "fitted", "auto"):
+            got = jplan.plan(layout="auto", impl="auto", model=model,
+                             calibration=ji.calibration, **kw)
+            want = jplan.plan(layout="auto", impl="auto", model=model,
+                              calibration=alone, **kw)
+            assert _key(got) == _key(want), (model, kw)
+            flips += _key(jplan.plan(layout="auto", impl="auto", model=model,
+                                     calibration=with_port, **kw)) != _key(want)
+    assert flips  # the port's times, read as the reference's, would steer it
+    # and the port plans from its own records, as before the commit
+    for kw in GRID:
+        assert _key(tplan.plan(layout="auto", impl="auto", model="auto",
+                               calibration=ti.calibration, **kw)) == _key(
+            tplan.plan(layout="auto", impl="auto", model="auto",
+                       calibration=port, **kw))

@@ -11,6 +11,9 @@ real-valued data instead: within the fp32 error bound of a float64 oracle
 (``kernels/fp32_bound.py``), which TF32 rounding must break.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,10 +28,12 @@ from repro.kernels.l2topk.ref import l2_topk_ref as j_l2topk_ref
 from repro_torch import interop
 from repro_torch.core.sentinels import LEAF_SENTINEL, PAD_QUERY_LEAF
 from repro_torch.kernels import fp32_bound
+from repro_torch.kernels.adcscan.ops import MAX_K as adc_max_k
 from repro_torch.kernels.fusedscan.ops import fused_topk
 from repro_torch.kernels.fusedscan.ref import fused_topk_ref
 from repro_torch.kernels.l2nn.ops import l2_nearest
 from repro_torch.kernels.l2nn.ref import l2_nearest_ref
+from repro_torch.kernels.l2topk import ops as l2topk_ops
 from repro_torch.kernels.l2topk.ops import l2_topk, resident_clusters
 from repro_torch.kernels.l2topk.ref import l2_topk_ref
 
@@ -151,7 +156,7 @@ def test_l2topk_plain_matches_jax_ref(P, Q, d, k, n_leaves, integer):
 
 
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("k", [65, 128, 256])
+@pytest.mark.parametrize("k", [65, 100, 128, 256])
 def test_l2topk_plain_matches_jax_ref_at_wide_k(k, integer):
     # past the K1 kernel's list capacity (64), up to the wave's rows: the
     # reference serves any k <= block_rows (ROADMAP P7)
@@ -179,6 +184,70 @@ def test_l2topk_plain_matches_pallas_interpret(P, Q, d, k):
     assert (ti.numpy()[~fin] == -1).all()
 
 
+_CSRC = Path(l2topk_ops.__file__).resolve().parents[2] / "csrc"
+
+
+def _constant(source: str, name: str) -> int:
+    """``constexpr int <name> = <value>;`` of a CUDA source."""
+    text = (_CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_route_constants_are_the_kernels():
+    # the wrappers' capacities are the ones the CUDA sources compile with
+    assert l2topk_ops.MAX_K == _constant("common.cuh", "DENSE_KCAP")
+    assert adc_max_k == _constant("common.cuh", "ADC_KCAP")
+    assert l2topk_ops.WIDE_KCAP == _constant("common.cuh", "WIDE_KCAP")
+    assert l2topk_ops.WIDE_SMEM_K == _constant("widetopk.cu", "W_SMEM_K")
+
+
+@pytest.mark.parametrize("kcap,wide", [(64, 256), (128, 256), (128, 128)],
+                         ids=["64", "128", "k4"])
+def test_every_k_maps_to_exactly_one_route(kcap, wide):
+    # each k from 1 to past the shared-memory lists goes to one kernel, and
+    # the ranges meet without a gap at the list capacities (K4 has no wide
+    # range: past 128 it goes to the block list kernel)
+    seen = {}
+    for k in range(1, 3 * l2topk_ops.WIDE_SMEM_K):
+        r = l2topk_ops.route(k, kcap, wide)
+        assert r in l2topk_ops.ROUTES
+        seen.setdefault(r, [k, k])[1] = k
+    want = {"lists": [1, kcap],
+            "wide_lists": [kcap + 1, wide],
+            "block_list": [wide + 1, l2topk_ops.WIDE_SMEM_K],
+            "block_list_scratch": [l2topk_ops.WIDE_SMEM_K + 1,
+                                   3 * l2topk_ops.WIDE_SMEM_K - 1]}
+    if wide == kcap:
+        del want["wide_lists"]
+    assert seen == want
+    # the main path's wide calls: K1/K2 at k = 100, K5 at rerank 256 on
+    # their lists of 256, K4 at rerank 256 and every call at 512 on the
+    # block list kernel
+    assert l2topk_ops.route(100) == "wide_lists"
+    assert l2topk_ops.route(256, adc_max_k) == "wide_lists"
+    assert l2topk_ops.route(256, adc_max_k, adc_max_k) == "block_list"
+    assert l2topk_ops.route(512) == l2topk_ops.route(512, adc_max_k) == "block_list"
+
+
+def test_adc_shared_memory_check_follows_the_routes():
+    # K4's lists and K5's list of 256 take the LUT and one list; past them
+    # the block list kernel's arrays, its lists in shared memory up to 4,096
+    from repro_torch.kernels.adcscan.ops import (
+        MAX_SMEM,
+        WIDE_STATIC_SMEM,
+        _smem_bytes,
+    )
+    from repro_torch.kernels.l2topk.ops import WIDE_KCAP, WIDE_SMEM_K
+    m, C = 8, 256
+    assert _smem_bytes(m, C, 128) == 4 * (m * C + 256)
+    assert _smem_bytes(m, C, 256, WIDE_KCAP) == 4 * (m * C + 512)
+    assert _smem_bytes(m, C, 256) == 4 * m * C + WIDE_STATIC_SMEM + 16 * 256
+    assert _smem_bytes(m, C, 257, WIDE_KCAP) == _smem_bytes(m, C, 257)
+    assert _smem_bytes(m, C, WIDE_SMEM_K + 1) < _smem_bytes(m, C, WIDE_SMEM_K)
+    assert all(_smem_bytes(m, C, k, w) <= MAX_SMEM for k in (1, 128, 256, 4096)
+               for w in (adc_max_k, WIDE_KCAP))
+
+
 def _fused_case(seed, P, Q, d, n_leaves, integer, tombstone_frac=0.2):
     pts, plf, qrs, qlf = _tile_case(seed, P, Q, d, n_leaves, integer, sort=True)
     rng = np.random.default_rng(seed + 1)
@@ -203,7 +272,7 @@ def test_fused_plain_matches_jax_ref(P, Q, d, k, n_leaves, integer):
 
 
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("k", [65, 128, 256])
+@pytest.mark.parametrize("k", [65, 100, 128, 256])
 def test_fused_plain_matches_jax_ref_at_wide_k(k, integer):
     pts, plf, pid, qrs, qlf = _fused_case(k + 1, 700, 60, 16, 2, integer)
     jd, ji = j_fused_ref(jnp.asarray(pts), jnp.asarray(plf), jnp.asarray(pid),
@@ -538,10 +607,12 @@ def test_cuda_wide_l2topk_matches_plain(cuda, P, d, k, n_leaves, integer):
     args = _t(*_tile_case(P + k, P, 300, d, n_leaves, integer, sort_points=True),
               device=cuda)
     rd, ri = l2_topk_ref(*args, k=k)
-    n0, w0 = l2_topk.launches, l2_topk.wide_launches
+    r = l2topk_ops.route(k)
+    n0, w0 = l2_topk.launches, l2_topk.route_launches[r]
     kd, ki = l2_topk(*args, k=k)
     torch.cuda.synchronize()
-    assert (l2_topk.launches, l2_topk.wide_launches) == (n0 + 1, w0 + 1)
+    assert r != "lists"
+    assert (l2_topk.launches, l2_topk.route_launches[r]) == (n0 + 1, w0 + 1)
     _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
                   id_frac=1.0 if integer else 0.999)
 
@@ -557,17 +628,19 @@ def test_cuda_wide_fused_matches_plain(cuda, P, d, k, n_leaves, integer):
     args = _t(*_fused_case(P + k, P, 300, d, n_leaves, integer,
                            tombstone_frac=0.2 if integer else 0.0), device=cuda)
     rd, ri = fused_topk_ref(*args, k=k)
-    n0, w0 = fused_topk.launches, fused_topk.wide_launches
+    r = l2topk_ops.route(k)
+    n0, w0 = fused_topk.launches, fused_topk.route_launches[r]
     kd, ki = fused_topk(*args, k=k)
     torch.cuda.synchronize()
-    assert (fused_topk.launches, fused_topk.wide_launches) == (n0 + 1, w0 + 1)
+    assert r != "lists"
+    assert (fused_topk.launches, fused_topk.route_launches[r]) == (n0 + 1, w0 + 1)
     _assert_table(rd.cpu(), ri.cpu(), kd.cpu(), ki.cpu(), exact=integer,
                   id_frac=1.0 if integer else 0.999)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("k", [20, 64, 65, 128, 256, 1000])
+@pytest.mark.parametrize("k", [20, 64, 65, 100, 128, 256, 257, 1000])
 def test_cuda_l2topk_and_fused_agree_at_every_k(cuda, k, integer):
     # the fused scan's ids are the sweep kernel's rows through the ids, bit
     # for bit (one order of fp32 operations), on the KCAP kernels and the
@@ -630,3 +703,60 @@ def test_cuda_fused_refuses_k_past_the_shard(cuda):
         fused_topk(*args, k=101)
     with pytest.raises(ValueError, match="unsupported"):
         l2_topk(args[0], args[1], args[3], args[4], k=101)
+
+
+# the list-capacity edges of the routes and the main path's k = 100, on a
+# wave with a 1,500-row run (longer than a K1 cluster's 1,024 rows a round)
+# and a 4,192-row one, lookup leaves on, next to and outside the wave's;
+# 8,192 rows, so that k reaches past the shared-memory lists and to P
+_EDGE_K = [64, 65, 100, 128, 129, 256, 257, 4096, 4097, 8192]
+
+
+def _edge_wave(seed):
+    return _wave_case("long_run", seed=seed, P=8192, Q=300, d=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", _EDGE_K)
+def test_cuda_wide_routes_match_plain_on_a_wave(cuda, k):
+    args = _t(*_edge_wave(k), device=cuda)
+    rd, ri = l2_topk_ref(*args, k=k)
+    r = l2topk_ops.route(k)
+    n0, w0 = l2_topk.launches, l2_topk.route_launches[r]
+    kd, ki = l2_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert (l2_topk.launches, l2_topk.route_launches[r]) == (n0 + 1, w0 + 1)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    assert torch.isfinite(kd[:, min(k, 1500) - 1]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 65, 100, 256, 257, 4097])
+def test_cuda_wide_routes_on_a_query_tile(cuda, k):
+    # a query tile's slab read in place from a nonzero start: the rows
+    # 1,000 .. 1,000 + 6,000 of the wave, reported from the slab's start
+    pts, plf, qrs, qlf = _t(*_edge_wave(3), device=cuda)
+    start, rows = 1000, 6000
+    rd, ri = l2_topk_ref(pts[start:start + rows], plf[start:start + rows], qrs,
+                         qlf, k=k)
+    kd, ki = l2_topk(pts, plf, qrs, qlf, k=k,
+                     p_start=torch.tensor([start], device=cuda), p_rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", _EDGE_K)
+def test_cuda_wide_routes_match_plain_fused(cuda, k):
+    # the whole-shard call with tombstones (kept rows with id < 0 leave as
+    # -1 / inf), a 40-row leaf group (five group tiles) and runs past the
+    # cluster split (4,096 rows)
+    args = _t(*_k2_case(k, 32), device=cuda)
+    k = min(k, args[0].shape[0])
+    rd, ri = fused_topk_ref(*args, k=k)
+    r = l2topk_ops.route(k)
+    n0, w0 = fused_topk.launches, fused_topk.route_launches[r]
+    kd, ki = fused_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert (fused_topk.launches, fused_topk.route_launches[r]) == (n0 + 1, w0 + 1)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
